@@ -1,0 +1,286 @@
+"""The whole slice: CudaBatchVerifier(device="cpu") against the port's
+oracle, the JAX package's oracle and TpuBatchVerifier, plus its API
+(device SHA modes, bypass, overrides, async handle, metrics, default
+device) and the two import guards. Exact verdicts."""
+
+import ast
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from stellar_core_tpu.crypto import ed25519_ref as jref
+from stellar_core_tpu.crypto.keys import SecretKey as JaxSecretKey
+from stellar_core_tpu.ops import testvectors as jtv
+from stellar_core_tpu_torch.crypto import ed25519_ref as tref
+from stellar_core_tpu_torch.crypto.keys import SecretKey
+from stellar_core_tpu_torch.ops import ed25519_kernel as EK
+from stellar_core_tpu_torch.ops import testvectors as ttv
+from stellar_core_tpu_torch.ops import verifier as V
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _no_overrides(monkeypatch):
+    monkeypatch.delenv("ED25519_DEVICE_SHA", raising=False)
+    monkeypatch.delenv("VERIFY_DEVICE_MIN_BATCH", raising=False)
+
+
+def _mk(n, msg_len=32, seed=0):
+    items = []
+    for i in range(n):
+        sk = SecretKey.pseudo_random_for_testing(seed * 1000 + i)
+        msg = hashlib.sha256(b"msg%d-%d" % (seed, i)).digest()[:msg_len]
+        items.append((sk.public_key().raw, sk.sign(msg), msg))
+    return items
+
+
+def _oracle(items):
+    return [tref.verify(p, s, m) for p, s, m in items]
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    items = ttv.make_differential_vectors(8, seed=31)
+    want = _oracle(items)
+    assert want == [jref.verify(p, s, m) for p, s, m in items]
+    return items, want
+
+
+@pytest.mark.parametrize("device_sha", [True, False])
+def test_corpus_matches_oracles(corpus, device_sha):
+    """device_sha on: the 32-byte-message subset (the whole adversarial
+    tail) takes the msg32 path. Off: the whole corpus takes the host-k
+    path, which is also what device_sha on does with mixed lengths."""
+    items, want = corpus
+    if device_sha:
+        keep = [i for i, it in enumerate(items) if len(it[2]) == 32]
+        items, want = [items[i] for i in keep], [want[i] for i in keep]
+        assert len(items) > 30 and 0 < sum(want) < len(want)
+    v = V.CudaBatchVerifier(device="cpu", device_sha=device_sha)
+    assert v.verify_tuples(items) == want
+
+
+def test_matches_jax_tpu_verifier():
+    """8 tuples (bucket 8, the shape the JAX suite already compiles),
+    valid and corrupted, through JAX TpuBatchVerifier(device_sha=True)."""
+    from stellar_core_tpu.ops.verifier import TpuBatchVerifier
+    items = _mk(8, seed=41)
+    p, s, m = items[2]
+    items[2] = (p, s[:10] + bytes([s[10] ^ 1]) + s[11:], m)
+    p, s, m = items[5]
+    items[5] = (bytes([p[0] ^ 4]) + p[1:], s, m)
+    p, s, m = items[6]
+    items[6] = (p, s[:32] + bytes(32), m)
+    want = TpuBatchVerifier(device_sha=True).verify_tuples(items)
+    got = V.CudaBatchVerifier(device="cpu").verify_tuples(items)
+    assert got == [bool(x) for x in want] == _oracle(items)
+    assert sum(got) == 5
+
+
+def test_message_lengths():
+    items = []
+    for i, ln in enumerate((0, 1, 31, 32, 33, 100, 1000)):
+        sk = SecretKey.pseudo_random_for_testing(7000 + i)
+        msg = (bytes(range(256)) * 4)[:ln]
+        items.append((sk.public_key().raw, sk.sign(msg), msg))
+    items.append((items[3][0], items[3][1], items[3][2][:31] + b"!"))
+    got = V.CudaBatchVerifier(device="cpu").verify_tuples(items)
+    assert got == _oracle(items) == [True] * 7 + [False]
+
+
+def test_device_sha_selects_entry(monkeypatch):
+    calls = []
+    for name in ("verify_kernel_msg32", "verify_kernel_full"):
+        def spy(a, r, s, mk, _name=name):
+            calls.append((_name, mk.numpy().copy()))
+            return torch.zeros(a.shape[0], dtype=torch.bool)
+        monkeypatch.setattr(EK, name, spy)
+    m32 = _mk(2, seed=42)
+    mixed = m32 + _mk(1, msg_len=5, seed=43)
+    V.CudaBatchVerifier(device="cpu").verify_tuples(m32)
+    V.CudaBatchVerifier(device="cpu").verify_tuples(mixed)
+    V.CudaBatchVerifier(device="cpu", device_sha=False).verify_tuples(m32)
+    assert [c[0] for c in calls] == ["verify_kernel_msg32",
+                                     "verify_kernel_full",
+                                     "verify_kernel_full"]
+    # msg32 ships M itself; the host-k path ships k = H(R‖A‖M) mod L
+    assert calls[0][1].tobytes() == b"".join(m for _, _, m in m32)
+    for (_, got), items in ((calls[1], mixed), (calls[2], m32)):
+        want = [tref.compute_k(s[:32], p, m).to_bytes(32, "little")
+                for p, s, m in items]
+        assert got.tobytes() == b"".join(want)
+
+
+def test_small_batch_bypass(monkeypatch):
+    def boom(*a):
+        raise AssertionError("device path taken below the cutoff")
+    monkeypatch.setattr(EK, "verify_kernel_msg32", boom)
+    monkeypatch.setattr(EK, "verify_kernel_full", boom)
+    items = _mk(3, seed=44)
+    items[1] = (items[1][0], items[1][1], b"other")
+    v = V.CudaBatchVerifier(device="cpu", device_min_batch=4)
+    assert v.verify_tuples(items) == [True, False, True]
+    v.set_device_min_batch(3)
+    with pytest.raises(AssertionError, match="cutoff"):
+        v.verify_tuples(items)
+    v.set_device_min_batch(0)
+    assert v._device_min_batch == 1
+
+
+def test_env_overrides(monkeypatch):
+    monkeypatch.setenv("ED25519_DEVICE_SHA", "0")
+    monkeypatch.setenv("VERIFY_DEVICE_MIN_BATCH", "7")
+    v = V.CudaBatchVerifier(device="cpu", device_sha=True,
+                            device_min_batch=2)
+    assert v._device_sha is False and v._device_min_batch == 7
+    monkeypatch.setenv("ED25519_DEVICE_SHA", "1")
+    assert V.CudaBatchVerifier(device="cpu", device_sha=False)._device_sha
+    monkeypatch.delenv("ED25519_DEVICE_SHA")
+    monkeypatch.delenv("VERIFY_DEVICE_MIN_BATCH")
+    v = V.CudaBatchVerifier(device="cpu")
+    assert v._device_sha is True and v._device_min_batch == 1
+
+
+class _Metric:
+    def __init__(self):
+        self.values = []
+
+    def update(self, v):
+        self.values.append(v)
+
+
+class _Registry:
+    def __init__(self):
+        self.m = {}
+
+    def new_histogram(self, name):
+        return self.m.setdefault(name, _Metric())
+
+    new_timer = new_histogram
+
+
+def test_async_handle_and_metrics():
+    reg = _Registry()
+    v = V.CudaBatchVerifier(device="cpu", metrics=reg)
+    items = _mk(3, seed=45)
+    pubs = np.frombuffer(b"".join(p for p, _, _ in items), np.uint8)
+    sigs = np.frombuffer(b"".join(s for _, s, _ in items), np.uint8)
+    handle = v.verify_batch_async(pubs, sigs, [m for _, _, m in items])
+    assert callable(handle)
+    first, second = handle(), handle()
+    assert first.dtype == bool and first.tolist() == [True] * 3
+    assert second.tolist() == first.tolist()
+    assert reg.m["crypto.verify.dispatch.batch"].values == [3]
+    assert reg.m["crypto.verify.dispatch.padding"].values == [0]
+    wall = reg.m["crypto.verify.dispatch.wall"].values
+    assert len(wall) == 1 and wall[0] >= 0
+    # device 0 routes to verify_tuples_async (the bypass keeps it cheap)
+    v.set_device_min_batch(len(items) + 1)
+    assert v.verify_tuples_async_on(0, items)() == [True] * 3
+    with pytest.raises(IndexError):
+        v.verify_tuples_async_on(1, items)
+    assert v.verify_tuples([]) == []
+    assert v.verify_batch(pubs[:0], sigs[:0], []).shape == (0,)
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.CudaBatchVerifier()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.resolve_device(None)
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with the build
+    failing (no nvcc), both wrappers raise instead of computing."""
+    from stellar_core_tpu_torch.ops import _build, ladder as LD
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(_build, "lib", no_nvcc)
+    monkeypatch.setattr(LD, "_check", lambda name, *ts: cuda)
+    monkeypatch.setattr(EK, "_check", lambda name, *ts: cuda)
+    z = torch.zeros((2, 32), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        LD.ladder(z, z, z, z)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        EK.prep(z, z, z, z, EK.MODE_K)
+
+
+def test_differential_vectors_identical_to_jax_package():
+    assert ttv.make_differential_vectors(6, seed=5) == \
+        jtv.make_differential_vectors(6, seed=5)
+    for i in (0, 3):
+        a, b = SecretKey.pseudo_random_for_testing(i), \
+            JaxSecretKey.pseudo_random_for_testing(i)
+        assert a.public_key().raw == b.public_key().raw
+        assert a.sign(b"m") == b.sign(b"m")
+
+
+# ------------------------------------------------------------ guards ----
+
+_GUARD = r"""
+import sys
+before = set(sys.modules)
+sys.path.insert(0, {root!r})
+from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+from stellar_core_tpu_torch.ops.testvectors import make_differential_vectors
+items = make_differential_vectors(2)
+got = CudaBatchVerifier(device="cpu").verify_tuples(items[:3])
+assert got == [True, True, False], got
+new = set(sys.modules) - before
+bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
+             or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_subprocess():
+    """tests/conftest.py imports JAX into this process, so a fresh
+    interpreter runs the port on the CPU and lists what it imported."""
+    res = subprocess.run([sys.executable, "-c", _GUARD.format(root=str(ROOT))],
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "BAD []", res.stdout
+
+
+def _forbidden(name):
+    return name in ("jax", "jaxlib", "stellar_core_tpu") or \
+        name.startswith(("jax.", "jaxlib.", "stellar_core_tpu."))
+
+
+def test_port_sources_import_no_jax_static():
+    files = sorted((ROOT / "stellar_core_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and node.args and \
+                    isinstance(node.args[0], ast.Constant) and \
+                    getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                    in ("__import__", "import_module"):
+                names = [str(node.args[0].value)]
+            for name in names:
+                assert not _forbidden(name), f"{path}: imports {name}"
