@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. report the card (nvidia-smi name and power limit, torch and CUDA);
-2. build the kernels from ops/csrc/ with nvcc; print the build seconds
-   and the compiler's register and spill report;
+2. build the kernels from ops/csrc/ with nvcc; print the build seconds,
+   the compiler's register and spill report, and each kernel's SASS
+   instruction mix (cuobjdump -sass: IMAD.WIDE, shuffles, shared and
+   local loads, total; static counts);
 3. hold each kernel against its plain PyTorch version at n = 16384 on
    the card, byte for byte: ed25519_prep (msg32 and k modes) and
    ed25519_ladder, on lanes of which a quarter the strict checks reject
@@ -14,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
    hold prep's ok flags against the oracle's strict checks and the
    verdicts of prep -> ladder -> finish against the oracle, lane by
    lane; time each kernel (CUDA events, median of 25 launches after
-   warm-up) beside the plain version and the integer-multiply bound;
+   warm-up) beside the plain version and the integer-multiply bound
+   (with the bound's products per signature) and its launch geometry
+   (threads per signature, block, resident warps); print, on a line of
+   its own, the static product count of each kernel's schedule, which
+   the CPU tests count on the plain versions;
 4. the differential corpus (make_differential_vectors(200)) through
    CudaBatchVerifier: 0 mismatches against the oracle;
 5. the main path at width: 16384 signatures per dispatch in msg32 mode
@@ -22,14 +28,16 @@ Phases (any failure exits non-zero; nothing is caught):
    2048-signature host-k batch of mixed message lengths with every 10th
    tuple corrupted, checked against the oracle; the launch counters are
    set to 0 before each part and must equal its dispatch count;
-6. one in-flight round under torch.profiler: device busy time by kernel
-   and the device's idle share.
+6. one in-flight round under torch.profiler (after a warm-up round):
+   device busy time by kernel and the device's idle share.
 It prints one `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,9 +58,6 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 # 32x32->64 products of one field squaring and one field multiply in ten
 # radix-2^25.5 limbs (10 + 45 and 10 x 10)
 SQ_PRODUCTS, MUL_PRODUCTS = 55, 100
-# prep's decompression of A: recover_x with pow_p58 inside, and x sqrt(-1)
-PREP_SQ, PREP_MUL = 255, 18
-SC_REDUCE_MULS = 84               # msg32 mode: 14 folds of six digits
 
 
 def smi(query):
@@ -100,6 +105,39 @@ def ladder_products(s_rows, k_rows):
     return total
 
 
+def sass_mix(lib_path, nvcc):
+    """Static SASS opcode counts per function of the built library, from
+    cuobjdump beside nvcc: {function: Counter(opcode)}, or None when the
+    toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], check=True,
+                         capture_output=True, text=True).stdout
+    mix, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            mix[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and fn:
+            mix[fn][m.group(1)] += 1
+    return mix
+
+
+def geometry(info, n, sms):
+    """Launch geometry of a kernel at n signatures: resident warps per SM
+    (the occupancy limit) and the warps per SM that n fills."""
+    threads = n * info["threads_per_sig"]
+    warps = -(-threads // 32)
+    resident = info["blocks_per_sm"] * info["block"] // 32
+    return dict(info, warps_per_sm_resident=resident,
+                warps_per_sm=min(resident, warps / sms))
+
+
 def strict_flags(ref, torsion_y, pub, sig):
     """The prep kernel's ok from the oracle's primitives: S < L; A and R
     canonical and not of a torsion y; A decompresses strictly."""
@@ -120,6 +158,13 @@ def rows(tuples):
     sigs = np.frombuffer(b"".join(s for _, s, _ in tuples),
                          np.uint8).reshape(n, 64)
     return pubs, sigs, [m for _, _, m in tuples]
+
+
+def describe(info):
+    return (f"{info['threads_per_sig']} thread(s) per signature, blocks of "
+            f"{info['block']}, {info['warps_per_sm']:.2f} warps per SM at "
+            f"n={N} (resident limit {info['warps_per_sm_resident']}), "
+            f"{info['regs']} registers, {info['local_bytes']} B local")
 
 
 def median_ms(fn, reps=25, warm=3):
@@ -185,6 +230,20 @@ def main():
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
             print("  ptxas:", line.strip())
+    mix = sass_mix(_build.info["path"], _build._nvcc())
+    if mix is None:
+        print("  sass: cuobjdump not found beside nvcc (not measured)")
+    for fn, ops in sorted((mix or {}).items()):
+        def count(*prefixes):
+            return sum(c for op, c in ops.items() if op.startswith(prefixes))
+        print(f"  sass {fn}: {sum(ops.values())} instructions, IMAD.WIDE "
+              f"{count('IMAD.WIDE')}, IMAD {ops['IMAD']}, SHFL "
+              f"{count('SHFL')}, LDS {count('LDS')}, LDL/STL "
+              f"{count('LDL', 'STL')}; top {ops.most_common(6)}")
+    infos = {k: geometry(_build.kernel_info(k), N, sms)
+             for k in _build.KERNELS}
+    for k, info in infos.items():
+        print(f"  {k}: {info}")
     sys.stdout.flush()
 
     # --- signed tuples for phases 3 and 5 --------------------------------
@@ -239,8 +298,9 @@ def main():
         want, plain_ms = once_ms(lambda: EK.prep_plain(a, r, s, mk, mode))
         match = all(torch.equal(x, y) for x, y in zip(got, want))
         ms = median_ms(lambda: EK.prep(a, r, s, mk, mode))
-        products = N * (PREP_SQ * SQ_PRODUCTS + PREP_MUL * MUL_PRODUCTS
-                        + (SC_REDUCE_MULS if mode == EK.MODE_MSG32 else 0))
+        # prep's work does not depend on the data: its schedule is the
+        # fewest products the function needs
+        products = N * EK.prep_products(mode)
         bytes_ = N * (128 + 32 + 64 + 1)
         b_ops = products / imad_per_s * 1e3
         b_mem = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -253,12 +313,17 @@ def main():
             n=N, match=match, max_abs_err=max_abs_err(got, want),
             ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_mem),
             bound_by="operations" if b_ops >= b_mem else "bytes",
-            library_ms=None, launches=None))
+            library_ms=None, launches=None,
+            bound_products_per_sig=products / N,
+            bound_share=max(b_ops, b_mem) / ms, **infos["ed25519_prep"]))
         if not match:
             raise SystemExit(f"ed25519_prep[{tag}] disagrees with plain")
-        print(f"prep[{tag}] matches plain at n={N}: {ms:.3f} ms "
-              f"(plain {plain_ms:.1f} ms; bound {max(b_ops, b_mem):.4f} ms,"
-              f" {products / N:.0f} products per signature)", flush=True)
+        print(f"prep[{tag}] matches plain at n={N}: {ms:.4f} ms "
+              f"(plain {plain_ms:.1f} ms; bound {max(b_ops, b_mem):.4f} ms "
+              f"= {max(b_ops, b_mem) / ms:.4f} of the time; the bound "
+              f"counts {products / N:.0f} products per signature; "
+              f"{describe(infos['ed25519_prep'])})",
+              flush=True)
         if not torch.equal(got[2], want_ok):
             raise SystemExit(f"prep[{tag}] ok flags differ from the "
                              "oracle's strict checks")
@@ -284,12 +349,26 @@ def main():
         n=N, match=match, max_abs_err=max_abs_err(got, want),
         ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_mem),
         bound_by="operations" if b_ops >= b_mem else "bytes",
-        library_ms=None, launches=None))
+        library_ms=None, launches=None,
+        bound_products_per_sig=products / N,
+        bound_share=max(b_ops, b_mem) / ms,
+        **infos["ed25519_ladder"]))
     if not match:
         raise SystemExit("ed25519_ladder disagrees with plain")
-    print(f"ladder matches plain at n={N}: {ms:.3f} ms "
-          f"(plain {plain_ms:.1f} ms; bound {max(b_ops, b_mem):.4f} ms, "
-          f"{products / N:.0f} products per signature)", flush=True)
+    print(f"ladder matches plain at n={N}: {ms:.4f} ms "
+          f"(plain {plain_ms:.1f} ms; bound {max(b_ops, b_mem):.4f} ms = "
+          f"{max(b_ops, b_mem) / ms:.4f} of the time; the bound counts "
+          f"{products / N:.0f} products per signature; "
+          f"{describe(infos['ed25519_ladder'])})",
+          flush=True)
+    print(f"schedule products per signature (static counts of the plain "
+          f"versions' schedules, which tests/test_torch_ladder.py::"
+          f"test_plain_ladder_matches_oracle_on_edge_scalars and "
+          f"tests/test_torch_field.py::test_prep_runs_its_product_count "
+          f"check by counting field products; not measured in this run): "
+          f"ladder {LD.LADDER_PRODUCTS}, prep[msg32] "
+          f"{EK.prep_products(EK.MODE_MSG32)}, prep[k] "
+          f"{EK.prep_products(EK.MODE_K)}", flush=True)
     verdict = EK.finish(got[0], got[1], r, ok).cpu().tolist()
     bad_lanes = sum(g != w for g, w in zip(verdict, want_verdict))
     if bad_lanes:
@@ -372,14 +451,22 @@ def main():
     # --- 6. where the time goes: one in-flight round under the profiler --
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        handles = [v.verify_batch_async(pubs, sigs, msgs)
-                   for _ in range(IN_FLIGHT)]
-        for h in handles:
-            h()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def profiled_round():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            handles = [v.verify_batch_async(pubs, sigs, msgs)
+                       for _ in range(IN_FLIGHT)]
+            for h in handles:
+                h()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms
+
+    # a warm-up round under the profiler first: tracing's own start-up
+    # lands there, not in the measured round
+    profiled_round()
+    prof, wall_ms = profiled_round()
     by_name = {}
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): a CPU op's device

@@ -93,10 +93,29 @@ def lib():
             dll.ed25519_prep_launch.restype = i
             dll.ed25519_ladder_launch.argtypes = [p, p, p, p, p, p, i, p]
             dll.ed25519_ladder_launch.restype = i
+            dll.ed25519_kernel_info.argtypes = [i, ctypes.POINTER(i)]
+            dll.ed25519_kernel_info.restype = i
             dll.ed25519_error_string.argtypes = [i]
             dll.ed25519_error_string.restype = ctypes.c_char_p
             _lib = dll
         return _lib
+
+
+KERNELS = ("ed25519_prep", "ed25519_ladder")
+
+
+def kernel_info(name: str) -> dict:
+    """Launch geometry and resources of a kernel, from the CUDA runtime:
+    threads per block and per signature, resident blocks per SM,
+    registers and local (spill and stack) bytes per thread, static shared
+    bytes per block."""
+    info = (ctypes.c_int * 6)()
+    err = lib().ed25519_kernel_info(KERNELS.index(name), info)
+    if err:
+        raise RuntimeError(f"kernel_info({name}): {error_string(err)}")
+    keys = ("block", "threads_per_sig", "blocks_per_sm", "regs",
+            "local_bytes", "shared_bytes")
+    return dict(zip(keys, info))
 
 
 def error_string(err: int) -> str:

@@ -3,11 +3,12 @@
 // Replaces the fe8 field of stellar_core_tpu/ops/fe8.py (32 int32 byte
 // limbs, chosen because the TPU has no wide multiply). Hopper multiplies
 // 32x32->64 in one instruction (IMAD.WIDE), so an element is ten int32
-// limbs at bit offsets 0, 26, 51, 77, ... (widths 26, 25, 26, ...) and a
-// product is 100 such multiplies. ops/field.py is the plain version of
-// every function here, step for step; tests/test_torch_field.py proves
-// the limb bounds (no int64 column overflows, every stored limb fits
-// int32) over the op sequences of both kernels.
+// limbs at bit offsets 0, 26, 51, 77, ... (widths 26, 25, 26, ...); a
+// product is 100 such multiplies and a squaring 55 (10 squares and 45
+// doubled cross products). ops/field.py is the plain version of every
+// function here, step for step; tests/test_torch_field.py proves the limb
+// bounds (no int64 column overflows, every stored limb fits int32) over
+// the op sequences of both kernels.
 #pragma once
 #include <stdint.h>
 
@@ -24,6 +25,13 @@ __device__ __forceinline__ fe fe_const(const int32_t* c) {
   return r;
 }
 
+__device__ __forceinline__ fe fe_small(int32_t x) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = i ? 0 : x;
+  return r;
+}
+
 __device__ __forceinline__ fe fe_add(const fe& a, const fe& b) {
   fe r;
 #pragma unroll
@@ -35,6 +43,20 @@ __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
   fe r;
 #pragma unroll
   for (int i = 0; i < 10; i++) r.v[i] = a.v[i] - b.v[i];
+  return r;
+}
+
+__device__ __forceinline__ fe fe_neg(const fe& a) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = -a.v[i];
+  return r;
+}
+
+__device__ __forceinline__ fe fe_select(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = c ? a.v[i] : b.v[i];
   return r;
 }
 
@@ -62,8 +84,16 @@ __device__ __forceinline__ fe fe_carry(int64_t h[10]) {
   return r;
 }
 
-// Column sums of the 100 limb products (odd x odd products doubled),
-// columns 10..18 folded times 19 (2^255 = 19 mod p).
+// Columns 10..18 folded times 19 (2^255 = 19 mod p), then the carry.
+__device__ __forceinline__ fe fe_fold_carry(const int64_t lo[10], const int64_t hi[9]) {
+  int64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 9; k++) h[k] = lo[k] + hi[k] * 19;
+  h[9] = lo[9];
+  return fe_carry(h);
+}
+
+// Column sums of the 100 limb products (odd x odd products doubled).
 __device__ __forceinline__ fe fe_mul(const fe& f, const fe& g) {
   int32_t g2[10];
 #pragma unroll
@@ -84,14 +114,36 @@ __device__ __forceinline__ fe fe_mul(const fe& f, const fe& g) {
         hi[i + j - 10] += p;
     }
   }
-  int64_t h[10];
-#pragma unroll
-  for (int k = 0; k < 9; k++) h[k] = lo[k] + hi[k] * 19;
-  h[9] = lo[9];
-  return fe_carry(h);
+  return fe_fold_carry(lo, hi);
 }
 
-__device__ __forceinline__ fe fe_sq(const fe& a) { return fe_mul(a, a); }
+// The same column sums as fe_mul(f, f) from 55 products: f_i^2 (doubled
+// for odd i) and, for i < j, (2 f_i) f_j ((2 f_i)(2 f_j) when both are
+// odd). The doubled operands stay in int32 (|f_i| < 2^30).
+__device__ __forceinline__ fe fe_sq(const fe& f) {
+  int32_t f2[10];
+#pragma unroll
+  for (int j = 0; j < 10; j++) f2[j] = 2 * f.v[j];
+  int64_t lo[10], hi[9];
+#pragma unroll
+  for (int k = 0; k < 10; k++) lo[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 9; k++) hi[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      const int32_t a = (i == j && !(i & 1)) ? f.v[i] : f2[i];
+      const int32_t b = (i != j && (i & 1) && (j & 1)) ? f2[j] : f.v[j];
+      const int64_t p = (int64_t)a * (int64_t)b;
+      if (i + j < 10)
+        lo[i + j] += p;
+      else
+        hi[i + j - 10] += p;
+    }
+  }
+  return fe_fold_carry(lo, hi);
+}
 
 __device__ __noinline__ fe fe_nsquare(fe a, int n) {
 #pragma unroll 1
@@ -138,11 +190,11 @@ __device__ __forceinline__ fe fe_pow_p58(const fe& z) {
   return fe_mul(fe_nsquare(t, 2), z);
 }
 
-// Canonical little-endian bytes of the value in [0, p). Bias by 8p (all
-// limbs >= 0), floor-carry with the top carry folded times 19 (value <
-// 2p), q = floor((value + 19) / 2^255), add 19q, floor-carry, drop bit
-// 255. Same steps as field.canon_limbs.
-__device__ __forceinline__ void fe_tobytes(uint8_t out[32], const fe& f) {
+// Canonical value in [0, p) as four little-endian 64-bit words. Bias by
+// 8p (all limbs >= 0), floor-carry with the top carry folded times 19
+// (value < 2p), q = floor((value + 19) / 2^255), add 19q, floor-carry,
+// drop bit 255. Same steps as field.canon_limbs.
+__device__ __forceinline__ void fe_towords(uint64_t w[4], const fe& f) {
   int64_t h[10];
 #pragma unroll
   for (int i = 0; i < 10; i++)
@@ -167,8 +219,9 @@ __device__ __forceinline__ void fe_tobytes(uint8_t out[32], const fe& f) {
     h[i] -= c * (1LL << FE_W(i));
   }
   h[9] -= (h[9] >> 25) * (1LL << 25);
-  uint64_t w[4] = {0, 0, 0, 0};
   const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+#pragma unroll
+  for (int i = 0; i < 4; i++) w[i] = 0;
 #pragma unroll
   for (int i = 0; i < 10; i++) {
     const uint64_t v = (uint64_t)h[i];
@@ -176,24 +229,10 @@ __device__ __forceinline__ void fe_tobytes(uint8_t out[32], const fe& f) {
     w[wi] |= v << sh;
     if (sh + FE_W(i) > 64) w[wi + 1] |= v >> (64 - sh);
   }
-#pragma unroll
-  for (int b = 0; b < 32; b++) out[b] = (uint8_t)(w[b >> 3] >> (8 * (b & 7)));
 }
 
-__device__ __forceinline__ void load_words(uint64_t w[4], const uint8_t b[32]) {
-#pragma unroll
-  for (int i = 0; i < 4; i++) {
-    uint64_t x = 0;
-#pragma unroll
-    for (int j = 7; j >= 0; j--) x = (x << 8) | b[8 * i + j];
-    w[i] = x;
-  }
-}
-
-// The low 255 bits of 32 little-endian bytes (bit 255 is ignored).
-__device__ __forceinline__ fe fe_frombytes(const uint8_t b[32]) {
-  uint64_t w[4];
-  load_words(w, b);
+// The low 255 bits of four little-endian words (bit 255 is ignored).
+__device__ __forceinline__ fe fe_fromwords(const uint64_t w[4]) {
   const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
   fe r;
 #pragma unroll
@@ -206,20 +245,21 @@ __device__ __forceinline__ fe fe_frombytes(const uint8_t b[32]) {
   return r;
 }
 
-__device__ __forceinline__ bool bytes_is_zero(const uint8_t b[32]) {
-  uint8_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < 32; i++) acc |= b[i];
-  return acc == 0;
+__device__ __forceinline__ bool words_is_zero(const uint64_t w[4]) {
+  return (w[0] | w[1] | w[2] | w[3]) == 0;
 }
 
-// Little-endian b < c (both 32 bytes).
-__device__ __forceinline__ bool bytes_lt(const uint8_t b[32], const uint8_t* c) {
+// Little-endian 256-bit a < c.
+__device__ __forceinline__ bool words_lt(const uint64_t a[4], const uint64_t* c) {
   bool lt = false, eq = true;
 #pragma unroll
-  for (int i = 31; i >= 0; i--) {
-    lt = lt || (eq && b[i] < c[i]);
-    eq = eq && b[i] == c[i];
+  for (int i = 3; i >= 0; i--) {
+    lt = lt || (eq && a[i] < c[i]);
+    eq = eq && a[i] == c[i];
   }
   return lt;
+}
+
+__device__ __forceinline__ bool words_eq(const uint64_t a[4], const uint64_t* c) {
+  return ((a[0] ^ c[0]) | (a[1] ^ c[1]) | (a[2] ^ c[2]) | (a[3] ^ c[3])) == 0;
 }

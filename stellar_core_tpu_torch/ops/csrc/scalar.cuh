@@ -31,16 +31,16 @@ __device__ __forceinline__ void sc_carry_floor(int64_t s[24], int i) {
   s[i] -= c * (1LL << 21);
 }
 
-// bits off .. off+w of 64 little-endian bytes (w <= 29)
-__device__ __forceinline__ int64_t sc_bits(const uint8_t d[64], int off, int w) {
-  const int b0 = off >> 3, b1 = (off + w - 1) >> 3;
-  uint64_t t = 0;
-#pragma unroll
-  for (int j = b1; j >= b0; j--) t = (t << 8) | d[j];
-  return (int64_t)((t >> (off - 8 * b0)) & ((1ULL << w) - 1));
+// bits off .. off+w of a 512-bit little-endian value in words (w <= 29)
+__device__ __forceinline__ int64_t sc_bits(const uint64_t d[8], int off, int w) {
+  const int wi = off >> 6, sh = off & 63;
+  uint64_t t = d[wi] >> sh;
+  if (sh + w > 64) t |= d[wi + 1] << (64 - sh);
+  return (int64_t)(t & ((1ULL << w) - 1));
 }
 
-__device__ __forceinline__ void sc_reduce(uint8_t out[32], const uint8_t d[64]) {
+// d (eight little-endian words) mod L -> four little-endian words.
+__device__ __forceinline__ void sc_reduce(uint64_t out[4], const uint64_t d[8]) {
   int64_t s[24];
 #pragma unroll
   for (int i = 0; i < 23; i++) s[i] = sc_bits(d, 21 * i, 21);
@@ -64,14 +64,13 @@ __device__ __forceinline__ void sc_reduce(uint8_t out[32], const uint8_t d[64]) 
 #pragma unroll
   for (int i = 0; i < 11; i++) sc_carry_floor(s, i);
   // pack twelve 21-bit limbs (the last below 2^22) into 256 bits
-  uint64_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 4; i++) out[i] = 0;
 #pragma unroll
   for (int i = 0; i < 12; i++) {
     const uint64_t v = (uint64_t)s[i];
     const int off = 21 * i, wi = off >> 6, sh = off & 63;
-    w[wi] |= v << sh;
-    if (sh + 25 > 64 && wi < 3) w[wi + 1] |= v >> (64 - sh);
+    out[wi] |= v << sh;
+    if (sh + 25 > 64 && wi < 3) out[wi + 1] |= v >> (64 - sh);
   }
-#pragma unroll
-  for (int b = 0; b < 32; b++) out[b] = (uint8_t)(w[b >> 3] >> (8 * (b & 7)));
 }

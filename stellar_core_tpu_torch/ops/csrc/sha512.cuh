@@ -34,22 +34,25 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
   return (x >> n) | (x << (64 - n));
 }
 
-__device__ __forceinline__ uint64_t load_be64(const uint8_t* p) {
-  uint64_t x = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) x = (x << 8) | p[j];
-  return x;
+// Byte swap: a little-endian row word <-> the big-endian word SHA-512
+// reads from the same eight bytes.
+__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
+  const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  return ((uint64_t)__byte_perm(lo, 0, 0x0123) << 32) | __byte_perm(hi, 0, 0x0123);
 }
 
-// SHA-512 of r(32) ‖ a(32) ‖ m(32): one block, constant padding.
-__device__ __forceinline__ void sha512_96(uint8_t digest[64], const uint8_t r[32],
-                                          const uint8_t a[32], const uint8_t m[32]) {
+// SHA-512 of r(32) ‖ a(32) ‖ m(32): one block, constant padding. Inputs
+// are rows as little-endian words; the digest comes back the same way
+// (word i holds digest bytes 8i .. 8i+7, little-endian), as sc_reduce
+// reads it.
+__device__ __forceinline__ void sha512_96(uint64_t digest[8], const uint64_t r[4],
+                                          const uint64_t a[4], const uint64_t m[4]) {
   uint64_t w[16];
 #pragma unroll
   for (int i = 0; i < 4; i++) {
-    w[i] = load_be64(r + 8 * i);
-    w[4 + i] = load_be64(a + 8 * i);
-    w[8 + i] = load_be64(m + 8 * i);
+    w[i] = bswap64(r[i]);
+    w[4 + i] = bswap64(a[i]);
+    w[8 + i] = bswap64(m[i]);
   }
   w[12] = 0x8000000000000000ULL;  // byte 96 = 0x80
   w[13] = 0;
@@ -87,7 +90,5 @@ __device__ __forceinline__ void sha512_96(uint8_t digest[64], const uint8_t r[32
   const uint64_t out[8] = {a_ + iv[0], b_ + iv[1], c_ + iv[2], d_ + iv[3],
                            e_ + iv[4], f_ + iv[5], g_ + iv[6], h_ + iv[7]};
 #pragma unroll
-  for (int i = 0; i < 8; i++)
-#pragma unroll
-    for (int j = 0; j < 8; j++) digest[8 * i + j] = (uint8_t)(out[i] >> (56 - 8 * j));
+  for (int i = 0; i < 8; i++) digest[i] = bswap64(out[i]);
 }

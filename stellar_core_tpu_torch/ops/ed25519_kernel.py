@@ -19,14 +19,15 @@ flag logic of _verify_full. One thread per signature: in msg32 mode it
 hashes R‖A‖M (one SHA-512 block on native uint64 words) and reduces
 mod L (ref10 sc_reduce in int64); in k mode it copies k through. Then
 it decompresses A (255 squarings + 18 multiplies on the field of
-csrc/field.cuh). What bounds it on the H100: integer multiplies —
-those 273 field products, each run as 100 IMAD.WIDE (a dedicated
-squaring would need 55), plus 80 SHA-512 rounds of 64-bit adds,
-rotates and logic on the other integer pipe. It moves 225 bytes per
-signature, nothing beside the arithmetic. Its design keeps the whole
-chain in registers and its constants (round constants, d, sqrt(-1), L,
-the five torsion y values) in constant memory, which every thread reads
-at the same index at the same time.
+csrc/field.cuh). What bounds it on the H100: integer multiplies — 255
+squarings at 55 IMAD.WIDE and 18 multiplies at 100 (`prep_products`),
+plus 80 SHA-512 rounds of 64-bit adds, rotates and logic on the other
+integer pipe. It moves 225 bytes per signature. Its design keeps rows
+as 64-bit words from 16-byte loads (SHA-512 byte-swaps them into its
+big-endian words; the compares with L, p and the torsion y values work
+on words), the whole chain in registers, and its constants in constant
+memory, which every thread reads at the same index at the same time.
+The 250-squaring chain is serial, so a signature stays on one thread.
 
 `prep_plain` runs the same steps on int64 tensors (ops/field.py and
 ops/sha512.py); it is what the wrappers use for CPU tensors.
@@ -44,6 +45,17 @@ from ..crypto import ed25519_ref as _ref
 
 MODE_MSG32 = 0     # k = SHA512(R‖A‖M) mod L, M is 32 bytes
 MODE_K = 1         # k given
+
+# field products per signature: decompression is recover_x (pow_p58
+# inside) and x sqrt(-1); msg32 mode adds sc_reduce's 84 digit products
+PREP_SQS, PREP_MULS, SC_REDUCE_MULS = 255, 18, 84
+
+
+def prep_products(mode: int) -> int:
+    """32x32->64 products one signature of prep runs in this mode."""
+    return (55 * PREP_SQS + 100 * PREP_MULS
+            + (SC_REDUCE_MULS if mode == MODE_MSG32 else 0))
+
 
 _P_BYTES = [(_ref.P >> (8 * i)) & 0xFF for i in range(32)]
 _L_BYTES = [(_ref.L >> (8 * i)) & 0xFF for i in range(32)]

@@ -4,7 +4,8 @@ Counterpart of stellar_core_tpu/ops/fe8.py. The TPU code used 32 int32
 byte limbs because the TPU has no wide multiply; Hopper has 32x32->64
 integer multiplies (IMAD.WIDE), so the port uses the ref10 layout: limb i
 holds bits OFFSETS[i] .. OFFSETS[i] + WIDTHS[i] (widths 26, 25, 26, ...),
-and a product is 100 32x32->64 multiplies plus one carry chain.
+and a product is 100 32x32->64 multiplies plus one carry chain (a
+squaring 55: ref10's fe_sq, `sq`).
 
 This module is the plain PyTorch version of csrc/field.cuh, step for
 step: the same limbs, the same column sums, the same carry order. A field
@@ -79,6 +80,11 @@ def sub(a, b) -> tuple:
     return tuple(x - y for x, y in zip(a, b))
 
 
+def _fold_carry(lo, hi) -> tuple:
+    """Columns 10..18 folded times 19 into 0..8, then `carry`."""
+    return carry([lo[k] + hi[k] * 19 for k in range(9)] + [lo[9]])
+
+
 def mul(f, g) -> tuple:
     """f * g: column sums of the 100 limb products (odd x odd products
     doubled, since 2^OFFSETS[i] * 2^OFFSETS[j] = 2 * 2^OFFSETS[i+j] when
@@ -94,11 +100,27 @@ def mul(f, g) -> tuple:
                 lo[i + j] = lo[i + j] + p
             else:
                 hi[i + j - 10] = hi[i + j - 10] + p
-    return carry([lo[k] + hi[k] * 19 for k in range(9)] + [lo[9]])
+    return _fold_carry(lo, hi)
 
 
-def sq(a) -> tuple:
-    return mul(a, a)
+def sq(f) -> tuple:
+    """f * f from 55 products (ref10 fe_sq): f_i^2 (doubled for odd i)
+    and, for i < j, (2 f_i) f_j, or (2 f_i)(2 f_j) when both are odd — the
+    same column sums as mul(f, f), so the same limbs come out. The doubled
+    operands are int32 in the kernel."""
+    f2 = tuple(x * 2 for x in f)
+    lo = [0] * 10
+    hi = [0] * 9
+    for i in range(10):
+        for j in range(i, 10):
+            a = f[i] if i == j and not i & 1 else f2[i]
+            b = f2[j] if i != j and i & 1 and j & 1 else f[j]
+            p = a * b
+            if i + j < 10:
+                lo[i + j] = lo[i + j] + p
+            else:
+                hi[i + j - 10] = hi[i + j - 10] + p
+    return _fold_carry(lo, hi)
 
 
 def nsquare(a, n: int) -> tuple:

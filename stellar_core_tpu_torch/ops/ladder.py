@@ -1,32 +1,38 @@
 """[S]B + [k](-A): the `ed25519_ladder` kernel wrapper and its plain version.
 
 Replaces stellar_core_tpu/ops/ed25519_pallas.py::ladder (the Pallas body
-`_ladder_kernel`), and with `ed25519_kernel.finish` the XLA
-`double_scalarmult_w2` + `compress` of the JAX main path.
+`_ladder_kernel`, a 1-bit ladder over all 256 bits), and with
+`ed25519_kernel.finish` the XLA `double_scalarmult_w2` + `compress` of the
+JAX main path.
 
-Kernel (csrc/ed25519.cu::ed25519_ladder, one thread per signature):
-- a 1-bit ladder over all 256 bits of S and k, msb first, as the Pallas
-  kernel does: a dedicated doubling, then a complete cached addition of
-  one of {identity, B, -A, B-A} picked by the two bits with selects (no
-  data-dependent branch), so lanes with an invalid -A still finish and
-  are masked by the prep flag; then Z^-1 by the fe8.invert chain and
-  canonical affine bytes of x and y.
-- What bounds it on the H100: integer multiplies. Per signature, 256
-  iterations of 8 (doubling) + 8 (addition) field products, 265 for the
-  inversion and a few for the table: about 4,370 products, each run as
-  100 32x32->64 multiplies (IMAD.WIDE), squarings included. The
-  function needs about half that: with 55-multiply squarings and the
-  point operations of a width-5 NAF schedule, about 216,000 IMAD.WIDE
-  per signature (chip_smoke.ladder_products). Memory traffic is 192
-  bytes per signature, nothing beside the arithmetic. The design keeps
-  every field element in registers (ten int32 limbs) and keeps B and
-  the identity, two of the four table entries, in constant memory;
-  n = 16384 gives
-  only about four warps per SM, so latency hiding rests on the 100
-  independent products inside each field multiply.
+Kernel (csrc/ed25519.cu::ed25519_ladder_kernel):
+- Schedule: interleaved (Straus) signed radix 16 over both scalars. S and
+  k are each recoded into 65 digits in [-8, 8) (`recode`; all 256 bits,
+  so S up to 2^256 - 1 works). From the top window down: four doublings
+  (the three that feed another doubling skip T: ref10's p2 -> p1p1 ->
+  p2), a mixed addition of |e|B from a constant table of B's multiples
+  in niels form, and a cached addition of |f|(-A) from a per-lane table
+  of 1..8 times -A. A negative digit swaps y+x / y-x and negates the
+  2d term; digit 0 selects the identity, so no lane branches on data.
+  Then Z^-1 and canonical affine bytes. LADDER_PRODUCTS counts the field
+  products per signature (a multiply is 100 32x32->64 products, a
+  squaring 55): 252,290, against 437,400 for a 1-bit ladder over
+  256 bits that squares with the multiply.
+- Layout: four lanes per signature, lane r holding coordinate r of the
+  point (csrc/point.cuh); each point operation is one round of four
+  independent field products with operands exchanged by warp shuffles,
+  so n = 16384 gives four times the warps of one lane per signature.
+  The per-lane table of -A (8 x 40 int32 per signature) lives in shared
+  memory, laid out so that the 32 lanes of a warp hit 32 banks; B's
+  table and the digits sit there too. Z^-1, a serial chain, runs on one
+  thread per signature after the block regroups the points through
+  shared memory, so one warp per block does it with all lanes busy.
+- What bounds it on the H100: integer multiplies (IMAD.WIDE); memory
+  traffic is 192 bytes per signature.
 
-The plain version (`ladder_plain`) runs the same point formulas, bit
-order and field code (ops/field.py) on int64 tensors.
+The plain version (`ladder_plain`) runs the same digits, formulas, table
+and field code (ops/field.py) on int64 tensors; the thread layout does
+not change what any product computes.
 """
 
 from __future__ import annotations
@@ -37,54 +43,91 @@ from . import _build
 from . import field as F
 from ..crypto import ed25519_ref as _ref
 
+WINDOWS = 65            # signed radix-16 digits per scalar (256 bits + 1)
 
-def _affine_const(pt):
-    x, y, z, _ = pt
+
+def _niels(j: int):
+    """Affine niels form (y+x, y-x, 2dxy) of jB as canonical limbs."""
+    x, y, z, _ = _ref.pt_mul(j, _ref.BASE)
     zi = pow(z, _ref.P - 2, _ref.P)
-    ax, ay = x * zi % _ref.P, y * zi % _ref.P
-    return (F.const(ax), F.const(ay), F.ONE, F.const(ax * ay % _ref.P))
+    x, y = x * zi % _ref.P, y * zi % _ref.P
+    return (F.const(y + x), F.const(y - x), F.const(2 * _ref.D * x * y))
 
 
-BASE = _affine_const(_ref.BASE)
-IDENT = (F.ZERO, F.ONE, F.ONE, F.ZERO)
+NIELS_B = tuple(_niels(j) for j in range(1, 9))    # 1B .. 8B
+IDENT_P3 = (F.ZERO, F.ONE, F.ONE, F.ZERO)
+IDENT_NIELS = (F.ONE, F.ONE, F.ZERO)
+IDENT_CACHED = (F.ONE, F.ONE, F.ZERO, F.ONE)
+
+# field products per signature on the kernel's schedule: the table of -A
+# (T of -A, 2dT of 8 entries, 7 cached additions with p3 conversion), the
+# top window (madd + add from the identity), 64 windows of 4 doublings
+# (4 squarings + 3 or 4 multiplies each), a madd and an add with their
+# conversions, Z^-1 and x, y
+LADDER_MULS = (1 + 8 + 7 * 8) + (7 + 7) + 64 * (3 + 3 + 3 + 4 + 7 + 7) + 11 + 2
+LADDER_SQS = 64 * 16 + 254
+LADDER_PRODUCTS = 100 * LADDER_MULS + 55 * LADDER_SQS
 
 
 def dbl(p):
-    """Dedicated doubling (dbl-2008-hwcd, a = -1, all four outputs scaled
-    by -1), as ed25519_kernel.ge_dbl_w: 4 squarings + 4 products."""
-    x1, y1, z1, _ = p
-    a = F.sq(x1)
-    b = F.sq(y1)
-    zz = F.sq(z1)
-    e0 = F.sq(F.add(x1, y1))
-    c = F.add(zz, zz)
-    s1 = F.add(a, b)
-    e = F.sub(e0, s1)
-    g = F.sub(b, a)
-    f = F.sub(c, g)
-    return (F.mul(e, f), F.mul(g, s1), F.mul(f, g), F.mul(e, s1))
+    """p2 or p3 -> p1p1 (ref10 ge_p2_dbl): 4 squarings."""
+    x, y, z = p[:3]
+    xx, yy, zz, aa = F.sq(x), F.sq(y), F.sq(z), F.sq(F.add(x, y))
+    y3, z3 = F.add(yy, xx), F.sub(yy, xx)
+    return (F.sub(aa, y3), y3, z3, F.sub(F.add(zz, zz), z3))
 
 
-def to_cached(q):
-    """(X, Y, Z, T) -> (Y+X, Y-X, 2Z, 2dT), as ed25519_kernel.to_cached."""
-    x, y, z, t = q
-    return (F.add(y, x), F.sub(y, x), F.add(z, z), F.mul(t, F.D2))
+def p1p1_to_p2(c):
+    x, y, z, t = c
+    return (F.mul(x, t), F.mul(y, z), F.mul(z, t))
 
 
-def add_cached(p, cq):
-    """Complete addition of a cached operand (add-2008-hwcd-3), as
-    ed25519_kernel.ge_add_cached: 8 products."""
-    x1, y1, z1, t1 = p
-    yx2, ym2, z22, t2d = cq
-    a = F.mul(F.sub(y1, x1), ym2)
-    b = F.mul(F.add(y1, x1), yx2)
-    c = F.mul(t1, t2d)
-    d = F.mul(z1, z22)
-    e = F.sub(b, a)
-    f = F.sub(d, c)
-    g = F.add(d, c)
-    h = F.add(b, a)
-    return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
+def p1p1_to_p3(c):
+    x, y, z, t = c
+    return (F.mul(x, t), F.mul(y, z), F.mul(z, t), F.mul(x, y))
+
+
+def _combine(a, b, c, d):
+    return (F.sub(a, b), F.add(a, b), F.add(d, c), F.sub(d, c))
+
+
+def madd(p, n):
+    """p3 + niels -> p1p1 (ref10 ge_madd): 3 products, D = 2Z."""
+    x, y, z, t = p
+    ypx, ymx, xy2d = n
+    return _combine(F.mul(F.add(y, x), ypx), F.mul(F.sub(y, x), ymx),
+                    F.mul(t, xy2d), F.add(z, z))
+
+
+def add_cached(p, c):
+    """p3 + cached -> p1p1 (ref10 ge_add): 4 products, D = 2 Z Z2."""
+    x, y, z, t = p
+    ypx, ymx, t2d, z2 = c
+    zz = F.mul(z, z2)
+    return _combine(F.mul(F.add(y, x), ypx), F.mul(F.sub(y, x), ymx),
+                    F.mul(t, t2d), F.add(zz, zz))
+
+
+def to_cached(p):
+    """p3 -> cached (Y+X, Y-X, 2dT, Z)."""
+    x, y, z, t = p
+    return (F.add(y, x), F.sub(y, x), F.mul(t, F.D2), z)
+
+
+def recode(b: torch.Tensor) -> torch.Tensor:
+    """(n,32) uint8 little-endian scalars -> (n,65) int64 signed radix-16
+    digits: digit i in [-8, 8) for i < 64, digit 64 in {0, 1}, and
+    sum(d_i 16^i) equals the scalar. The kernel recodes the same way."""
+    b64 = b.to(torch.int64)
+    out = torch.empty((b.shape[0], WINDOWS), dtype=torch.int64,
+                      device=b.device)
+    c = torch.zeros_like(b64[:, 0])
+    for i in range(64):
+        d = ((b64[:, i >> 1] >> (4 * (i & 1))) & 15) + c
+        c = (d + 8) >> 4
+        out[:, i] = d - (c << 4)
+    out[:, 64] = c
+    return out
 
 
 def _lanes(fe, n: int, device):
@@ -93,30 +136,55 @@ def _lanes(fe, n: int, device):
                                  device=device) for x in fe)
 
 
+def _stack(entry, n: int, device) -> torch.Tensor:
+    """A table entry (tuple of field elements) -> (n, coords, 10)."""
+    return torch.stack([torch.stack(_lanes(c, n, device), 1)
+                        for c in entry], 1)
+
+
+def _select(table: torch.Tensor, digit: torch.Tensor):
+    """Entry |digit| of table (n, 9, coords, 10), entry 0 the identity,
+    negated where digit < 0 -> tuple of field elements."""
+    n = digit.shape[0]
+    t = table[torch.arange(n, device=digit.device), digit.abs()]
+    flip = torch.cat([t[:, 1:2], t[:, 0:1], -t[:, 2:3], t[:, 3:]], 1)
+    t = torch.where((digit < 0)[:, None, None], flip, t)
+    return tuple(tuple(t[:, c, j] for j in range(10))
+                 for c in range(t.shape[1]))
+
+
+def neg_a_table(nax, nay):
+    """Cached 1..8 times the point (nax, nay) (limbs), as the kernel
+    builds it: A1 = (x, y, 1, xy), A(j+1) = A(j) + cached(A1)."""
+    p = (nax, nay, F.ONE, F.mul(nax, nay))
+    c1 = to_cached(p)
+    out = [c1]
+    for _ in range(7):
+        p = p1p1_to_p3(add_cached(p, c1))
+        out.append(to_cached(p))
+    return out
+
+
 def ladder_plain(s, k, neg_ax, neg_ay):
     """Plain version: (n,32) uint8 S, k, -A x, -A y -> canonical (x, y)
     bytes of [S]B + [k](-A), each (n,32) uint8."""
     n, dev = s.shape[0], s.device
-    nax = F.from_bytes(neg_ax)
-    nay = F.from_bytes(neg_ay)
-    c_a = to_cached((nax, nay, F.ONE, F.mul(nax, nay)))
-    table = [to_cached(IDENT), to_cached(BASE), c_a,
-             to_cached(add_cached(BASE, c_a))]
-    table = [tuple(_lanes(c, n, dev) for c in e) for e in table]
-    s64 = s.to(torch.int64)
-    k64 = k.to(torch.int64)
-    p = tuple(_lanes(c, n, dev) for c in IDENT)
-    for bit in range(255, -1, -1):
-        byte, sh = bit >> 3, bit & 7
-        idx = ((s64[:, byte] >> sh) & 1) + 2 * ((k64[:, byte] >> sh) & 1)
-        is1, is2, is3 = idx == 1, idx == 2, idx == 3
-        q = tuple(tuple(
-            torch.where(is3, t3, torch.where(is2, t2, torch.where(is1, t1,
-                                                                  t0)))
-            for t0, t1, t2, t3 in zip(*(e[c] for e in table)))
-            for c in range(4))
-        p = add_cached(dbl(p), q)
-    x, y, z, _ = p
+    tab_a = torch.stack([_stack(c, n, dev) for c in
+                         [IDENT_CACHED] + neg_a_table(F.from_bytes(neg_ax),
+                                                      F.from_bytes(neg_ay))],
+                        1)
+    tab_b = torch.stack([_stack(e, n, dev) for e in
+                         (IDENT_NIELS,) + NIELS_B], 1)
+    es, fs = recode(s), recode(k)
+    p = tuple(_lanes(c, n, dev) for c in IDENT_P3)
+    for i in range(WINDOWS - 1, -1, -1):
+        if i < WINDOWS - 1:
+            for d in range(4):
+                c = dbl(p)
+                p = p1p1_to_p3(c) if d == 3 else p1p1_to_p2(c)
+        p = p1p1_to_p3(madd(p, _select(tab_b, es[:, i])))
+        p = p1p1_to_p2(add_cached(p, _select(tab_a, fs[:, i])))
+    x, y, z = p
     zi = F.invert(z)
     return F.to_bytes(F.mul(x, zi)), F.to_bytes(F.mul(y, zi))
 

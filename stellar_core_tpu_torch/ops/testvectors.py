@@ -24,6 +24,8 @@ from __future__ import annotations
 import hashlib
 from typing import List, Tuple
 
+import numpy as np
+
 from ..crypto import ed25519_ref as ref
 from ..crypto.keys import SecretKey
 
@@ -114,3 +116,27 @@ def make_differential_vectors(n_random: int = 10000,
 
 def oracle_results(items: Tuples) -> List[bool]:
     return [ref.verify(p, s, m) for p, s, m in items]
+
+
+def edge_scalar_lanes() -> dict:
+    """16 ladder lanes whose S and k run over 0, 1, L-1 and 2^256-1, each
+    against each; lane i has A = (1000 + 7i)B. (n, 32) uint8 rows of
+    little-endian bytes under "s", "k", "neg_ax" and "neg_ay" (affine -A),
+    "a" (A's encoding) and "r" (2A's); the points A under "points"."""
+    edges = (0, 1, ref.L - 1, 2**256 - 1)
+    lanes = {key: [] for key in ("s", "k", "neg_ax", "neg_ay", "a", "r")}
+    points = []
+    for i, (sv, kv) in enumerate((a, b) for a in edges for b in edges):
+        pt = ref.pt_mul(1000 + 7 * i, ref.BASE)
+        x, y, z, _ = ref.pt_neg(pt)
+        zi = pow(z, ref.P - 2, ref.P)
+        for key, v in (("s", sv), ("k", kv), ("neg_ax", x * zi % ref.P),
+                       ("neg_ay", y * zi % ref.P)):
+            lanes[key].append(v.to_bytes(32, "little"))
+        lanes["a"].append(ref.pt_compress(pt))
+        lanes["r"].append(ref.pt_compress(ref.pt_double(pt)))
+        points.append(pt)
+    out = {key: np.frombuffer(b"".join(v), np.uint8).reshape(-1, 32).copy()
+           for key, v in lanes.items()}
+    out["points"] = points
+    return out

@@ -76,6 +76,22 @@ def test_mul_sq_sub_vs_python_ints():
         [(x + y) % P for x, y in zip(a_v, b_v)]
 
 
+def test_sq_equals_mul_limbs():
+    """The 55-product squaring gives the limbs of mul(a, a) exactly (not
+    only mod p), and a^2 mod p, on random signed limbs anywhere in WIDE
+    and on edge limbs (the bounds of WIDE, 0, +-1, mixed signs)."""
+    rng = np.random.default_rng(11)
+    cols = rng.integers(-2**27, 2**27 + 1, (10, 64)).tolist()
+    for lo, hi in ((-2**27, 2**27), (2**27, 2**27), (-2**27, -2**27),
+                   (0, 0), (1, -1), (2**27, -2**27)):
+        for i in range(10):
+            cols[i] += [lo if i % 2 else hi, hi if i % 3 else lo]
+    a = tuple(torch.tensor(c, dtype=torch.int64) for c in cols)
+    got, want = F.sq(a), F.mul(a, a)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert [x % P for x in _to_int(got)] == [x * x % P for x in _to_int(a)]
+
+
 def test_invert_and_pow_p58_vs_python_ints():
     vals = _random(6, 3) + [1, 2, P - 1]
     z = F.from_bytes(_enc(vals))
@@ -134,22 +150,36 @@ def _c_table(name):
     return [int(x, 0) for x in re.findall(r"-?0x[0-9a-f]+|-?\d+", m.group(1))]
 
 
+def _words(byte_rows):
+    """Little-endian 64-bit words of 32-byte values."""
+    out = []
+    for row in byte_rows:
+        v = int.from_bytes(bytes(row), "little")
+        out += [(v >> (64 * i)) & (2**64 - 1) for i in range(4)]
+    return out
+
+
 def test_cuda_constants_match_plain_values():
     assert _c_table("C_D") == list(F.D)
     assert _c_table("C_D2") == list(F.D2)
     assert _c_table("C_SQRT_M1") == list(F.SQRT_M1)
-    bx, by, _, bt = LD.BASE
-    assert _c_table("C_BASE_X") == list(bx)
-    assert _c_table("C_BASE_Y") == list(by)
-    assert _c_table("C_BASE_T") == list(bt)
-    assert _c_table("C_CACHED_B") == [x for fe in LD.to_cached(LD.BASE)
-                                      for x in fe]
-    assert _c_table("C_CACHED_ID") == [x for fe in LD.to_cached(LD.IDENT)
-                                       for x in fe]
-    assert _c_table("C_L") == EK._L_BYTES
-    assert _c_table("C_P") == EK._P_BYTES
-    assert _c_table("C_TORSION_Y") == [b for y in EK.TORSION_Y_BYTES
-                                       for b in y]
+    assert _c_table("C_NIELS_B") == [x for e in LD.NIELS_B for fe in e
+                                     for x in fe]
+    assert _c_table("C_L") == _words([EK._L_BYTES])
+    assert _c_table("C_P") == _words([EK._P_BYTES])
+    assert _c_table("C_TORSION_Y") == _words(EK.TORSION_Y_BYTES)
+
+
+def test_niels_table_is_multiples_of_base():
+    """B's niels table holds (y+x, y-x, 2dxy) of 1B .. 8B."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    acc = ref.IDENTITY
+    for ypx, ymx, xy2d in LD.NIELS_B:
+        acc = ref.pt_add(acc, ref.BASE)
+        zi = pow(acc[2], P - 2, P)
+        x, y = acc[0] * zi % P, acc[1] * zi % P
+        assert [F.const(y + x), F.const(y - x), F.const(2 * ref.D * x * y)] \
+            == [ypx, ymx, xy2d]
 
 
 # --------------------------------------------- limb-bound proof -----------
@@ -227,7 +257,7 @@ def within(a, b):
 
 @pytest.fixture
 def interval_field(monkeypatch):
-    mul, add, sub = F.mul, F.add, F.sub
+    mul, sq, add, sub = F.mul, F.sq, F.add, F.sub
 
     def checked_mul(f, g):
         assert within(f, WIDE) and within(g, WIDE)
@@ -237,11 +267,21 @@ def interval_field(monkeypatch):
             assert -2**30 <= x.lo and x.hi < 2**30
         return _fits32(mul(f, g))
 
+    def checked_sq(f):
+        assert within(f, WIDE)
+        for x in f:        # the kernel doubles every limb in int32
+            x = Interval.of(x)
+            assert -2**30 <= x.lo and x.hi < 2**30
+        return _fits32(sq(f))
+
     monkeypatch.setattr(F, "_carry", _icarry)
     monkeypatch.setattr(F, "mul", checked_mul)
+    monkeypatch.setattr(F, "sq", checked_sq)
     monkeypatch.setattr(F, "add", lambda a, b: _fits32(add(a, b)))
     monkeypatch.setattr(F, "sub", lambda a, b: _fits32(sub(a, b)))
-    return F.mul(WIDE, WIDE)          # MUL_OUT: the bound of every product
+    out = F.mul(WIDE, WIDE)
+    assert within(F.sq(WIDE), out)
+    return out                        # MUL_OUT: the bound of every product
 
 
 BYTES = tuple(Interval(0, (1 << w) - 1) for w in F.WIDTHS)   # from_bytes
@@ -258,27 +298,39 @@ def _canon_ok(h):
 
 
 def test_mul_output_bound(interval_field):
-    """Every product lies in MUL_OUT (interval arithmetic is monotone and
-    every operand lies in WIDE), and MUL_OUT lies in WIDE."""
+    """Every product and squaring lies in MUL_OUT (interval arithmetic is
+    monotone and every operand lies in WIDE), and MUL_OUT lies in WIDE."""
     mul_out = interval_field
     assert within(mul_out, WIDE)
     assert max(max(-x.lo, x.hi) for x in mul_out) <= 2**25 + 2**6
 
 
+def _pm_hull(entries):
+    """Hull of table entries and their negations (y+x and y-x swapped,
+    the 2d term negated), as the kernel selects them."""
+    neg = [(e[1], e[0], F.sub(F.ZERO, e[2])) + tuple(e[3:]) for e in entries]
+    return tuple(hull(*cols) for cols in zip(*(list(entries) + neg)))
+
+
 def test_ladder_op_sequence_bounds(interval_field):
-    """One ladder iteration maps mul-output bounds into themselves, so
-    all 256 do; the table, the inversion and the output stay in range."""
+    """One window of the ladder (three doublings without T, one with T,
+    the niels mixed addition over the hull of B's +-table, the cached
+    addition over the hull of -A's +-table built from any 32-byte -A)
+    maps the mul-output bound into itself, so all 65 windows stay in
+    range; the identity, Z^-1 and the output do too."""
     m = interval_field
-    a = (BYTES, BYTES, F.ONE, F.mul(BYTES, BYTES))
-    c_a = LD.to_cached(a)
-    c_ba = LD.to_cached(LD.add_cached(LD.BASE, c_a))
-    q = tuple(hull(*cols) for cols in zip(LD.to_cached(LD.IDENT),
-                                          LD.to_cached(LD.BASE), c_a, c_ba))
-    p = (m, m, m, m)
-    p2 = LD.add_cached(LD.dbl(p), q)
-    for coord in p2:
+    tab_a = LD.neg_a_table(BYTES, BYTES)
+    q_a = _pm_hull([LD.IDENT_CACHED] + tab_a)
+    q_b = _pm_hull([LD.IDENT_NIELS] + list(LD.NIELS_B))
+    p = (m, m, m)
+    for d in range(4):
+        c = LD.dbl(p)
+        p = LD.p1p1_to_p3(c) if d == 3 else LD.p1p1_to_p2(c)
+    p = LD.p1p1_to_p3(LD.madd(p, q_b))
+    p = LD.p1p1_to_p2(LD.add_cached(p, q_a))
+    for coord in p:
         assert within(coord, m)
-    assert within(hull(*LD.IDENT), m)
+    assert within(hull(*LD.IDENT_P3), m)
     zi = F.invert(m)
     _canon_ok(F.mul(m, zi))
 
@@ -293,9 +345,31 @@ def test_prep_op_sequence_bounds(interval_field):
         _canon_ok(h)
 
 
+def test_prep_runs_its_product_count(monkeypatch):
+    """prep_plain (the kernel's op sequence) runs PREP_SQS squarings and
+    PREP_MULS multiplies per signature; chip_smoke.py prints
+    prep_products as the schedule's count and bounds prep by it."""
+    counts = {"mul": 0, "sq": 0}
+    mul, sq = F.mul, F.sq
+
+    def count(name, fn):
+        def wrapped(*a):
+            counts[name] += 1
+            return fn(*a)
+        return wrapped
+    monkeypatch.setattr(F, "mul", count("mul", mul))
+    monkeypatch.setattr(F, "sq", count("sq", sq))
+    z = torch.zeros((1, 32), dtype=torch.uint8)
+    EK.prep_plain(z, z, z, z, EK.MODE_K)
+    assert (counts["sq"], counts["mul"]) == (EK.PREP_SQS, EK.PREP_MULS)
+    assert EK.prep_products(EK.MODE_MSG32) == 15909
+
+
 def test_interval_model_catches_overflow(monkeypatch):
     """The model has teeth: operands of 2^29 overflow an int64 column."""
     monkeypatch.setattr(F, "_carry", _icarry)
     big = tuple(Interval(-2**29, 2**29) for _ in range(10))
     with pytest.raises(AssertionError, match="int64 overflow"):
         F.mul(big, big)
+    with pytest.raises(AssertionError, match="int64 overflow"):
+        F.sq(big)

@@ -1,5 +1,7 @@
-"""On the card: each CUDA kernel against its plain version, byte for byte,
-and CudaBatchVerifier against the oracle. Marked `gpu`; skipped where
+"""On the card: each CUDA kernel against its plain version, byte for byte
+(on the corpus, on edge scalars, and at batch sizes that leave partial
+blocks and partial four-lane groups), and CudaBatchVerifier against the
+oracle. Marked `gpu`; skipped where
 torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -12,7 +14,8 @@ import torch
 from stellar_core_tpu_torch.crypto import ed25519_ref as ref
 from stellar_core_tpu_torch.ops import ed25519_kernel as EK
 from stellar_core_tpu_torch.ops import ladder as LD
-from stellar_core_tpu_torch.ops.testvectors import (make_differential_vectors,
+from stellar_core_tpu_torch.ops.testvectors import (edge_scalar_lanes,
+                                                    make_differential_vectors,
                                                     oracle_results)
 from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier, host_k
 
@@ -67,6 +70,47 @@ def test_ladder_kernel_matches_plain(card, lanes):
     a, r, s = (_on(card, x) for x in (pubs, sigs[:, :32], sigs[:, 32:]))
     k, neg_a, _ = EK.prep(a, r, s, _on(card, host_k(pubs, sigs, msgs)),
                           EK.MODE_K)
+    nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
+    got = LD.ladder(s, k, nax, nay)
+    want = LD.ladder_plain(s, k, nax, nay)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ladder_kernel_matches_plain_on_edge_scalars(card):
+    e = edge_scalar_lanes()
+    args = [_on(card, e[key]) for key in ("s", "k", "neg_ax", "neg_ay")]
+    got = LD.ladder(*args)
+    want = LD.ladder_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("mode", [EK.MODE_MSG32, EK.MODE_K])
+def test_prep_kernel_matches_plain_on_edge_scalars(card, mode):
+    """The same S and k rows through prep, with A the encoding of the
+    point whose negation the ladder lanes use and R that of 2A."""
+    e = edge_scalar_lanes()
+    args = [_on(card, e[key]) for key in ("a", "r", "s", "k")]
+    got = EK.prep(*args, mode)
+    want = EK.prep_plain(*args, mode)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 7, 33])
+def test_kernels_match_plain_on_tails(card, lanes, n):
+    """n = 1, 7 and 33 leave a partial block of the ladder (32 signatures
+    of four lanes each) and of prep, and dead four-lane groups."""
+    pubs, sigs, msgs, m32 = lanes
+    a, r, s, m = (_on(card, x[:n]) for x in (pubs, sigs[:, :32],
+                                              sigs[:, 32:], m32))
+    got = EK.prep(a, r, s, m, EK.MODE_MSG32)
+    want = EK.prep_plain(a, r, s, m, EK.MODE_MSG32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    k, neg_a, _ = got
     nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
     got = LD.ladder(s, k, nax, nay)
     want = LD.ladder_plain(s, k, nax, nay)

@@ -2,7 +2,9 @@
 the JAX package's Pallas ladder (interpret mode, blk=8) followed by
 fe8.to_canonical: identical canonical (x, y) bytes on every lane, on the
 prepared inputs of tests/test_tpu_verifier.py's Pallas test plus lanes
-whose S is at least 2^253 (the ladder covers all 256 bits). Exact."""
+whose S is at least 2^253 (the ladder covers all 256 bits); against the
+oracle's point arithmetic on edge scalars; and the signed radix-16
+recoding the kernel and the plain version share. Exact."""
 
 import hashlib
 
@@ -18,6 +20,7 @@ from stellar_core_tpu.ops.verifier import host_prepare
 from stellar_core_tpu_torch.ops import ed25519_kernel as EK
 from stellar_core_tpu_torch.ops import field as F
 from stellar_core_tpu_torch.ops import ladder as LD
+from stellar_core_tpu_torch.ops.testvectors import edge_scalar_lanes
 from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
 
 
@@ -117,6 +120,58 @@ def test_ladder_then_finish_matches_oracle(prepared, plain_xy):
     ok = torch.ones(8, dtype=torch.uint8)
     got = EK.finish(x, y, _t(d["sigs"][:8, :32]), ok).tolist()
     assert got == [True, True, True, False, True, True, True, True]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_recode_reconstructs_scalar(seed):
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, ref.L - 1, 2**253, 2**256 - 1] + [
+        int.from_bytes(rng.integers(0, 256, 32).astype(np.uint8).tobytes(),
+                       "little") for _ in range(16)]
+    b = torch.tensor([list(v.to_bytes(32, "little")) for v in vals],
+                     dtype=torch.uint8)
+    d = LD.recode(b)
+    assert d.shape == (len(vals), LD.WINDOWS)
+    assert int(d.min()) >= -8 and int(d.max()) <= 8
+    assert set(d[:, 64].tolist()) <= {0, 1}
+    assert [sum(x << (4 * i) for i, x in enumerate(row))
+            for row in d.tolist()] == vals
+
+
+def test_plain_ladder_matches_oracle_on_edge_scalars(monkeypatch):
+    """S and k over 0, 1, L-1 and 2^256-1 against each other, with valid
+    -A: the affine [S]B + [k](-A) of crypto/ed25519_ref. The same run
+    counts the field products of the plain version, which follows the
+    kernel's schedule: LADDER_MULS multiplies and LADDER_SQS squarings
+    (chip_smoke.py prints LADDER_PRODUCTS as the schedule's count)."""
+    counts = {"mul": 0, "sq": 0}
+    mul, sq = F.mul, F.sq
+
+    def count(name, fn):
+        def wrapped(*a):
+            counts[name] += 1
+            return fn(*a)
+        return wrapped
+    monkeypatch.setattr(F, "mul", count("mul", mul))
+    monkeypatch.setattr(F, "sq", count("sq", sq))
+    e = edge_scalar_lanes()
+    edges = (0, 1, ref.L - 1, 2**256 - 1)
+    pairs = [(int.from_bytes(sr.tobytes(), "little"),
+              int.from_bytes(kr.tobytes(), "little"))
+             for sr, kr in zip(e["s"], e["k"])]
+    assert pairs == [(a, b) for a in edges for b in edges]
+    want = []
+    for (sv, kv), pt in zip(pairs, e["points"]):
+        w = ref.pt_add(ref.pt_mul(sv, ref.BASE),
+                       ref.pt_mul(kv, ref.pt_neg(pt)))
+        wzi = pow(w[2], ref.P - 2, ref.P)
+        want.append((w[0] * wzi % ref.P, w[1] * wzi % ref.P))
+    x, y = LD.ladder(*(_t(e[key]) for key in ("s", "k", "neg_ax", "neg_ay")))
+    got = [(int.from_bytes(bytes(a.tolist()), "little"),
+            int.from_bytes(bytes(b.tolist()), "little")) for a, b in zip(x, y)]
+    assert got == want
+    assert (counts["mul"], counts["sq"]) == (LD.LADDER_MULS, LD.LADDER_SQS)
+    assert LD.LADDER_PRODUCTS == 252290
 
 
 def test_wrapper_checks_inputs():

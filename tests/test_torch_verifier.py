@@ -1,7 +1,8 @@
 """The whole slice: CudaBatchVerifier(device="cpu") against the port's
-oracle, the JAX package's oracle and TpuBatchVerifier, plus its API
-(device SHA modes, bypass, overrides, async handle, metrics, default
-device) and the two import guards. Exact verdicts."""
+oracle and the JAX package's oracle (test_torch_verifier_jax.py holds it
+against TpuBatchVerifier), plus its API (device SHA modes, bypass,
+overrides, async handle, metrics, default device) and the two import
+guards. Exact verdicts."""
 
 import ast
 import hashlib
@@ -72,23 +73,6 @@ def test_corpus_matches_oracles(corpus, device_sha):
         assert len(items) > 30 and 0 < sum(want) < len(want)
     v = V.CudaBatchVerifier(device="cpu", device_sha=device_sha)
     assert v.verify_tuples(items) == want
-
-
-def test_matches_jax_tpu_verifier():
-    """8 tuples (bucket 8, the shape the JAX suite already compiles),
-    valid and corrupted, through JAX TpuBatchVerifier(device_sha=True)."""
-    from stellar_core_tpu.ops.verifier import TpuBatchVerifier
-    items = _mk(8, seed=41)
-    p, s, m = items[2]
-    items[2] = (p, s[:10] + bytes([s[10] ^ 1]) + s[11:], m)
-    p, s, m = items[5]
-    items[5] = (bytes([p[0] ^ 4]) + p[1:], s, m)
-    p, s, m = items[6]
-    items[6] = (p, s[:32] + bytes(32), m)
-    want = TpuBatchVerifier(device_sha=True).verify_tuples(items)
-    got = V.CudaBatchVerifier(device="cpu").verify_tuples(items)
-    assert got == [bool(x) for x in want] == _oracle(items)
-    assert sum(got) == 5
 
 
 def test_message_lengths():
