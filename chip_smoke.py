@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. report the card (nvidia-smi name and power limit, torch and CUDA);
-2. build the kernels from ops/csrc/ with nvcc; print the build seconds,
+2. build the kernels from ops/csrc/ with nvcc by constructing a
+   CudaBatchVerifier on the card (a verifier builds and loads them when
+   it is constructed, never inside a dispatch); print the build seconds,
    the compiler's register and spill report, and each kernel's SASS
    instruction mix (cuobjdump -sass: IMAD.WIDE, shuffles, shared and
    local loads, total; static counts);
@@ -29,13 +31,38 @@ Phases (any failure exits non-zero; nothing is caught):
    tuple corrupted, checked against the oracle; the launch counters are
    set to 0 before each part and must equal its dispatch count;
 6. one in-flight round under torch.profiler (after a warm-up round):
-   device busy time by kernel and the device's idle share.
-It prints one `kernels` JSON line, the card line, and last
-{"ok": true, "device": {...}}.
+   device busy time by kernel and the device's idle share;
+7. the live verify path at the node's defaults (main/config.py of the
+   JAX package: max_batch 256, deadline 2 ms, device cutoff 16,
+   dispatch deadline 2000 ms, canary 16):
+   VerifyService(BackendSupervisor(CudaBatchVerifier())). The host
+   verifier serving the bypass and the fallback must be the native
+   library. Leg A, a smoke of flood admission's mechanism (the mix is
+   chosen to drive both prep modes, not measured traffic): 16384 single
+   submits with the clock cranked after each (90 % 32-byte tx hashes,
+   10 % 100-500 byte messages, every 10th tuple corrupted), then
+   drain. Leg B, a txset: 5000 msg32 signatures through
+   submit_many, then awaited. In A and B: 0 verdicts off the oracle, 0
+   supervisor failures, 0 service fallbacks, the breaker CLOSED
+   throughout, kernel launches equal to the device dispatches. The
+   fixed cost of a 16- and a 256-signature flush. Leg C, chaos on the
+   card under a virtual clock: three io_error faults at
+   ops.backend.dispatch trip the breaker OPEN; while OPEN flushes
+   resolve natively with no dispatch and no launch; past the backoff
+   the canary runs on the card and closes it; a hang with a 200 ms
+   deadline resolves through the watchdog and is quarantined; an
+   io_error at ops.verifier.batch is absorbed by the supervisor, and
+   makes a bare service fall back.
+The oracle verdicts of the live tuples are computed in worker processes
+while phase 2 builds. It prints one `kernels` JSON line, the card line,
+and last {"ok": true, "device": {...}}.
 """
 
+import atexit
 import collections
+import hashlib
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -58,6 +85,16 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 # 32x32->64 products of one field squaring and one field multiply in ten
 # radix-2^25.5 limbs (10 + 45 and 10 x 10)
 SQ_PRODUCTS, MUL_PRODUCTS = 55, 100
+# the node's defaults for the live verify path (stellar_core_tpu/main/
+# config.py:353-380: VERIFY_MAX_BATCH, VERIFY_BATCH_DEADLINE_MS,
+# VERIFY_DEVICE_MIN_BATCH, VERIFY_DISPATCH_DEADLINE_MS,
+# VERIFY_BREAKER_CANARY_BATCH)
+LIVE = dict(max_batch=256, deadline_ms=2.0, device_min_batch=16,
+            dispatch_deadline_ms=2000.0, canary_batch=16)
+LIVE_N = 16384
+TXSET_N = 5000           # the BASELINE.json txset size
+CHUNK = 32               # tuples per flush in leg C
+FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 
 
 def smi(query):
@@ -190,9 +227,356 @@ def once_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def device_ms_by_name(prof):
+    """Device time in ms by event name from a torch.profiler run."""
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): a CPU op's device
+        # time repeats that of the kernels it launched
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    return by_name
+
+
 def max_abs_err(xs, ys):
     return max(int((x.to(torch.int16) - y.to(torch.int16)).abs().max())
                for x, y in zip(xs, ys))
+
+
+def live_tuples(SecretKey, n):
+    """n distinct tuples for leg A: tuple i signs a 100-500 byte message
+    when i % 10 == 5 (the SCP-envelope shape, host-k path) and a 32-byte
+    tx hash otherwise; one bit of the signature is flipped when
+    i % 10 == 0. The share of long messages is chosen so that both prep
+    modes run; it is not a measured traffic mix."""
+    rng = np.random.default_rng(11)
+    keys = [SecretKey.pseudo_random_for_testing(20000 + i)
+            for i in range(64)]
+    out = []
+    for i in range(n):
+        sk = keys[i % len(keys)]
+        if i % 10 == 5:
+            msg = rng.bytes(int(rng.integers(100, 501)))
+        else:
+            msg = hashlib.sha256(b"tx-%d" % i).digest()
+        sig = sk.sign(msg)
+        if i % 10 == 0:
+            j, bit = int(rng.integers(64)), int(rng.integers(8))
+            sig = sig[:j] + bytes([sig[j] ^ (1 << bit)]) + sig[j + 1:]
+        out.append((sk.public_key().raw, sig, msg))
+    return out
+
+
+def live_phase(card, items, want):
+    """Phase 7: the live verify path on the card (see the docstring)."""
+    from stellar_core_tpu_torch.crypto.keys import (clear_verify_cache,
+                                                    host_verifier)
+    from stellar_core_tpu_torch.native import loader
+    from stellar_core_tpu_torch.ops import ed25519_kernel as EK
+    from stellar_core_tpu_torch.ops import ladder as LD
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, OPEN, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    from stellar_core_tpu_torch.util import chaos
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.perf import ZoneRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+
+    host = host_verifier()
+    where = os.path.relpath(loader.get_lib().path) if host == "native" \
+        else "oracle"
+    print(f"live: host verifier for the bypass and the fallback: {host} "
+          f"({where})", flush=True)
+    if host != "native":
+        raise SystemExit("live: the native host library did not load")
+
+    def stack(clock, **over):
+        kw = dict(LIVE, **over)
+        reg, perf = MetricsRegistry(), ZoneRegistry()
+        v = CudaBatchVerifier(perf=perf, metrics=reg,
+                              device_min_batch=kw["device_min_batch"])
+        sup = BackendSupervisor(
+            v, clock=clock, metrics=reg, perf=perf,
+            dispatch_deadline_ms=kw["dispatch_deadline_ms"],
+            canary_batch=kw["canary_batch"])
+        svc = VerifyService(sup, clock=clock, metrics=reg, perf=perf,
+                            max_batch=kw["max_batch"],
+                            deadline_ms=kw["deadline_ms"])
+        return reg, perf, v, sup, svc
+
+    def zero():
+        EK.prep.launches = LD.ladder.launches = 0
+        EK.prep.mode_launches[:] = [0, 0]
+
+    def counts():
+        return (EK.prep.launches, LD.ladder.launches)
+
+    def healthy(tag, reg, perf, sup, svc, got, want_):
+        """The supervisor must not hide the device: no failure, no
+        fallback, CLOSED throughout, launches == device dispatches."""
+        m = reg.to_json()
+        st = sup.status()
+        device = m["crypto.verify.dispatch.batch"]["count"]
+        native = perf.report().get("crypto.batchVerify.native",
+                                   {"count": 0})["count"]
+        problems = []
+        mism = sum(g != w for g, w in zip(got, want_))
+        if mism or len(got) != len(want_):
+            problems.append(f"{mism} verdicts differ from the oracle")
+        if any(st["failures"].values()):
+            problems.append(f"supervisor failures {st['failures']}")
+        if m["crypto.verify_service.fallback"]["count"]:
+            problems.append("service fallbacks")
+        if st["transitions"] or st["state"] != CLOSED:
+            problems.append(f"breaker moved: {st['transitions']}")
+        if counts() != (device, device) or not device:
+            problems.append(f"launches {counts()} != device dispatches "
+                            f"{device}")
+        if st["dispatches"] != device + native:
+            problems.append(f"supervisor dispatches {st['dispatches']} != "
+                            f"{device} device + {native} bypassed")
+        if problems:
+            raise SystemExit(f"live leg {tag}: " + "; ".join(problems))
+        return st, device, native
+
+    def describe_leg(tag, reg, svc, st, device, native):
+        stats = svc.stats()
+        occ = reg.to_json()["crypto.verify_service.occupancy"]
+        wall = reg.to_json()["crypto.verify.dispatch.wall"]
+        q = {k: occ[k] for k in ("count", "min", "median", "75%", "99%",
+                                 "max", "mean")}
+        print(f"  leg {tag}: flushes by reason {stats['flush_reasons']}; "
+              f"occupancy {q}; queue-wait p50 "
+              f"{stats['queue_wait_p50_ms']} ms, p99 "
+              f"{stats['queue_wait_p99_ms']} ms; dispatch->first collect "
+              f"(crypto.verify.dispatch.wall: when the caller awaits, not "
+              f"when the verdict is ready) median "
+              f"{wall['median'] * 1e3:.3f} ms, p99 "
+              f"{wall['99%'] * 1e3:.3f} ms; supervisor dispatches "
+              f"{st['dispatches']} = {device} on the card + {native} "
+              f"bypassed; launches prep {EK.prep.launches} (msg32 "
+              f"{EK.prep.mode_launches[0]}, k {EK.prep.mode_launches[1]}), "
+              f"ladder {LD.ladder.launches}; failures {st['failures']}; "
+              f"fallbacks {stats['fallbacks']}; breaker {st['state']}",
+              flush=True)
+
+    launches = {"msg32": 0, "k": 0, "ladder": 0}
+
+    def tally():
+        launches["msg32"] += EK.prep.mode_launches[0]
+        launches["k"] += EK.prep.mode_launches[1]
+        launches["ladder"] += LD.ladder.launches
+
+    # --- leg A: flood admission ---------------------------------------
+    clock = VirtualClock(ClockMode.REAL_TIME)
+
+    def flood(svc):
+        clear_verify_cache()
+        t0 = time.perf_counter()
+        futs = []
+        for p, s, m in items:
+            futs.append(svc.submit(p, s, m))
+            clock.crank(False)
+        svc.drain()
+        return time.perf_counter() - t0, [f.result() for f in futs]
+
+    reg, perf, v, sup, svc = stack(clock)
+    zero()
+    wall_a, got = flood(svc)
+    st, device, native = healthy("A", reg, perf, sup, svc, got, want)
+    print(f"live leg A (mechanism smoke, chosen mix): {len(items)} single "
+          f"submits then drain in "
+          f"{wall_a * 1e3:.1f} ms = {len(items) / wall_a:.1f} verifies/s, "
+          f"{sum(got)} verify, 0 differ from the oracle [{card}]",
+          flush=True)
+    describe_leg("A", reg, svc, st, device, native)
+    tally()
+    sup.shutdown()
+    # the same leg once more on a fresh stack under torch.profiler
+    # (device activity only): where the leg's time goes on the card
+    from torch.profiler import ProfilerActivity, profile
+    reg_p, perf_p, v_p, sup_p, svc_p = stack(clock)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_p, got_p = flood(svc_p)
+    sup_p.shutdown()
+    if got_p != want:
+        raise SystemExit("live leg A under the profiler: verdicts differ")
+    busy = device_ms_by_name(prof)
+    busy_ms = sum(busy.values())
+    if busy_ms:
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:4]
+        print(f"  leg A profiled (device activity only): wall "
+              f"{wall_p * 1e3:.1f} ms, device busy {busy_ms:.3f} ms, idle "
+              f"share {1 - busy_ms / (wall_p * 1e3):.4f}; "
+              + "; ".join(f"{k[:40]} {ms_:.3f} ms" for k, ms_ in top)
+              + f" [{card}]", flush=True)
+    else:
+        print("  leg A profiled: the profiler saw no device time (not "
+              "measured)", flush=True)
+
+    # --- leg B: a txset of 5000 tx-hash signatures ----------------------
+    txset = [i for i, t in enumerate(items) if len(t[2]) == 32][:TXSET_N]
+    b_items, b_want = [items[i] for i in txset], [want[i] for i in txset]
+    reg, perf, v, sup, svc = stack(clock)
+    clear_verify_cache()
+    zero()
+    t0 = time.perf_counter()
+    got = [f.result() for f in svc.submit_many(b_items)]
+    wall_b = time.perf_counter() - t0
+    st, device, native = healthy("B", reg, perf, sup, svc, got, b_want)
+    print(f"live leg B: txset of {len(b_items)} through submit_many, first "
+          f"submit to last result {wall_b * 1e3:.2f} ms, {sum(got)} verify, "
+          f"0 differ from the oracle [{card}]", flush=True)
+    describe_leg("B", reg, svc, st, device, native)
+    tally()
+
+    # --- the fixed cost of a small flush (sync, through the verifier) ---
+    m32 = b_items[:256]
+    for n in (16, 256):
+        rows_ = m32[:n]
+        v.verify_tuples(rows_)                         # warm
+        walls = []
+        for _ in range(FLUSH_REPS):
+            t0 = time.perf_counter()
+            v.verify_tuples(rows_)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        host = np.zeros((4, n, 32), dtype=np.uint8)
+        pins = []
+        for _ in range(FLUSH_REPS):
+            t0 = time.perf_counter()
+            torch.from_numpy(host).pin_memory()
+            torch.empty(n, dtype=torch.bool, pin_memory=True)
+            pins.append((time.perf_counter() - t0) * 1e3)
+        print(f"live flush cost at n={n} (msg32, verify_tuples, "
+              f"{FLUSH_REPS} runs): "
+              f"wall median {statistics.median(walls):.3f} ms, min "
+              f"{min(walls):.3f} ms; of which pin_memory() of the inputs "
+              f"and the pinned result allocation median "
+              f"{statistics.median(pins):.3f} ms [{card}]", flush=True)
+    sup.shutdown()
+
+    # --- leg C: chaos on the card under a virtual clock -----------------
+    base = max(txset) + 1
+    chunks = [(items[base + CHUNK * i: base + CHUNK * (i + 1)],
+               want[base + CHUNK * i: base + CHUNK * (i + 1)])
+              for i in range(9)]
+    vclock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg, perf, v, sup, svc = stack(vclock)
+    zero()
+
+    def through(service, k):
+        got = [f.result() for f in service.submit_many(chunks[k][0])]
+        if got != chunks[k][1]:
+            raise SystemExit(f"live leg C chunk {k}: verdicts differ from "
+                             "the oracle")
+
+    def fail(msg):
+        raise SystemExit(f"live leg C: {msg}")
+
+    t_c = time.perf_counter()
+    chaos.install(chaos.ChaosEngine(31, [chaos.FaultSpec(
+        "ops.backend.dispatch", "io_error", start=0, count=3)]))
+    try:
+        for k in range(3):
+            through(svc, k)
+        st = sup.status()
+        if sup.state != OPEN or st["failures"]["transient"] != 3 \
+                or counts() != (0, 0):
+            fail(f"3 io_errors: state {sup.state}, {st['failures']}, "
+                 f"launches {counts()}")
+        print(f"live leg C1: 3 io_error at ops.backend.dispatch -> breaker "
+              f"{sup.state}, failures {st['failures']}, launches "
+              f"{counts()}", flush=True)
+        d_open = st["devices"][0]["dispatches"]
+        for k in (3, 4):
+            through(svc, k)
+        st = sup.status()
+        if st["devices"][0]["dispatches"] != d_open or counts() != (0, 0) \
+                or st["skips"] != 2:
+            fail(f"dispatch while OPEN: {st['devices'][0]}, launches "
+                 f"{counts()}")
+        print(f"live leg C2: 2 flushes while OPEN resolved natively, device "
+              f"dispatches {d_open} -> {st['devices'][0]['dispatches']}, "
+              f"skips {st['skips']}, launches {counts()}", flush=True)
+        eta = st["next_probe_in_s"]
+        vclock.crank(True)                   # past the backoff: the probe
+        st = sup.status()
+        moves = [(t["from"], t["to"], t["reason"], t["device_dispatches"])
+                 for t in st["transitions"]]
+        if sup.state != CLOSED or counts() != (1, 1) \
+                or [m[:3] for m in moves] != [
+                    (CLOSED, OPEN, "failure_threshold"),
+                    (OPEN, "HALF_OPEN", "probe_timer"),
+                    ("HALF_OPEN", CLOSED, "probe_ok")] \
+                or moves[0][3] != moves[1][3]:
+            fail(f"canary: state {sup.state}, launches {counts()}, {moves}")
+        print(f"live leg C3: virtual clock +{vclock.now():.3f} s (probe "
+              f"due in {eta} s) -> canary of {LIVE['canary_batch']} on the "
+              f"card (launches {counts()}) -> {sup.state}; transitions "
+              f"{moves}", flush=True)
+        through(svc, 5)
+        if counts() != (2, 2):
+            fail(f"traffic after the close did not reach the card: "
+                 f"{counts()}")
+    finally:
+        chaos.uninstall()
+
+    reg2, perf2, v2, sup2, svc2 = stack(vclock, dispatch_deadline_ms=200.0)
+    chaos.install(chaos.ChaosEngine(32, [chaos.FaultSpec(
+        "ops.backend.dispatch", "hang", start=0, count=1)]))
+    try:
+        t0 = time.perf_counter()
+        through(svc2, 6)
+        hang_ms = (time.perf_counter() - t0) * 1e3
+        st2 = sup2.status()
+        if st2["failures"]["timeout"] != 1 or \
+                [q["batch"] for q in st2["quarantined"]] != [CHUNK]:
+            fail(f"hang: {st2['failures']}, {st2['quarantined']}")
+        print(f"live leg C4: hang at ops.backend.dispatch, 200 ms deadline -> "
+              f"resolved natively in {hang_ms:.1f} ms, failures "
+              f"{st2['failures']}, quarantined {st2['quarantined']}",
+              flush=True)
+    finally:
+        chaos.uninstall()
+        sup2.shutdown()
+
+    bare_reg = MetricsRegistry()
+    bare = VerifyService(CudaBatchVerifier(device_min_batch=16),
+                         clock=vclock, metrics=bare_reg)
+    chaos.install(chaos.ChaosEngine(33, [chaos.FaultSpec(
+        "ops.verifier.batch", "io_error", start=0, count=2)]))
+    try:
+        before = sup.status()["failures"]["transient"]
+        through(svc, 7)
+        st = sup.status()
+        if st["failures"]["transient"] != before + 1 or \
+                svc.stats()["fallbacks"] or sup.state != CLOSED:
+            fail(f"io_error at ops.verifier.batch under the supervisor: "
+                 f"{st['failures']}, fallbacks {svc.stats()['fallbacks']}")
+        through(bare, 8)
+        if bare.stats()["fallbacks"] != 1:
+            fail("io_error at ops.verifier.batch: the bare service did "
+                 "not fall back")
+        print(f"live leg C5: io_error at ops.verifier.batch -> the "
+              f"supervisor records it (transient {st['failures']['transient']}"
+              f", breaker {sup.state}, service fallbacks "
+              f"{svc.stats()['fallbacks']}); a bare VerifyService("
+              f"CudaBatchVerifier) falls back ({bare.stats()['fallbacks']})",
+              flush=True)
+    finally:
+        chaos.uninstall()
+        sup.shutdown()
+    print(f"live leg C: {9 * CHUNK} tuples, 0 verdicts off the oracle, "
+          f"{(time.perf_counter() - t_c) * 1e3:.1f} ms [{card}]", flush=True)
+    return launches, {"verifies_per_s_A": len(items) / wall_a,
+                      "txset_ms_B": wall_b * 1e3}
 
 
 def main():
@@ -220,10 +604,27 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
     imad_per_s = sms * IMAD_PER_SM_CLK * clock_mhz * 1e6
 
-    # --- 2. build ----------------------------------------------------------
+    # --- the live path's tuples; their oracle verdicts in worker
+    # processes while the kernels build ---------------------------------
     t0 = time.perf_counter()
-    _build.lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s "
+    live_items = live_tuples(SecretKey, LIVE_N)
+    print(f"signed {LIVE_N} live tuples in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    atexit.register(pool.terminate)
+    live_oracle = pool.starmap_async(ref.verify, live_items, chunksize=256)
+
+    # --- 2. build: constructing a verifier on the card builds the kernels
+    if _build._lib is not None:
+        raise SystemExit("the kernel library loaded before any verifier")
+    t0 = time.perf_counter()
+    CudaBatchVerifier()
+    if _build._lib is None:
+        raise SystemExit("CudaBatchVerifier() on the card did not load the "
+                         "kernel library")
+    print(f"build (in CudaBatchVerifier()): "
+          f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.info['seconds']:.1f} s) -> "
           f"{os.path.relpath(_build.info['path'])}")
     for line in _build.info["ptxas"].splitlines():
@@ -467,17 +868,7 @@ def main():
     # lands there, not in the measured round
     profiled_round()
     prof, wall_ms = profiled_round()
-    by_name = {}
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's device
-        # time repeats that of the kernels it launched
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    by_name = device_ms_by_name(prof)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     if busy_ms:
@@ -489,11 +880,32 @@ def main():
     else:
         print("profile: the profiler saw no device time (not measured)")
 
-    entries[0]["launches"] = msg32_launches[0]
-    entries[1]["launches"] = k_launches[0]
-    entries[2]["launches"] = msg32_launches[1] + k_launches[1]
-    print(json.dumps({"kernels": entries,
-                      "verifies_per_s": rates, "card": card}))
+    # --- 7. the live verify path -----------------------------------------
+    t0 = time.perf_counter()
+    live_want = live_oracle.get(timeout=900)
+    pool.close()
+    pool.join()
+    print(f"live oracle verdicts ready ({time.perf_counter() - t0:.1f} s "
+          f"more wait): {sum(live_want)} of {LIVE_N} verify", flush=True)
+    live, live_rates = live_phase(card, live_items, live_want)
+    if not (live["msg32"] + live["k"] and live["ladder"]):
+        raise SystemExit(f"live path launched a kernel no time: {live}")
+
+    # launches on the main paths: phase 5 (the verifier at width) and
+    # legs A and B of phase 7 (the live path), each counted from 0
+    entries[0]["launches"] = msg32_launches[0] + live["msg32"]
+    entries[1]["launches"] = k_launches[0] + live["k"]
+    entries[2]["launches"] = msg32_launches[1] + k_launches[1] \
+        + live["ladder"]
+    for e, verifier_path, live_path in (
+            (entries[0], msg32_launches[0], live["msg32"]),
+            (entries[1], k_launches[0], live["k"]),
+            (entries[2], msg32_launches[1] + k_launches[1],
+             live["ladder"])):
+        e["launches_by_path"] = {"verifier": verifier_path,
+                                 "live": live_path}
+    print(json.dumps({"kernels": entries, "verifies_per_s": rates,
+                      "live": live_rates, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Strict Ed25519 oracle and keys (copies of the JAX package's)."""
+"""Strict Ed25519 oracle, keys and hashing (copies of the JAX package's)."""

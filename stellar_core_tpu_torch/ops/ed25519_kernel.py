@@ -167,10 +167,13 @@ def prep(a, r, s, mk, mode: int):
             raise RuntimeError(f"ed25519_prep launch failed: "
                                f"{_build.error_string(err)}")
         prep.launches += 1
+        prep.mode_launches[mode] += 1
     return k, neg_a, ok
 
 
+# launches in all and by mode (indexed by MODE_MSG32, MODE_K)
 prep.launches = 0
+prep.mode_launches = [0, 0]
 
 
 def finish(x, y, r, ok):

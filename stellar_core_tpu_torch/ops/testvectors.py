@@ -1,7 +1,8 @@
 """Adversarial Ed25519 vector generation for differential testing.
 
 A copy of stellar_core_tpu/ops/testvectors.py that signs through the
-port's oracle-backed keys; RFC 8032 signing is deterministic, so the
+port's keys (native, else the oracle); RFC 8032 signing is
+deterministic, so the
 tuples are byte-identical to the JAX package's. It feeds the port's CPU
 tests and chip_smoke.py.  The classes cover everything the strict verifier's
 rejection surface distinguishes (reference semantics:

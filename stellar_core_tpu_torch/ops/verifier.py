@@ -4,8 +4,12 @@ Counterpart of the single-device part of stellar_core_tpu/ops/verifier.py
 (`TpuBatchVerifier`), with the same API: verify_batch(_async),
 verify_tuples(_async), verify_tuples_async_on(0, ...),
 set_device_min_batch, the ED25519_DEVICE_SHA and VERIFY_DEVICE_MIN_BATCH
-overrides, and the duck-typed crypto.verify.dispatch.{batch,padding,wall}
-metrics. Results are one bool per signature, equal to the strict oracle
+overrides, the duck-typed crypto.verify.dispatch.{batch,padding,wall}
+metrics, the `ops.verifier.batch` chaos seam (fired before the
+small-batch bypass) and the `crypto.batchVerify` perf zone around
+dispatch and again around collect (`crypto.batchVerify.native` around
+the bypass, which runs the host C++ verifier of native/). Results are
+one bool per signature, equal to the strict oracle
 crypto/ed25519_ref.verify.
 
 Per batch: when device SHA is on and every message is 32 bytes, the card
@@ -18,7 +22,10 @@ Lanes launch exactly n wide: CUDA needs no power-of-two shapes, so the
 padding metric records 0.
 
 The default device is the current CUDA card; with no card it raises.
-device="cpu" runs the plain versions (the tests do).
+device="cpu" runs the plain versions (the tests do). A verifier on a
+card builds and loads the kernels when it is constructed, so a failed
+build raises to the caller and never reaches a dispatch, where a
+supervisor would rate it fatal and serve every flush from the host.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import ed25519_kernel
+from . import _build, ed25519_kernel
 from ..crypto import ed25519_ref as _ref
 from ..crypto.keys import verify_sig_uncached
+from ..util import chaos, tracing
+from ..util.perf import default_registry
 
 # Same defaults and overrides as the JAX verifier: device SHA on, and a
 # small-batch bypass cutoff of 1 (never bypass) unless the caller or the
@@ -79,9 +88,12 @@ def host_k(pubs: np.ndarray, sigs: np.ndarray,
 class CudaBatchVerifier:
     """Batch verifier on one CUDA card (or the CPU, for tests)."""
 
-    def __init__(self, device=None, device_sha=None, device_min_batch=None,
-                 metrics=None):
+    def __init__(self, perf=None, device=None, device_sha=None,
+                 device_min_batch=None, metrics=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            _build.lib()
+        self.perf = perf  # per-app zone registry (None = process default)
         self._device_sha = _device_sha_default(device_sha)
         self._device_min_batch = _device_min_batch_default(device_min_batch)
         if metrics is None:
@@ -153,19 +165,36 @@ class CudaBatchVerifier:
 
     def verify_tuples_async(
             self, items: Sequence[Tuple[bytes, bytes, bytes]]):
-        """Non-blocking verify_tuples; below the bypass cutoff the oracle
-        verifies on the host (same strict accept/reject)."""
+        """Non-blocking verify_tuples: dispatches and returns a zero-arg
+        callable yielding the List[bool]. Below the bypass cutoff the host
+        verifier (native, else the oracle) runs instead: same strict
+        accept/reject."""
         if not items:
             return lambda: []
+        if chaos.ENABLED:
+            # device-verifier fault seam: an injected io_error raises
+            # before any dispatch, and callers fall back to the native
+            # per-signature path. Fired before the bypass decision so
+            # the seam does not depend on the batch size.
+            chaos.point("ops.verifier.batch", n=len(items))
+        registry = self.perf or default_registry
+        targs = {"batch": len(items)} if tracing.ENABLED else None
         if len(items) < self._device_min_batch:
-            res = [verify_sig_uncached(p, s, m) for p, s, m in items]
+            with registry.zone("crypto.batchVerify.native", targs=targs):
+                res = [verify_sig_uncached(p, s, m) for p, s, m in items]
             return lambda: res
-        pubs = np.frombuffer(b"".join(p for p, _, _ in items),
-                             dtype=np.uint8).reshape(-1, 32)
-        sigs = np.frombuffer(b"".join(s for _, s, _ in items),
-                             dtype=np.uint8).reshape(-1, 64)
-        handle = self.verify_batch_async(pubs, sigs, [m for _, _, m in items])
-        return lambda: handle().tolist()
+        with registry.zone("crypto.batchVerify", targs=targs):
+            pubs = np.frombuffer(b"".join(p for p, _, _ in items),
+                                 dtype=np.uint8).reshape(-1, 32)
+            sigs = np.frombuffer(b"".join(s for _, s, _ in items),
+                                 dtype=np.uint8).reshape(-1, 64)
+            handle = self.verify_batch_async(pubs, sigs,
+                                             [m for _, _, m in items])
+
+        def collect():
+            with registry.zone("crypto.batchVerify", targs=targs):
+                return handle().tolist()
+        return collect
 
     def verify_tuples_async_on(self, device_index: int, items):
         """Pinned single-device dispatch; this verifier has device 0 only."""

@@ -1,8 +1,8 @@
 """On the card: each CUDA kernel against its plain version, byte for byte
 (on the corpus, on edge scalars, and at batch sizes that leave partial
-blocks and partial four-lane groups), and CudaBatchVerifier against the
-oracle. Marked `gpu`; skipped where
-torch sees no CUDA device. Run on a machine with a card:
+blocks and partial four-lane groups), and CudaBatchVerifier and the live
+stack (VerifyService -> BackendSupervisor -> card) against the oracle.
+Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -131,3 +131,41 @@ def test_verifier_matches_oracle_on_card(card):
         [ref.verify(*it) for it in m32]
     assert (EK.prep.launches, LD.ladder.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+def test_live_stack_on_card(card):
+    """512 tuples through VerifyService -> BackendSupervisor ->
+    CudaBatchVerifier at the node's defaults (max_batch 256, device
+    cutoff 16, canary 16): verdicts equal the oracle, each kernel
+    launches once per device dispatch of the supervisor, no failure
+    and no fallback."""
+    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    from stellar_core_tpu_torch.ops.backend_supervisor import \
+        BackendSupervisor
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    corpus = make_differential_vectors(40, seed=13)
+    items = [corpus[i % len(corpus)] for i in range(512)]
+    items = [(p, s, m + bytes([i % 251]) * (i % 2)) for i, (p, s, m)
+             in enumerate(items)]           # distinct tuples, both modes
+    reg = MetricsRegistry()
+    sup = BackendSupervisor(CudaBatchVerifier(device=card,
+                                              device_min_batch=16,
+                                              metrics=reg),
+                            metrics=reg, canary_batch=16)
+    try:
+        svc = VerifyService(sup, metrics=reg, max_batch=256)
+        clear_verify_cache()
+        before = (EK.prep.launches, LD.ladder.launches)
+        got = [f.result() for f in svc.submit_many(items)]
+        svc.drain()
+        assert got == oracle_results(items)
+        st = sup.status()
+        launched = (EK.prep.launches - before[0],
+                    LD.ladder.launches - before[1])
+        assert st["dispatches"] >= 2 and launched == (st["dispatches"],) * 2
+        assert st["state"] == "CLOSED" and st["transitions"] == []
+        assert st["failures"] == {"transient": 0, "fatal": 0, "timeout": 0}
+        assert svc.stats()["fallbacks"] == 0
+    finally:
+        sup.shutdown()

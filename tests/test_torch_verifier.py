@@ -207,6 +207,32 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
         EK.prep(z, z, z, z, EK.MODE_K)
 
 
+def test_cuda_verifier_builds_at_construction(monkeypatch, tmp_path):
+    """A verifier on a card builds the kernels when it is constructed:
+    with nvcc missing, building the node's stack raises before a
+    supervisor exists, so no flush can be served from the host while
+    the card idles. A CPU verifier builds nothing."""
+    from stellar_core_tpu_torch.ops import _build
+    from stellar_core_tpu_torch.ops.backend_supervisor import \
+        BackendSupervisor
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "BUILD", str(tmp_path))
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        BackendSupervisor(V.CudaBatchVerifier(device="cuda"),
+                          dispatch_deadline_ms=0)
+    assert _build._lib is None and not list(tmp_path.iterdir())
+    built = []
+    monkeypatch.setattr(_build, "lib", lambda: built.append(1))
+    V.CudaBatchVerifier(device="cpu")
+    assert built == []
+    V.CudaBatchVerifier(device="cuda")
+    assert built == [1]
+
+
 def test_differential_vectors_identical_to_jax_package():
     assert ttv.make_differential_vectors(6, seed=5) == \
         jtv.make_differential_vectors(6, seed=5)
@@ -217,6 +243,48 @@ def test_differential_vectors_identical_to_jax_package():
         assert a.sign(b"m") == b.sign(b"m")
 
 
+
+def test_chaos_seam_and_perf_zones_match_reference():
+    """ops.verifier.batch fires before the bypass decision, so an
+    injected io_error raises at any batch size; crypto.batchVerify
+    wraps dispatch and again collect, crypto.batchVerify.native the
+    bypass. The bypass side is held against JAX TpuBatchVerifier, whose
+    bypass runs no XLA program."""
+    from stellar_core_tpu.ops.verifier import TpuBatchVerifier
+    from stellar_core_tpu.util import chaos as jchaos
+    from stellar_core_tpu.util.perf import ZoneRegistry as JaxZones
+    from stellar_core_tpu_torch.util import chaos as tchaos
+    from stellar_core_tpu_torch.util.perf import ZoneRegistry
+    items = _mk(3, seed=6)
+    bad = (items[0][0], items[1][1], items[0][2])
+    reports = []
+    for chaos, zones, make in (
+            (jchaos, JaxZones, lambda perf, n: TpuBatchVerifier(
+                perf=perf, device_min_batch=n)),
+            (tchaos, ZoneRegistry, lambda perf, n: V.CudaBatchVerifier(
+                perf=perf, device="cpu", device_min_batch=n))):
+        perf = zones()
+        bypass = make(perf, 64)
+        chaos.install(chaos.ChaosEngine(3, [chaos.FaultSpec(
+            "ops.verifier.batch", "io_error", start=0, count=1)]))
+        try:
+            with pytest.raises(OSError):
+                bypass.verify_tuples(items)
+            assert bypass.verify_tuples(items + [bad]) == \
+                [True] * 3 + [False]
+        finally:
+            chaos.uninstall()
+        reports.append({k: v["count"] for k, v in perf.report().items()})
+    assert reports[1] == reports[0] == {"crypto.batchVerify.native": 1}
+    perf = ZoneRegistry()
+    v = V.CudaBatchVerifier(perf=perf, device="cpu")
+    handle = v.verify_tuples_async(items + [bad])
+    assert perf.report()["crypto.batchVerify"]["count"] == 1
+    assert handle() == [True] * 3 + [False]
+    assert {k: r["count"] for k, r in perf.report().items()} == \
+        {"crypto.batchVerify": 2}
+
+
 # ------------------------------------------------------------ guards ----
 
 _GUARD = r"""
@@ -225,9 +293,19 @@ before = set(sys.modules)
 sys.path.insert(0, {root!r})
 from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
 from stellar_core_tpu_torch.ops.testvectors import make_differential_vectors
+import stellar_core_tpu_torch.crypto.sha
+import stellar_core_tpu_torch.native.loader
+import stellar_core_tpu_torch.ops.backend_supervisor
+import stellar_core_tpu_torch.ops.shard_math
+import stellar_core_tpu_torch.ops.verify_service
+for name in ("checks", "logging", "threads", "timer", "cache", "tracing",
+             "perf", "metrics", "chaos"):
+    __import__("stellar_core_tpu_torch.util." + name)
+from stellar_core_tpu_torch.crypto.keys import host_verifier
 items = make_differential_vectors(2)
 got = CudaBatchVerifier(device="cpu").verify_tuples(items[:3])
 assert got == [True, True, False], got
+assert host_verifier() == "native"
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))
@@ -252,7 +330,8 @@ def _forbidden(name):
 def test_port_sources_import_no_jax_static():
     files = sorted((ROOT / "stellar_core_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) > 25
+    assert ROOT / "stellar_core_tpu_torch" / "native" / "loader.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

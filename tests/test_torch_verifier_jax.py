@@ -56,3 +56,43 @@ def test_matches_jax_tpu_verifier():
     got = V.CudaBatchVerifier(device="cpu").verify_tuples(items)
     assert got == [bool(x) for x in want] == _oracle(items)
     assert sum(got) == 5
+
+
+def test_live_stack_matches_jax_live_stack():
+    """The whole slice: VerifyService(BackendSupervisor(verifier)) over
+    JAX TpuBatchVerifier(device_sha=True) and over CudaBatchVerifier(
+    device="cpu"), 16 msg32 tuples with 5 corrupted as two full flushes
+    of 8. Both supervisors collect inline (dispatch_deadline_ms=0), so
+    neither XLA's first execution nor the plain CPU version races a
+    wall-clock deadline. The JAX side reuses the bucket-8 msg32 program
+    of the test above: the class shares its jitted function."""
+    from stellar_core_tpu.ops.backend_supervisor import \
+        BackendSupervisor as JaxSupervisor
+    from stellar_core_tpu.ops.verifier import TpuBatchVerifier
+    from stellar_core_tpu.ops.verify_service import \
+        VerifyService as JaxService
+    from stellar_core_tpu_torch.ops.backend_supervisor import \
+        BackendSupervisor
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    items = _mk(16, seed=43)
+    for i in (1, 4, 8, 11, 15):
+        p, s, m = items[i]
+        items[i] = (p, s[:20] + bytes([s[20] ^ (i + 1)]) + s[21:], m)
+    jsup = JaxSupervisor(TpuBatchVerifier(device_sha=True,
+                                          device_min_batch=1),
+                         dispatch_deadline_ms=0)
+    tsup = BackendSupervisor(V.CudaBatchVerifier(device="cpu"),
+                             dispatch_deadline_ms=0)
+    results = []
+    for sup, service in ((jsup, JaxService), (tsup, VerifyService)):
+        svc = service(sup, max_batch=8)
+        results.append([f.result() for f in svc.submit_many(items)])
+        st = svc.stats()
+        assert st["flush_reasons"]["batch_full"] == 2
+        assert st["fallbacks"] == 0 and st["occupancy_mean"] == 8
+        assert sup.status()["dispatches"] == 2
+        assert sup.status()["failures"] == {"transient": 0, "fatal": 0,
+                                            "timeout": 0}
+        sup.shutdown()
+    assert results[1] == results[0] == _oracle(items)
+    assert sum(results[1]) == 11
