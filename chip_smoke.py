@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (with the bound's products per signature) and its launch geometry
    (threads per signature, block, resident warps); print, on a line of
    its own, the static product count of each kernel's schedule, which
-   the CPU tests count on the plain versions;
+   the CPU tests count on the plain versions; run the v1 entry
+   (host_prepare -> verify_kernel) on 2048 of the lanes against the
+   oracle;
 4. the differential corpus (make_differential_vectors(200)) through
    CudaBatchVerifier: 0 mismatches against the oracle;
 5. the main path at width: 16384 signatures per dispatch in msg32 mode
@@ -52,10 +54,32 @@ Phases (any failure exits non-zero; nothing is caught):
    the canary runs on the card and closes it; a hang with a 200 ms
    deadline resolves through the watchdog and is quarantined; an
    io_error at ops.verifier.batch is absorbed by the supervisor, and
-   makes a bare service fall back.
-The oracle verdicts of the live tuples are computed in worker processes
-while phase 2 builds. It prints one `kernels` JSON line, the card line,
-and last {"ok": true, "device": {...}}.
+   makes a bare service fall back;
+8. the multi-device verify path. 8.1: ShardedBatchVerifier() over every
+   visible card (one card: the single-survivor path) on phase 5's
+   4 x 16384 in flight. 8.2: a stand-in mesh of four positions on
+   cuda:0 (its shards share the card's stream and run one after
+   another: not multi-card scaling) on the same round and on phase 5's
+   host-k batch, then shrunk to (0, 2, 3) and (1,), a probe pinned to
+   inactive position 3, and regrown; dispatch walls beside
+   CudaBatchVerifier's. 8.3: the sick-device window on the card,
+   VerifyService(BackendSupervisor(that stand-in mesh)) under a virtual
+   clock: two io_errors at ops.backend.dispatch.device trip position 2
+   alone; while it is OPEN its per-position batch count stays frozen,
+   every launch belongs to a sibling's shard and its siblings serve;
+   the first probe fails inside the fault window, the second closes it
+   and the mesh regrows. 8.4: HybridShardedVerifier over a (2, 2) grid
+   on cuda:0 in one process, then in two spawned gloo ranks with two
+   positions each on one 5000-signature msg32 batch, then on it and its
+   reverse in flight, collected in opposite orders on the two ranks:
+   each rank's verdicts equal the oracle and each broadcasts only its
+   rows' verdicts and the batch's 16-byte tag.
+   Every leg: verdicts equal the oracle, launches of each kernel equal
+   active shards x dispatches.
+The oracle verdicts of the live tuples and of phase 5's tuples are
+computed in worker processes while phase 2 builds. It prints one
+`kernels` JSON line (launches by path: verifier, live, sharded,
+hybrid), the card line, and last {"ok": true, "device": {...}}.
 """
 
 import atexit
@@ -64,10 +88,13 @@ import hashlib
 import json
 import multiprocessing
 import os
+import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +122,13 @@ LIVE_N = 16384
 TXSET_N = 5000           # the BASELINE.json txset size
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
+STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
+SICK = 2                 # the sick position of phase 8's window
+MESH_CHUNK = 256         # tuples per flush in phase 8's window (max_batch)
+HYBRID_N = 5000          # signatures of phase 8's hybrid batch
+HYBRID_RANKS = 2
+V1_N = 2048              # lanes of the v1 entry in phase 3
+SPAWN_TIMEOUT_S = 300
 
 
 def smi(query):
@@ -310,10 +344,6 @@ def live_phase(card, items, want):
                             deadline_ms=kw["deadline_ms"])
         return reg, perf, v, sup, svc
 
-    def zero():
-        EK.prep.launches = LD.ladder.launches = 0
-        EK.prep.mode_launches[:] = [0, 0]
-
     def counts():
         return (EK.prep.launches, LD.ladder.launches)
 
@@ -387,7 +417,7 @@ def live_phase(card, items, want):
         return time.perf_counter() - t0, [f.result() for f in futs]
 
     reg, perf, v, sup, svc = stack(clock)
-    zero()
+    zero_launches()
     wall_a, got = flood(svc)
     st, device, native = healthy("A", reg, perf, sup, svc, got, want)
     print(f"live leg A (mechanism smoke, chosen mix): {len(items)} single "
@@ -426,7 +456,7 @@ def live_phase(card, items, want):
     b_items, b_want = [items[i] for i in txset], [want[i] for i in txset]
     reg, perf, v, sup, svc = stack(clock)
     clear_verify_cache()
-    zero()
+    zero_launches()
     t0 = time.perf_counter()
     got = [f.result() for f in svc.submit_many(b_items)]
     wall_b = time.perf_counter() - t0
@@ -469,7 +499,7 @@ def live_phase(card, items, want):
               for i in range(9)]
     vclock = VirtualClock(ClockMode.VIRTUAL_TIME)
     reg, perf, v, sup, svc = stack(vclock)
-    zero()
+    zero_launches()
 
     def through(service, k):
         got = [f.result() for f in service.submit_many(chunks[k][0])]
@@ -579,6 +609,341 @@ def live_phase(card, items, want):
                       "txset_ms_B": wall_b * 1e3}
 
 
+def launch_counts():
+    from stellar_core_tpu_torch.ops import ed25519_kernel as EK
+    from stellar_core_tpu_torch.ops import ladder as LD
+    return {"msg32": EK.prep.mode_launches[0], "k": EK.prep.mode_launches[1],
+            "ladder": LD.ladder.launches}
+
+
+def zero_launches():
+    from stellar_core_tpu_torch.ops import ed25519_kernel as EK
+    from stellar_core_tpu_torch.ops import ladder as LD
+    EK.prep.launches = LD.ladder.launches = 0
+    EK.prep.mode_launches[:] = [0, 0]
+
+
+def check_launches(tag, want):
+    """Launches since the last zero_launches(): prep (by mode) and ladder
+    each equal to the shards dispatched, `want` = {"msg32": m, "k": k}."""
+    got = launch_counts()
+    want = dict(want, ladder=want.get("msg32", 0) + want.get("k", 0))
+    want = {m: want.get(m, 0) for m in ("msg32", "k", "ladder")}
+    if got != want:
+        raise SystemExit(f"mesh {tag}: launches {got} != active shards "
+                         f"{want}")
+    return got
+
+
+def hybrid_rank(rank, world, init_file, root, device, items, want, out):
+    """One rank of phase 8's two-process hybrid leg (a spawned process):
+    the hybrid verifier over a (world, 2) grid on `device`, every rank
+    handed the same batch; then that batch and its reverse in flight,
+    collected in opposite orders on the two ranks (the gathers follow
+    dispatch order). Reports its verdicts' agreement with the oracle,
+    its launches and the bytes it broadcast."""
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+    from stellar_core_tpu_torch.ops.multihost import (HybridShardedVerifier,
+                                                      make_hybrid_mesh)
+    dist.init_process_group("gloo", init_method="file://" + init_file,
+                            world_size=world, rank=rank)
+    try:
+        sent = []
+        broadcast = dist.broadcast
+
+        def watched(tensor, src, *a, **k):
+            if src == rank:
+                sent.append(tensor.numel() * tensor.element_size())
+            return broadcast(tensor, src, *a, **k)
+        dist.broadcast = watched
+        v = HybridShardedVerifier(make_hybrid_mesh(
+            [torch.device(device)] * 2 * world))
+        zero_launches()
+        t0 = time.perf_counter()
+        got = v.verify_tuples(items)
+        ms = (time.perf_counter() - t0) * 1e3
+        mism = sum(g != w for g, w in zip(got, want))
+        handles = [v.verify_tuples_async(items),
+                   v.verify_tuples_async(items[::-1])]
+        pair = [want, want[::-1]]
+        for i in ((0, 1) if rank % 2 == 0 else (1, 0)):
+            mism += sum(g != w for g, w in zip(handles[i](), pair[i]))
+        out.put({"rank": rank, "mism": mism, "n": len(got),
+                 "launches": launch_counts(), "sent": sent,
+                 "shape": list(v.mesh.devices.shape), "ms": ms})
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(card, dev, v, main_rows, main_want, batch, batch_want,
+               batch_got, items, want):
+    """Phase 8: the multi-device verify path (see the docstring). Returns
+    the launches of its sharded and hybrid legs."""
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, HALF_OPEN, OPEN, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.multihost import (TAG_BYTES,
+                                                      HybridShardedVerifier,
+                                                      make_hybrid_mesh)
+    from stellar_core_tpu_torch.ops.shard_math import shard_shares
+    from stellar_core_tpu_torch.ops.verifier import ShardedBatchVerifier
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    from stellar_core_tpu_torch.util import chaos
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.perf import ZoneRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+
+    pubs, sigs, msgs = main_rows
+    paths = {"sharded": collections.Counter(),
+             "hybrid": collections.Counter()}
+
+    def exact(tag, got, want_):
+        mism = sum(bool(g) != w for g, w in zip(got, want_))
+        if mism or len(got) != len(want_):
+            raise SystemExit(f"mesh {tag}: {mism} verdicts differ from the "
+                             f"oracle ({len(got)} of {len(want_)})")
+
+    def in_flight(verifier):
+        handles = [verifier.verify_batch_async(pubs, sigs, msgs)
+                   for _ in range(IN_FLIGHT)]
+        return [h().tolist() for h in handles]
+
+    # --- 8.1 the node's choice: every visible card -----------------------
+    node = ShardedBatchVerifier()
+    zero_launches()
+    t0 = time.perf_counter()
+    for res in in_flight(node):
+        exact("8.1", res, main_want)
+    dt = time.perf_counter() - t0
+    shards = IN_FLIGHT * min(node.ndev, N)
+    paths["sharded"].update(check_launches("8.1", {"msg32": shards}))
+    print(f"mesh 8.1: ShardedBatchVerifier() over {node.ndev} visible "
+          f"card(s) ({'single-survivor path' if node.ndev == 1 else 'mesh'}"
+          f"): {IN_FLIGHT} x {N} msg32 in flight in {dt * 1e3:.2f} ms, 0 "
+          f"verdicts off the oracle, {shards} launches of each kernel = "
+          f"active shards x dispatches [{card}]", flush=True)
+
+    # --- 8.2 a stand-in mesh: four positions on one card -----------------
+    reg = MetricsRegistry()
+    mesh = ShardedBatchVerifier([dev] * STAND_IN, metrics=reg)
+    zero_launches()
+    for res in in_flight(mesh):
+        exact("8.2 in flight", res, main_want)
+    paths["sharded"].update(check_launches(
+        "8.2 in flight", {"msg32": IN_FLIGHT * STAND_IN}))
+    zero_launches()
+    got = mesh.verify_tuples(batch)
+    exact("8.2 host-k", got, batch_want)
+    if got != batch_got:
+        raise SystemExit("mesh 8.2: host-k verdicts differ from "
+                         "CudaBatchVerifier's")
+    paths["sharded"].update(check_launches("8.2 host-k", {"k": STAND_IN}))
+    walls = []
+    for active in ((0, 2, 3), (1,), tuple(range(STAND_IN))):
+        mesh.set_active_devices(active)
+        zero_launches()
+        got, ms = once_ms(lambda: mesh.verify_tuples(batch))
+        exact(f"8.2 active {active}", got, batch_want)
+        paths["sharded"].update(check_launches(f"8.2 active {active}",
+                                               {"k": len(active)}))
+        walls.append((active, ms))
+        if active == (1,):
+            # a probe pinned to a position outside the active set
+            before = reg.to_json()[
+                "crypto.verify.dispatch.device3.batch"]["count"]
+            zero_launches()
+            got = mesh.verify_tuples_async_on(3, batch[:256])()
+            exact("8.2 pinned probe", got, batch_want[:256])
+            paths["sharded"].update(check_launches("8.2 pinned probe",
+                                                   {"k": 1}))
+            after = reg.to_json()[
+                "crypto.verify.dispatch.device3.batch"]["count"]
+            if after != before + 1 or mesh.active_indices() != (1,):
+                raise SystemExit("mesh 8.2: the pinned probe did not run on "
+                                 "position 3 alone")
+    _, single_k = once_ms(lambda: v.verify_tuples(batch))
+    single, single_m = once_ms(lambda: v.verify_batch(pubs, sigs, msgs))
+    stand_in, mesh_m = once_ms(lambda: mesh.verify_batch(pubs, sigs, msgs))
+    if single.tolist() != stand_in.tolist():
+        raise SystemExit("mesh 8.2: msg32 verdicts differ from "
+                         "CudaBatchVerifier's")
+    print(f"mesh 8.2 (a stand-in: {STAND_IN} positions on one card share its "
+          f"stream, so shards run one after another; not multi-card "
+          f"scaling): {IN_FLIGHT} x {N} msg32 in flight and the {len(batch)} "
+          f"host-k batch exact and equal to CudaBatchVerifier's; shrink/"
+          f"regrow exact; pinned probe to inactive position 3 exact; "
+          f"dispatch walls at n={len(batch)} host-k: "
+          + ", ".join(f"active {a} {ms:.2f} ms" for a, ms in walls)
+          + f", CudaBatchVerifier {single_k:.2f} ms; at n={N} msg32: stand-in "
+          f"{mesh_m:.2f} ms, CudaBatchVerifier {single_m:.2f} ms [{card}]",
+          flush=True)
+
+    # --- 8.3 the sick-device window on the card --------------------------
+    m32 = [i for i, t in enumerate(items) if len(t[2]) == 32]
+    chunks = [([items[i] for i in m32[MESH_CHUNK * c:MESH_CHUNK * (c + 1)]],
+               [want[i] for i in m32[MESH_CHUNK * c:MESH_CHUNK * (c + 1)]])
+              for c in range(6)]
+    vclock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg, perf = MetricsRegistry(), ZoneRegistry()
+    sick_mesh = ShardedBatchVerifier(
+        [dev] * STAND_IN, perf=perf, metrics=reg,
+        device_min_batch=LIVE["device_min_batch"])
+    sup = BackendSupervisor(
+        sick_mesh, clock=vclock, metrics=reg, perf=perf,
+        failure_threshold=2, jitter_seed=11,
+        dispatch_deadline_ms=LIVE["dispatch_deadline_ms"],
+        canary_batch=LIVE["canary_batch"])
+    svc = VerifyService(sup, clock=vclock, metrics=reg, perf=perf,
+                        max_batch=LIVE["max_batch"],
+                        deadline_ms=LIVE["deadline_ms"])
+
+    def batches():
+        m = reg.to_json()
+        return [m["crypto.verify.dispatch.device%d.batch" % i]["count"]
+                for i in range(STAND_IN)]
+
+    def through(k):
+        got = [f.result() for f in svc.submit_many(chunks[k][0])]
+        exact(f"8.3 flush {k}", got, chunks[k][1])
+
+    def fail(msg):
+        raise SystemExit(f"mesh 8.3: {msg}")
+
+    chaos.install(chaos.ChaosEngine(11, [chaos.FaultSpec(
+        "ops.backend.dispatch.device", "io_error", start=0, count=3,
+        match={"device": SICK})]))
+    try:
+        zero_launches()
+        for k in (0, 1):
+            through(k)
+        st = sup.status()
+        states = [d["state"] for d in st["devices"]]
+        if states != [CLOSED, CLOSED, OPEN, CLOSED] or sup.state != CLOSED \
+                or sick_mesh.active_indices() != (0, 1, 3) \
+                or launch_counts()["ladder"]:
+            fail(f"after 2 faults: {states}, aggregate {sup.state}, active "
+                 f"{sick_mesh.active_indices()}, launches {launch_counts()}")
+        frozen = batches()
+        for k in (2, 3, 4):
+            through(k)
+        served = batches()
+        open_launches = check_launches("8.3 while OPEN",
+                                       {"msg32": 3 * (STAND_IN - 1)})
+        if served[SICK] != frozen[SICK] or any(
+                served[i] != frozen[i] + 3 for i in range(STAND_IN)
+                if i != SICK):
+            fail(f"while OPEN: per-position batches {frozen} -> {served}")
+        paths["sharded"].update(open_launches)
+        print(f"mesh 8.3: io_error x2 at ops.backend.dispatch.device "
+              f"(device {SICK}) -> position {SICK} OPEN, siblings CLOSED, "
+              f"aggregate {sup.state}, active {sick_mesh.active_indices()}; "
+              f"3 flushes of {MESH_CHUNK} while OPEN: per-position batches "
+              f"{frozen} -> {served}, launches {open_launches} (none on "
+              f"position {SICK})", flush=True)
+        zero_launches()
+        for _ in range(8):                     # the probe timers
+            if sup.status()["devices"][SICK]["state"] == CLOSED:
+                break
+            vclock.crank(True)
+        st = sup.status()
+        moves = [(t["from"], t["to"], t["reason"]) for t in st["transitions"]
+                 if t["device"] == SICK]
+        if moves != [(CLOSED, OPEN, "failure_threshold"),
+                     (OPEN, HALF_OPEN, "probe_timer"),
+                     (HALF_OPEN, OPEN, "probe_transient"),
+                     (OPEN, HALF_OPEN, "probe_timer"),
+                     (HALF_OPEN, CLOSED, "probe_ok")] \
+                or sick_mesh.active_indices() != tuple(range(STAND_IN)) \
+                or batches()[SICK] != served[SICK] + 1:
+            fail(f"probes: {moves}, active {sick_mesh.active_indices()}, "
+                 f"batches {batches()}")
+        paths["sharded"].update(check_launches("8.3 probes", {"msg32": 1}))
+        zero_launches()
+        through(5)
+        paths["sharded"].update(check_launches("8.3 regrown",
+                                               {"msg32": STAND_IN}))
+        if [d["state"] for d in sup.status()["devices"]] != \
+                [CLOSED] * STAND_IN or any(sup.status()["failures"][c]
+                                           for c in ("fatal", "timeout")):
+            fail(f"after the window: {sup.status()}")
+        print(f"mesh 8.3: virtual clock +{vclock.now():.3f} s: the first "
+              f"probe failed at the seam, the second ran the canary on "
+              f"position {SICK} alone and closed it; transitions {moves}; "
+              f"regrown {sick_mesh.active_indices()}; 6 x {MESH_CHUNK} "
+              f"verdicts exact; failures {sup.status()['failures']} [{card}]",
+              flush=True)
+    finally:
+        chaos.uninstall()
+        sup.shutdown()
+
+    # --- 8.4 hybrid: a (2, 2) grid in one process, then two gloo ranks ----
+    hb_items = [items[i] for i in m32[:HYBRID_N]]
+    hb_want = [want[i] for i in m32[:HYBRID_N]]
+    hyb = HybridShardedVerifier(make_hybrid_mesh([dev] * 4, n_hosts=2))
+    zero_launches()
+    got, ms = once_ms(lambda: hyb.verify_tuples(hb_items))
+    exact("8.4 one process", got, hb_want)
+    paths["hybrid"].update(check_launches("8.4 one process", {"msg32": 4}))
+    print(f"mesh 8.4: HybridShardedVerifier over a (2, 2) grid on {dev} in "
+          f"one process: {len(hb_items)} msg32 exact in {ms:.2f} ms "
+          f"[{card}]", flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    # the rendezvous is a file in a fresh directory: no port to race for
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [ctx.Process(target=hybrid_rank, args=(
+        r, HYBRID_RANKS, os.path.join(pg_dir, "pg"), root, str(dev),
+        hb_items, hb_want, out))
+        for r in range(HYBRID_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    reports = []
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while len(reports) < len(procs):
+            try:
+                reports.append(out.get(timeout=1.0))
+            except queue.Empty:
+                codes = [proc.exitcode for proc in procs]
+                if any(c not in (None, 0) for c in codes) or \
+                        time.monotonic() > deadline:
+                    raise SystemExit(f"mesh 8.4: ranks exited with {codes} "
+                                     f"before reporting")
+        for proc in procs:
+            proc.join(60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    if any(proc.exitcode != 0 for proc in procs):
+        raise SystemExit(f"mesh 8.4: a rank exited with "
+                         f"{[proc.exitcode for proc in procs]}")
+    rows = shard_shares(len(hb_items), 2 * HYBRID_RANKS)
+    for rep in sorted(reports, key=lambda x: x["rank"]):
+        mine = rows[2 * rep["rank"]] + rows[2 * rep["rank"] + 1]
+        if rep["mism"] or rep["n"] != len(hb_items) or \
+                rep["shape"] != [HYBRID_RANKS, 2] or \
+                rep["launches"] != {"msg32": 6, "k": 0, "ladder": 6} or \
+                rep["sent"] != [mine + TAG_BYTES] * 3:
+            raise SystemExit(f"mesh 8.4: rank {rep['rank']}: {rep}")
+        paths["hybrid"].update(rep["launches"])
+    print(f"mesh 8.4: {HYBRID_RANKS} spawned gloo ranks, each 2 positions on "
+          f"{dev}, one {len(hb_items)}-signature msg32 batch handed to both: "
+          f"then it and its reverse in flight, collected in opposite "
+          f"orders: both ranks' verdicts equal the oracle; each launched its "
+          f"2 shards a batch and broadcast only its rows' verdicts and the "
+          f"batch tag "
+          + ", ".join(f"rank {r['rank']} {r['sent']} B in {r['ms']:.1f} ms"
+                      for r in sorted(reports, key=lambda x: x["rank"]))
+          + f"; {(time.perf_counter() - t0):.1f} s with start-up [{card}]",
+          flush=True)
+    return {k: dict(c) for k, c in paths.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -592,7 +957,7 @@ def main():
     from stellar_core_tpu_torch.ops.testvectors import (
         make_differential_vectors, oracle_results, small_order_points)
     from stellar_core_tpu_torch.ops.verifier import (CudaBatchVerifier,
-                                                     host_k)
+                                                     host_k, host_prepare)
 
     # --- 1. the card -----------------------------------------------------
     card = smi("name,power.limit")
@@ -657,6 +1022,7 @@ def main():
         distinct.append((sk.public_key().raw, sk.sign(msg), msg))
     print(f"signed {DISTINCT} distinct tuples in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    distinct_oracle = pool.starmap_async(ref.verify, distinct)
     pubs, sigs, msgs = rows([distinct[i % DISTINCT] for i in range(N)])
 
     # --- 3. kernels against their plain versions, n = 16384 --------------
@@ -777,6 +1143,19 @@ def main():
                          "differ from the oracle")
     print(f"prep -> ladder -> finish at n={N}: 0 lanes differ from the "
           "oracle", flush=True)
+    # the v1 entry (ed25519_pallas.verify_kernel_pallas): k and -A
+    # prepared on the host, the ladder, the compare; the host's flags
+    # ANDed, as the reference's callers do
+    k1, na1, ok1 = host_prepare(p3[:V1_N], s3[:V1_N], m3[:V1_N])
+    got1 = EK.verify_kernel(s[:V1_N], dev_u8(k1), dev_u8(na1[:, :32]),
+                            dev_u8(na1[:, 32:]), r[:V1_N])
+    got1 = (got1.cpu() & torch.from_numpy(ok1)).tolist()
+    bad_lanes = sum(g != w for g, w in zip(got1, want_verdict[:V1_N]))
+    if bad_lanes:
+        raise SystemExit(f"v1 entry (host_prepare -> verify_kernel): "
+                         f"{bad_lanes} lanes differ from the oracle")
+    print(f"v1 entry (host_prepare -> verify_kernel) at n={V1_N}: "
+          f"{sum(got1)} verify, 0 lanes differ from the oracle", flush=True)
 
     # --- 4. differential corpus ------------------------------------------
     items = corpus
@@ -844,6 +1223,7 @@ def main():
         raise SystemExit(f"host-k batch: {bad} mismatches, {sum(got)} ok")
     print(f"host-k: 2048 mixed lengths, every 10th corrupted, 0 mismatches, "
           f"{dt_k * 1e3:.1f} ms", flush=True)
+    batch_want, batch_got = [uniq[t] for t in batch], got
 
     print(f"launch counts: msg32 part {dispatches} dispatches -> prep "
           f"{msg32_launches[0]}, ladder {msg32_launches[1]}; host-k part 1 "
@@ -883,6 +1263,7 @@ def main():
     # --- 7. the live verify path -----------------------------------------
     t0 = time.perf_counter()
     live_want = live_oracle.get(timeout=900)
+    distinct_want = distinct_oracle.get(timeout=900)
     pool.close()
     pool.join()
     print(f"live oracle verdicts ready ({time.perf_counter() - t0:.1f} s "
@@ -891,19 +1272,28 @@ def main():
     if not (live["msg32"] + live["k"] and live["ladder"]):
         raise SystemExit(f"live path launched a kernel no time: {live}")
 
-    # launches on the main paths: phase 5 (the verifier at width) and
-    # legs A and B of phase 7 (the live path), each counted from 0
-    entries[0]["launches"] = msg32_launches[0] + live["msg32"]
-    entries[1]["launches"] = k_launches[0] + live["k"]
-    entries[2]["launches"] = msg32_launches[1] + k_launches[1] \
-        + live["ladder"]
-    for e, verifier_path, live_path in (
-            (entries[0], msg32_launches[0], live["msg32"]),
-            (entries[1], k_launches[0], live["k"]),
-            (entries[2], msg32_launches[1] + k_launches[1],
-             live["ladder"])):
-        e["launches_by_path"] = {"verifier": verifier_path,
-                                 "live": live_path}
+    # --- 8. the multi-device verify path --------------------------------
+    mesh = mesh_phase(card, dev, v, (pubs, sigs, msgs),
+                      [distinct_want[i % DISTINCT] for i in range(N)],
+                      batch, batch_want, batch_got, live_items, live_want)
+
+    # launches on the main paths, each counted from 0: phase 5 (the
+    # verifier at width), legs A and B of phase 7 (the live path) and
+    # phase 8 (the sharded and hybrid verifiers)
+    verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
+                "ladder": msg32_launches[1] + k_launches[1]}
+    for e, kind in zip(entries, ("msg32", "k", "ladder")):
+        e["launches_by_path"] = {
+            "verifier": verifier[kind], "live": live[kind],
+            "sharded": mesh["sharded"].get(kind, 0),
+            "hybrid": mesh["hybrid"].get(kind, 0)}
+        e["launches"] = sum(e["launches_by_path"].values())
+    for path, count in (("sharded", mesh["sharded"]),
+                        ("hybrid", mesh["hybrid"])):
+        if not (count.get("msg32", 0) + count.get("k", 0)
+                and count.get("ladder", 0)):
+            raise SystemExit(f"{path} path launched a kernel no time: "
+                             f"{count}")
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))
     print(card)

@@ -23,6 +23,8 @@ import subprocess
 import threading
 from typing import Optional
 
+import numpy as np
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 BUILD = os.path.join(_DIR, "build")
@@ -140,6 +142,14 @@ class NativeLib:
                                       ctypes.c_char_p, ctypes.c_size_t,
                                       ctypes.c_char_p]
         c.sc_ed25519_sign.restype = None
+        u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+        u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
+        c.sc_ed25519_batch_prepare.argtypes = [u8p, u8p, u8p, u64p,
+                                               ctypes.c_uint64, u8p, u8p]
+        c.sc_ed25519_batch_prepare.restype = None
+        c.sc_ed25519_batch_host_precheck.argtypes = [
+            u8p, u8p, ctypes.c_uint64, u8p, u8p]
+        c.sc_ed25519_batch_host_precheck.restype = None
         self._selftest()
 
     def _selftest(self) -> None:
@@ -175,6 +185,38 @@ class NativeLib:
         out = ctypes.create_string_buffer(64)
         self._c.sc_ed25519_sign(seed, pub, msg, len(msg), out)
         return out.raw
+
+    def batch_prepare(self, pubs: np.ndarray, sigs: np.ndarray,
+                      msgs: bytes, offsets: np.ndarray):
+        """k = SHA512(R‖A‖M) mod L per signature ((n,32) uint8) and the
+        S < L flags ((n,) bool). Message i is msgs[offsets[i]:offsets[i+1]]."""
+        n = pubs.shape[0]
+        offsets = np.ascontiguousarray(offsets, dtype=np.uint64)
+        if pubs.shape != (n, 32) or sigs.shape != (n, 64) \
+                or offsets.shape != (n + 1,) or int(offsets[-1]) != len(msgs):
+            raise ValueError("batch_prepare: inconsistent shapes")
+        k_out = np.zeros((n, 32), dtype=np.uint8)
+        s_ok = np.zeros(n, dtype=np.uint8)
+        # a 1-byte buffer stands in for an empty blob: C reads none of it
+        blob = np.frombuffer(msgs or b"\0", dtype=np.uint8)
+        self._c.sc_ed25519_batch_prepare(
+            np.ascontiguousarray(pubs, dtype=np.uint8),
+            np.ascontiguousarray(sigs, dtype=np.uint8), blob, offsets, n,
+            k_out, s_ok)
+        return k_out, s_ok.astype(bool)
+
+    def batch_host_precheck(self, pubs: np.ndarray, sigs: np.ndarray):
+        """Strict decompression and small-order checks of A and R:
+        (-A as canonical x‖y bytes (n,64) uint8, ok (n,) bool)."""
+        n = pubs.shape[0]
+        if pubs.shape != (n, 32) or sigs.shape != (n, 64):
+            raise ValueError("batch_host_precheck: inconsistent shapes")
+        neg_a_xy = np.zeros((n, 64), dtype=np.uint8)
+        ok = np.zeros(n, dtype=np.uint8)
+        self._c.sc_ed25519_batch_host_precheck(
+            np.ascontiguousarray(pubs, dtype=np.uint8),
+            np.ascontiguousarray(sigs, dtype=np.uint8), n, neg_a_xy, ok)
+        return neg_a_xy, ok.astype(bool)
 
 
 def get_lib() -> NativeLib:

@@ -31,6 +31,10 @@ The 250-squaring chain is serial, so a signature stays on one thread.
 
 `prep_plain` runs the same steps on int64 tensors (ops/field.py and
 ops/sha512.py); it is what the wrappers use for CPU tensors.
+
+`verify_kernel` is the v1 entry: k and -A
+prepared on the host (verifier.host_prepare), then the ladder and the
+compare with R; the strict flags stay with the caller.
 """
 
 from __future__ import annotations
@@ -176,11 +180,16 @@ prep.launches = 0
 prep.mode_launches = [0, 0]
 
 
-def finish(x, y, r, ok):
+def encodes_r(x, y, r):
     """Encode y with sign(x) in bit 255 and compare with R: (n,) bool."""
     enc = y.clone()
     enc[:, 31] |= (x[:, 0] & 1) << 7
-    return (enc == r).all(1) & ok.to(torch.bool)
+    return (enc == r).all(1)
+
+
+def finish(x, y, r, ok):
+    """encodes_r AND the strict flags: (n,) bool verdicts."""
+    return encodes_r(x, y, r) & ok.to(torch.bool)
 
 
 def _verify(a, r, s, mk, mode):
@@ -199,3 +208,14 @@ def verify_kernel_msg32(a, r, s, m):
     """(n,32) uint8 A, R, S and the 32-byte message -> (n,) bool; k is
     computed on the card."""
     return _verify(a, r, s, m, MODE_MSG32)
+
+
+def verify_kernel(s, k, neg_ax, neg_ay, r):
+    """The v1 entry (ed25519_kernel.verify_kernel and
+    ed25519_pallas.verify_kernel_pallas of the JAX package), with the
+    port's (n,32) uint8 layout: host-prepped k and -A
+    (verifier.host_prepare) -> ladder -> encode and compare with R.
+    Returns the (n,) bool equation match; the caller ANDs the host's
+    strict flags, as the reference's callers do."""
+    x, y = ladder(s, k, neg_ax, neg_ay)
+    return encodes_r(x, y, r)

@@ -1,7 +1,8 @@
 """On the card: each CUDA kernel against its plain version, byte for byte
 (on the corpus, on edge scalars, and at batch sizes that leave partial
 blocks and partial four-lane groups), and CudaBatchVerifier and the live
-stack (VerifyService -> BackendSupervisor -> card) against the oracle.
+stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
+on a stand-in mesh of four positions and the v1 entry against the oracle.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -169,3 +170,38 @@ def test_live_stack_on_card(card):
         assert svc.stats()["fallbacks"] == 0
     finally:
         sup.shutdown()
+
+
+def test_sharded_stand_in_mesh_on_card(card):
+    """ShardedBatchVerifier over four positions on one card: verdicts equal
+    the oracle over 4, (0, 2, 3) and (1,) active positions and a pinned
+    probe, each kernel launched once per non-empty shard."""
+    from stellar_core_tpu_torch.ops.verifier import ShardedBatchVerifier
+    items = make_differential_vectors(40, seed=21)
+    want = oracle_results(items)
+    v = ShardedBatchVerifier([card] * 4)
+    for active in ((0, 1, 2, 3), (0, 2, 3), (1,)):
+        v.set_active_devices(active)
+        before = (EK.prep.launches, LD.ladder.launches)
+        assert v.verify_tuples(items) == want
+        assert (EK.prep.launches - before[0],
+                LD.ladder.launches - before[1]) == (len(active),) * 2
+    before = LD.ladder.launches
+    assert v.verify_tuples_async_on(3, items[:5])() == want[:5]
+    assert LD.ladder.launches == before + 1 and v.active_indices() == (1,)
+
+
+def test_v1_entry_on_card(card, lanes):
+    """host_prepare -> verify_kernel on the card equals the same entry on
+    the CPU (the plain ladder) and, with the host's flags, the oracle."""
+    from stellar_core_tpu_torch.ops.verifier import host_prepare
+    pubs, sigs, msgs, _ = lanes
+    k, neg_a, ok = host_prepare(pubs, sigs, msgs)
+    args = [np.ascontiguousarray(x) for x in (
+        sigs[:, 32:], k, neg_a[:, :32], neg_a[:, 32:], sigs[:, :32])]
+    got = EK.verify_kernel(*[_on(card, x) for x in args]).cpu()
+    assert torch.equal(got, EK.verify_kernel(*[torch.from_numpy(x)
+                                               for x in args]))
+    assert (got & torch.from_numpy(ok)).tolist() == [
+        ref.verify(bytes(p), bytes(s), m) for p, s, m in zip(pubs, sigs,
+                                                             msgs)]

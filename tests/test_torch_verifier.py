@@ -285,6 +285,53 @@ def test_chaos_seam_and_perf_zones_match_reference():
         {"crypto.batchVerify": 2}
 
 
+def test_host_prepare_bytes_equal_reference(corpus):
+    """v1 host prep: k, -A and the strict flags, byte for byte the JAX
+    package's, through the native library and through the oracle."""
+    from stellar_core_tpu.ops import verifier as jver
+    items, want = corpus
+    pubs = np.frombuffer(b"".join(p for p, _, _ in items),
+                         np.uint8).reshape(-1, 32)
+    sigs = np.frombuffer(b"".join(s for _, s, _ in items),
+                         np.uint8).reshape(-1, 64)
+    msgs = [m for _, _, m in items]
+    for port_fn, ref_fn in ((V.host_prepare, jver.host_prepare),
+                            (V._prep_python, jver._prep_python)):
+        got, ref = port_fn(pubs, sigs, msgs), ref_fn(pubs, sigs, msgs)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and np.array_equal(g, r)
+    k, neg_a, ok = V.host_prepare(pubs, sigs, msgs)
+    k_py, neg_a_py, ok_py = V._prep_python(pubs, sigs, msgs)
+    assert np.array_equal(ok, ok_py) and 0 < ok.sum() < len(items)
+    assert np.array_equal(k[ok], k_py[ok])
+    assert np.array_equal(neg_a[ok], neg_a_py[ok])
+    assert not any(w and not o for w, o in zip(want, ok))
+
+
+def test_v1_entry_matches_oracle():
+    """verify_kernel (the Pallas ladder's v1 entry) on the 8 tuples of
+    tests/test_tpu_verifier.py::test_pallas_ladder_interpret_matches_oracle
+    (one S corrupted): host-prepped -A, the ladder, the compare."""
+    items = _mk(8, seed=9)
+    pubs = np.frombuffer(b"".join(p for p, _, _ in items),
+                         dtype=np.uint8).reshape(-1, 32).copy()
+    sigs = np.frombuffer(b"".join(s for _, s, _ in items),
+                         dtype=np.uint8).reshape(-1, 64).copy()
+    msgs = [m for _, _, m in items]
+    sigs[3, 40] ^= 0x10
+    k, neg_a, ok = V.host_prepare(pubs, sigs, msgs)
+    assert ok.all()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+    got = EK.verify_kernel(t(sigs[:, 32:]), t(k), t(neg_a[:, :32]),
+                           t(neg_a[:, 32:]), t(sigs[:, :32]))
+    want = [tref.verify(bytes(pubs[i]), bytes(sigs[i]), msgs[i])
+            for i in range(8)]
+    assert (got & t(ok)).tolist() == want == [True] * 3 + [False] + \
+        [True] * 4
+
+
 # ------------------------------------------------------------ guards ----
 
 _GUARD = r"""
@@ -298,6 +345,9 @@ import stellar_core_tpu_torch.native.loader
 import stellar_core_tpu_torch.ops.backend_supervisor
 import stellar_core_tpu_torch.ops.shard_math
 import stellar_core_tpu_torch.ops.verify_service
+from stellar_core_tpu_torch.ops.multihost import (HybridShardedVerifier,
+                                                  make_hybrid_mesh)
+from stellar_core_tpu_torch.ops.verifier import ShardedBatchVerifier
 for name in ("checks", "logging", "threads", "timer", "cache", "tracing",
              "perf", "metrics", "chaos"):
     __import__("stellar_core_tpu_torch.util." + name)
@@ -306,6 +356,9 @@ items = make_differential_vectors(2)
 got = CudaBatchVerifier(device="cpu").verify_tuples(items[:3])
 assert got == [True, True, False], got
 assert host_verifier() == "native"
+mesh = make_hybrid_mesh(["cpu"] * 2, n_hosts=2)
+assert HybridShardedVerifier(mesh).verify_tuples(items[:1]) == [True]
+assert ShardedBatchVerifier(["cpu"] * 2).ndev == 2
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))
