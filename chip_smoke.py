@@ -76,10 +76,28 @@ Phases (any failure exits non-zero; nothing is caught):
    rows' verdicts and the batch's 16-byte tag.
    Every leg: verdicts equal the oracle, launches of each kernel equal
    active shards x dispatches.
+9. txset validation on the card at BASELINE.json config #2: a
+   protocol-21 ledger of 10,000 funded accounts and a txset of 5000
+   one-Payment transactions, one per source, signed by the native host
+   library, with a chosen mix (not measured traffic): 4 % 2-of-2
+   multisig (the second signature misses the batch and goes to the
+   fallback), 2 % fee bumps, 1 % with one flipped signature byte,
+   0.5 % with an unneeded signature. Run A: the herder's
+   `_LazyBatchPrevalidator(BackendSupervisor(CudaBatchVerifier()))`
+   under `ApplicableTxSet.check_valid`, a second validation with the
+   cache seeded, `trim_invalid`, then the apply of the valid set in
+   apply order. Run B: the same set on a fresh root from the same
+   bytes through `default_verify` (native, per signature). Fails unless
+   A and B agree on verdicts, trim, result bytes and the ledger hash,
+   the one device batch equals the oracle and holds exactly the
+   `collect_signature_tuples` pairs with prep 1 + ladder 1 launches,
+   the second validation launches nothing, and the supervisor ends
+   CLOSED with 0 failures and 0 skips.
 The oracle verdicts of the live tuples and of phase 5's tuples are
-computed in worker processes while phase 2 builds. It prints one
-`kernels` JSON line (launches by path: verifier, live, sharded,
-hybrid), the card line, and last {"ok": true, "device": {...}}.
+computed in worker processes while phase 2 builds, phase 9's while its
+runs go. It prints one `kernels` JSON line (launches by path: verifier,
+live, sharded, hybrid, txset), the card line, and last {"ok": true,
+"device": {...}}.
 """
 
 import atexit
@@ -120,6 +138,10 @@ LIVE = dict(max_batch=256, deadline_ms=2.0, device_min_batch=16,
             dispatch_deadline_ms=2000.0, canary_batch=16)
 LIVE_N = 16384
 TXSET_N = 5000           # the BASELINE.json txset size
+TXSET_SEED = 5           # phase 9's ledger, keys and mix
+TXSET_MIX = (("multisig", 0.04), ("fee_bump", 0.02), ("flipped", 0.01),
+             ("extra_sig", 0.005))   # phase 9's chosen mix
+XLM = 10_000_000         # stroops
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -944,6 +966,326 @@ def mesh_phase(card, dev, v, main_rows, main_want, batch, batch_want,
     return {k: dict(c) for k, c in paths.items()}
 
 
+def txset_workload(n, seed=TXSET_SEED):
+    """Phase 9's ledger and txset as XDR bytes, built with the port only:
+    a protocol-21 header, 2n funded accounts (n sources, n destinations)
+    and n one-Payment transactions, one per source, signed by the native
+    host library. A chosen mix (not measured traffic) of TXSET_MIX marks
+    max(1, round(share * n)) transactions of each kind, placed by a
+    seeded permutation:
+    - multisig: the source has a second signer and a medium threshold of
+      2; the second signature's hint is not the source's, so it misses
+      the batch and goes to the fallback;
+    - fee_bump: wrapped in a fee bump paid by the destination;
+    - flipped: one signature byte flipped (txBAD_AUTH);
+    - extra_sig: an unneeded signature of another key
+      (txBAD_AUTH_EXTRA)."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    # importing a family registers its frames; the port has Payment only
+    from stellar_core_tpu_torch.tx.operations import payment_ops  # noqa
+    from stellar_core_tpu_torch.tx.tx_utils import (
+        make_account_ledger_entry, starting_sequence_number)
+    from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
+    from stellar_core_tpu_torch.xdr.ledger_entries import Asset, AssetType, \
+        Signer
+    from stellar_core_tpu_torch.xdr.transaction import (
+        DecoratedSignature, FeeBumpTransaction,
+        FeeBumpTransactionEnvelope, Memo, MemoType, MuxedAccount, Operation,
+        OperationType, PaymentOp, Preconditions, PreconditionType,
+        Transaction, TransactionEnvelope, TransactionV1Envelope,
+        _FeeBumpInnerTx, _OperationBody, _TxExt)
+    from stellar_core_tpu_torch.xdr.types import (EnvelopeType, PublicKey,
+                                                  SignerKey, SignerKeyType)
+
+    rng = np.random.default_rng(seed)
+    kinds = ["plain"] * n
+    order = rng.permutation(n)
+    at = 0
+    for kind, share in TXSET_MIX:
+        k = max(1, round(share * n))
+        for i in order[at:at + k]:
+            kinds[i] = kind
+        at += k
+    if at > n:
+        raise ValueError(f"txset_workload: {n} transactions hold no mix")
+    network_id = sha256(b"chip smoke txset network")
+    header = LedgerHeader(
+        ledgerVersion=21, ledgerSeq=2, baseFee=100, baseReserve=5_000_000,
+        totalCoins=10 ** 18, maxTxSetSize=2 * n,
+        scpValue=StellarValue(closeTime=1_700_000_000))
+    seq0 = starting_sequence_number(1)
+
+    def key():
+        return SecretKey.from_seed(rng.bytes(32))
+
+    def decorated(sk, payload):
+        return DecoratedSignature(hint=sk.public_key().hint(),
+                                  signature=sk.sign(payload))
+
+    entries, envelopes = [], []
+    for i in range(n):
+        src, dst = key(), key()
+        for sk in (src, dst):
+            le = make_account_ledger_entry(
+                PublicKey.ed25519(sk.public_key().raw), 1000 * XLM, seq0)
+            le.lastModifiedLedgerSeq = 1
+            if sk is src and kinds[i] == "multisig":
+                second = key()
+                acc = le.data.value
+                acc.signers = [Signer(key=SignerKey(
+                    SignerKeyType.SIGNER_KEY_TYPE_ED25519,
+                    second.public_key().raw), weight=1)]
+                acc.numSubEntries = 1
+                acc.thresholds = bytes([1, 1, 2, 2])
+            entries.append(le.to_bytes())
+        pay = Operation(sourceAccount=None, body=_OperationBody(
+            OperationType.PAYMENT, PaymentOp(
+                destination=MuxedAccount.from_ed25519(dst.public_key().raw),
+                asset=Asset(AssetType.ASSET_TYPE_NATIVE),
+                amount=(1 + i % 97) * XLM)))
+        tx = Transaction(
+            sourceAccount=MuxedAccount.from_ed25519(src.public_key().raw),
+            fee=100, seqNum=seq0 + 1,
+            cond=Preconditions(PreconditionType.PRECOND_NONE),
+            memo=Memo(MemoType.MEMO_ID, i), operations=[pay], ext=_TxExt(0))
+        v1 = TransactionV1Envelope(tx=tx, signatures=[])
+        env = TransactionEnvelope(EnvelopeType.ENVELOPE_TYPE_TX, v1)
+        h = make_frame(env, network_id).contents_hash()
+        v1.signatures.append(decorated(src, h))
+        if kinds[i] == "multisig":
+            v1.signatures.append(decorated(second, h))
+        elif kinds[i] == "flipped":
+            sig = bytearray(v1.signatures[0].signature)
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+            v1.signatures[0].signature = bytes(sig)
+        elif kinds[i] == "extra_sig":
+            v1.signatures.append(decorated(key(), h))
+        elif kinds[i] == "fee_bump":
+            fb = FeeBumpTransactionEnvelope(tx=FeeBumpTransaction(
+                feeSource=MuxedAccount.from_ed25519(dst.public_key().raw),
+                fee=400, innerTx=_FeeBumpInnerTx(
+                    EnvelopeType.ENVELOPE_TYPE_TX, v1),
+                ext=_TxExt(0)), signatures=[])
+            env = TransactionEnvelope(EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP,
+                                      fb)
+            fb.signatures.append(
+                decorated(dst, make_frame(env, network_id).contents_hash()))
+        envelopes.append(env.to_bytes())
+    return {"header": header.to_bytes(), "entries": entries,
+            "envelopes": envelopes, "network_id": network_id,
+            "kinds": kinds}
+
+
+class RecordingVerifier:
+    """Passes verify_tuples to `inner` and keeps each call's tuples, its
+    verdicts and its wall time."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def verify_tuples(self, items):
+        t0 = time.perf_counter()
+        out = self.inner.verify_tuples(items)
+        self.calls.append((list(items), list(out),
+                           time.perf_counter() - t0))
+        return out
+
+
+def txset_run(wl, batch_verifier=None):
+    """The node's txset validation and apply on a fresh root from the
+    workload's bytes. With `batch_verifier`, signatures go through
+    `_LazyBatchPrevalidator(batch_verifier, ...)`, the herder's per-txset
+    device batch, after the verify cache is cleared, and the set is
+    validated a second time through a fresh prevalidator (the cache is
+    then seeded, so that one must dispatch nothing); without it, through
+    `default_verify`, the native per-signature path. Then
+    `trim_invalid`, a set of the valid transactions, and its apply in
+    `get_txs_in_apply_order`: every fee, then every transaction, in one
+    LedgerTxn over the next ledger's header, which commits."""
+    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.herder.herder import _LazyBatchPrevalidator
+    from stellar_core_tpu_torch.herder.tx_set import (
+        make_tx_set_from_transactions, trim_invalid)
+    from stellar_core_tpu_torch.ledger.ledger_txn import (
+        InMemoryLedgerTxnRoot, LedgerTxn)
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.operations import payment_ops  # noqa
+    from stellar_core_tpu_torch.tx.signature_checker import default_verify
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+
+    out = {}
+    clear_verify_cache()
+    root = InMemoryLedgerTxnRoot.from_xdr(wl["header"], wl["entries"])
+    nid = wl["network_id"]
+    frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
+              for b in wl["envelopes"]]
+    _, applicable, excluded = make_tx_set_from_transactions(
+        frames, root.get_header(), nid)
+    if excluded:
+        raise SystemExit(f"txset: surge pricing left out {len(excluded)}")
+    out["contents_hash"] = applicable.get_contents_hash()
+
+    verify = _LazyBatchPrevalidator(batch_verifier, applicable,
+                                    default_verify) \
+        if batch_verifier else default_verify
+    t0 = time.perf_counter()
+    out["verdict"] = applicable.check_valid(root, verify=verify)
+    out["validate_s"] = time.perf_counter() - t0
+    if batch_verifier:
+        out["first"] = verify._pv
+        watched = RecordingVerifier(batch_verifier)
+        again = _LazyBatchPrevalidator(watched, applicable, default_verify)
+        t0 = time.perf_counter()
+        out["verdict_again"] = applicable.check_valid(root, verify=again)
+        out["again_s"] = time.perf_counter() - t0
+        out["again"] = again._pv
+        out["again_calls"] = len(watched.calls)
+    t0 = time.perf_counter()
+    kept, dropped = trim_invalid(applicable.txs, root, verify)
+    out["trim_s"] = time.perf_counter() - t0
+    out["kept"] = [t.full_hash() for t in kept]
+    out["dropped"] = [t.full_hash() for t in dropped]
+    out["codes"] = {t.full_hash(): t.result.to_bytes()
+                    for t in applicable.txs}
+    _, valid_set, _ = make_tx_set_from_transactions(kept, root.get_header(),
+                                                    nid)
+    t0 = time.perf_counter()
+    order = valid_set.get_txs_in_apply_order()
+    with LedgerTxn(root) as ltx:
+        ltx.load_header().ledgerSeq += 1
+        for t in order:
+            t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
+        out["applied_ok"] = [t.apply(ltx, valid_set.base_fee_for(t),
+                                     verify=verify) for t in order]
+        ltx.commit()
+    out["apply_s"] = time.perf_counter() - t0
+    out["order"] = [t.full_hash() for t in order]
+    out["results"] = [t.result.to_bytes() for t in order]
+    state = root.get_header().to_bytes() + b"".join(
+        kb + root._lookup(kb).to_bytes() for kb in sorted(root._entries))
+    out["ledger_hash"] = sha256(state)
+    return out
+
+
+def txset_phase(card):
+    """Phase 9: the node's txset validation on the card at the size of
+    BASELINE.json config #2 (TXSET_N one-Payment transactions, 2 x
+    TXSET_N funded accounts). Run A: BackendSupervisor(
+    CudaBatchVerifier()) under the herder's lazy prevalidator; run B:
+    the native per-signature path on a fresh root from the same bytes.
+    Returns the launches of run A by kernel."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.tx.signature_checker import \
+        collect_signature_tuples
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr.results import TransactionResult, \
+        TransactionResultCode
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+
+    t0 = time.perf_counter()
+    wl = txset_workload(TXSET_N)
+    build_s = time.perf_counter() - t0
+    nid = wl["network_id"]
+    frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
+              for b in wl["envelopes"]]
+    paired = collect_signature_tuples(frames)
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    try:
+        oracle = pool.starmap_async(ref.verify, paired, chunksize=64)
+        sup = BackendSupervisor(CudaBatchVerifier())
+        rec = RecordingVerifier(sup)
+        zero_launches()
+        a = txset_run(wl, rec)
+        launches = launch_counts()
+        zero_launches()
+        b = txset_run(wl)
+        b_launches = launch_counts()
+        want = oracle.get(timeout=900)
+    finally:
+        pool.terminate()
+        pool.join()
+    st = sup.status()
+    sup.shutdown()
+    problems = []
+    for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
+                "order", "results", "applied_ok", "ledger_hash"):
+        if a[key] != b[key]:
+            problems.append(f"run A and run B differ in {key}")
+    if a["verdict_again"] != a["verdict"]:
+        problems.append("the second validation changed its verdict")
+    if len(rec.calls) != 1:
+        problems.append(f"{len(rec.calls)} verify_tuples calls, not 1")
+    else:
+        items, got, _ = rec.calls[0]
+        if sorted(items) != sorted(paired):
+            problems.append(f"the batch holds {len(items)} tuples, not the "
+                            f"{len(paired)} collect_signature_tuples pairs")
+        oracle = dict(zip(paired, want))
+        off = sum(g != oracle.get(t) for g, t in zip(got, items))
+        if off:
+            problems.append(f"{off} device verdicts differ from the oracle")
+    if launches != {"msg32": 1, "k": 0, "ladder": 1}:
+        problems.append(f"run A launched {launches}, not prep 1 + ladder 1")
+    if any(b_launches.values()):
+        problems.append(f"run B launched {b_launches}")
+    if a["again_calls"] or a["again"].hits == 0:
+        problems.append(f"the second validation made {a['again_calls']} "
+                        f"verify_tuples calls and {a['again'].hits} table "
+                        "hits; the seeded cache should serve the batch")
+    if st["state"] != CLOSED or any(st["failures"].values()) or \
+            st["skips"] or st["transitions"]:
+        problems.append(f"supervisor: {st['state']}, failures "
+                        f"{st['failures']}, skips {st['skips']}, "
+                        f"transitions {st['transitions']}")
+    kinds = wl["kinds"]
+    by_hash = {make_frame(TransactionEnvelope.from_bytes(e), nid)
+               .full_hash(): k for e, k in zip(wl["envelopes"], kinds)}
+    bad = {"flipped": TransactionResultCode.txBAD_AUTH,
+           "extra_sig": TransactionResultCode.txBAD_AUTH_EXTRA}
+    for h, code in a["codes"].items():
+        k = by_hash[h]
+        got_code = TransactionResult.from_bytes(code).result.disc
+        if (h in a["dropped"]) != (k in bad) or \
+                (k in bad and got_code != bad[k]):
+            problems.append(f"a {k} transaction ended {got_code!r}")
+            break
+    if not all(a["applied_ok"]):
+        problems.append(f"{a['applied_ok'].count(False)} valid transactions "
+                        "failed to apply")
+    if problems:
+        raise SystemExit("txset: " + "; ".join(problems))
+    counts = collections.Counter(kinds)
+    first = a["first"]
+    print(f"txset: {TXSET_N} one-Payment transactions over {2 * TXSET_N} "
+          f"accounts, chosen mix {dict(counts)}; built in {build_s:.3f} s; "
+          f"validation A (card) {a['validate_s'] * 1e3:.1f} ms, of it the "
+          f"device dispatch {rec.calls[0][2] * 1e3:.2f} ms "
+          f"({len(paired)} signatures, prep 1 + ladder 1), validation B "
+          f"(host) {b['validate_s'] * 1e3:.1f} ms (each stops at the first "
+          f"invalid transaction); trim_invalid, every transaction: A "
+          f"{a['trim_s'] * 1e3:.1f} ms, B {b['trim_s'] * 1e3:.1f} ms; again "
+          f"with the cache seeded {a['again_s'] * 1e3:.1f} ms, 0 launches; "
+          f"apply of "
+          f"{len(a['kept'])} valid {a['apply_s'] * 1e3:.1f} ms (A) / "
+          f"{b['apply_s'] * 1e3:.1f} ms (B); dropped {len(a['dropped'])} "
+          f"[{card}]", flush=True)
+    print(f"txset: prevalidator hits {first.hits}, misses {first.misses} "
+          f"(second validation: hits {a['again'].hits}, misses "
+          f"{a['again'].misses}); runs A and B equal on verdicts, trim, "
+          f"results and ledger hash {a['ledger_hash'].hex()[:16]}; the "
+          f"batch equals the oracle on all {len(paired)} tuples; supervisor "
+          f"CLOSED, 0 failures, 0 skips [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1277,16 +1619,20 @@ def main():
                       [distinct_want[i % DISTINCT] for i in range(N)],
                       batch, batch_want, batch_got, live_items, live_want)
 
+    # --- 9. txset validation on the card --------------------------------
+    txset = txset_phase(card)
+
     # launches on the main paths, each counted from 0: phase 5 (the
-    # verifier at width), legs A and B of phase 7 (the live path) and
-    # phase 8 (the sharded and hybrid verifiers)
+    # verifier at width), legs A and B of phase 7 (the live path), phase 8
+    # (the sharded and hybrid verifiers) and run A of phase 9 (txset)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
         e["launches_by_path"] = {
             "verifier": verifier[kind], "live": live[kind],
             "sharded": mesh["sharded"].get(kind, 0),
-            "hybrid": mesh["hybrid"].get(kind, 0)}
+            "hybrid": mesh["hybrid"].get(kind, 0),
+            "txset": txset[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):

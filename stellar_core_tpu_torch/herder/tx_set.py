@@ -1,0 +1,324 @@
+"""Transaction sets.
+
+Reference: src/herder/TxSetFrame.{h,cpp} and TxSetUtils.{h,cpp}.
+
+Two representations, as in the reference:
+- `TxSetFrame` — the wire/hash form (GeneralizedTransactionSet XDR from
+  protocol 20, legacy TransactionSet before); contents-hashed, immutable.
+- `ApplicableTxSet` — the validated, per-tx-base-fee-annotated form the
+  ledger close consumes (reference: ApplicableTxSetFrame).
+
+Apply order (reference TxSetFrame.cpp:550-599 getTxsInApplyOrder): txs of one
+source account stay in seqnum order; inter-account order is deterministic yet
+unpredictable — sort by SHA256(txSetHash ‖ txFullHash).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..crypto.sha import sha256
+from ..tx.frame import TransactionFrame, make_frame
+from ..util.logging import get_logger
+from ..xdr.ledger import (GeneralizedTransactionSet, TransactionPhase,
+                          TransactionSet, TransactionSetV1, TxSetComponent,
+                          TxSetComponentType)
+from .surge_pricing import (GENERIC_LANE, SurgePricingLaneConfig,
+                            surge_pricing_filter)
+
+log = get_logger("Herder")
+
+# From protocol 20 the wire form is GeneralizedTransactionSet
+FIRST_GENERALIZED_TX_SET_PROTOCOL = 20
+
+
+class TxSetFrame:
+    """Immutable wire-form tx set, identified by its contents hash
+    (reference: TxSetXDRFrame)."""
+
+    def __init__(self, xdr_set, network_id: bytes):
+        self._xdr = xdr_set
+        self._generalized = isinstance(xdr_set, GeneralizedTransactionSet)
+        self.network_id = network_id
+        self._hash = sha256(xdr_set.to_bytes())
+
+    @property
+    def is_generalized(self) -> bool:
+        return self._generalized
+
+    def get_contents_hash(self) -> bytes:
+        return self._hash
+
+    def previous_ledger_hash(self) -> bytes:
+        if self._generalized:
+            return self._xdr.value.previousLedgerHash
+        return self._xdr.previousLedgerHash
+
+    def to_xdr(self):
+        return self._xdr
+
+    def to_bytes(self) -> bytes:
+        return self._xdr.to_bytes()
+
+    def size_tx_total(self) -> int:
+        return len(list(self._iter_envelopes()))
+
+    def size_op_total(self) -> int:
+        n = 0
+        for frame, _ in self._frames_with_base_fee():
+            n += max(1, frame.num_operations())
+        return n
+
+    def _iter_envelopes(self):
+        if not self._generalized:
+            for env in self._xdr.txs:
+                yield env
+            return
+        for phase in self._xdr.value.phases:
+            for comp in phase.value:
+                yield from comp.value.txs
+
+    def _frames_with_base_fee(self) -> List[Tuple[TransactionFrame,
+                                                  Optional[int]]]:
+        out = []
+        if not self._generalized:
+            for env in self._xdr.txs:
+                out.append((make_frame(env, self.network_id), None))
+            return out
+        for phase in self._xdr.value.phases:
+            for comp in phase.value:
+                bf = comp.value.baseFee
+                for env in comp.value.txs:
+                    out.append((make_frame(env, self.network_id), bf))
+        return out
+
+    def prepare_for_apply(self, lcl_header) -> Optional["ApplicableTxSet"]:
+        """Parse + structurally validate against the LCL; returns None on
+        malformed sets (reference: TxSetXDRFrame::prepareForApply)."""
+        try:
+            frames = self._frames_with_base_fee()
+        except Exception:
+            log.warning("malformed tx set %s", self._hash.hex()[:16])
+            return None
+        return ApplicableTxSet(self, frames, lcl_header)
+
+
+class ApplicableTxSet:
+    """Validated form consumed by closeLedger (reference:
+    ApplicableTxSetFrame)."""
+
+    def __init__(self, frame: TxSetFrame,
+                 frames_with_base_fee: Sequence[Tuple[TransactionFrame,
+                                                      Optional[int]]],
+                 lcl_header):
+        self._frame = frame
+        self._txs = list(frames_with_base_fee)
+        self._lcl_header = lcl_header
+        self._base_fee_by_hash = {t.full_hash(): bf for t, bf in self._txs}
+
+    def get_contents_hash(self) -> bytes:
+        return self._frame.get_contents_hash()
+
+    def to_wire(self) -> TxSetFrame:
+        return self._frame
+
+    @property
+    def txs(self) -> List[TransactionFrame]:
+        return [t for t, _ in self._txs]
+
+    def base_fee_for(self, tx: TransactionFrame) -> Optional[int]:
+        """Per-op base fee override from the discounted component; None
+        means the tx pays its own bid (legacy sets: lcl base fee
+        semantics handled by TransactionFrame)."""
+        h = tx.full_hash()
+        if h not in self._base_fee_by_hash:
+            raise KeyError(f"tx {h.hex()[:16]} not in this tx set")
+        return self._base_fee_by_hash[h]
+
+    def size_tx(self) -> int:
+        return len(self._txs)
+
+    def size_op(self) -> int:
+        return sum(max(1, t.num_operations()) for t, _ in self._txs)
+
+    # ------------------------------------------------------------ validity --
+    def check_valid(self, ltx_parent, verify=None) -> bool:
+        """Full semantic validation (reference:
+        ApplicableTxSetFrame::checkValid): prev-hash links the LCL, no
+        duplicates, per-account seqnum chains, each tx checkValid, size
+        within the header limit."""
+        header = self._lcl_header
+        if self._frame.previous_ledger_hash() != _header_hash(header):
+            log.debug("tx set prev hash mismatch")
+            return False
+        if self._frame.is_generalized:
+            if header.ledgerVersion < FIRST_GENERALIZED_TX_SET_PROTOCOL:
+                return False
+        # maxTxSetSize counts operations from protocol 11 on, txs before
+        # (reference: TxSetFrame size() + FIRST_PROTOCOL_SUPPORTING_
+        # OPERATION_LIMITS); applies to generalized sets too
+        size = self.size_op() if header.ledgerVersion >= 11 \
+            else self.size_tx()
+        if size > header.maxTxSetSize:
+            return False
+        seen = set()
+        for t, _ in self._txs:
+            h = t.full_hash()
+            if h in seen:
+                return False
+            seen.add(h)
+        return self._check_tx_chains(ltx_parent, verify)
+
+    def _check_tx_chains(self, ltx_parent, verify) -> bool:
+        _, dropped = walk_tx_chains(self._txs_only(), ltx_parent, verify,
+                                    stop_on_first=True)
+        return not dropped
+
+    def _txs_only(self) -> List[TransactionFrame]:
+        return [t for t, _ in self._txs]
+
+    # --------------------------------------------------------- apply order --
+    def get_txs_in_apply_order(self) -> List[TransactionFrame]:
+        """Reference TxSetFrame.cpp:550-599: per-account seqnum order kept,
+        inter-account order by hash mix with the set hash."""
+        set_hash = self.get_contents_hash()
+        by_acct: Dict[bytes, List[TransactionFrame]] = {}
+        for t, _ in self._txs:
+            by_acct.setdefault(t.source_id.to_bytes(), []).append(t)
+        for txs in by_acct.values():
+            txs.sort(key=lambda t: t.seq_num)
+        # each account's next tx is a "head"; repeatedly take the head
+        # with the smallest mixed hash
+        heads = []
+        for acct, txs in by_acct.items():
+            heads.append((sha256(set_hash + txs[0].full_hash()), acct, 0))
+        out: List[TransactionFrame] = []
+        import heapq
+        heapq.heapify(heads)
+        while heads:
+            _, acct, idx = heapq.heappop(heads)
+            txs = by_acct[acct]
+            out.append(txs[idx])
+            if idx + 1 < len(txs):
+                heapq.heappush(
+                    heads,
+                    (sha256(set_hash + txs[idx + 1].full_hash()), acct,
+                     idx + 1))
+        return out
+
+
+def _header_hash(header) -> bytes:
+    return sha256(header.to_bytes())
+
+
+def walk_tx_chains(txs: Sequence[TransactionFrame], ltx_parent, verify,
+                   stop_on_first: bool = False
+                   ) -> Tuple[List[TransactionFrame],
+                              List[TransactionFrame]]:
+    """Per-account seqnum-chain validation walk shared by txset
+    checkValid and the proposer's trim (reference: TxSetUtils —
+    checkValidInternal and trimInvalid ride the same chain logic).
+    Only the first tx of a chain is checked against the live account
+    seqnum; accepted txs consume their seqnum so followers must be
+    contiguous. Returns (kept, dropped); with stop_on_first the walk
+    aborts at the first invalid tx (validation mode)."""
+    from ..ledger.ledger_txn import LedgerTxn
+    from ..tx.signature_checker import default_verify
+    verify = verify or default_verify
+    by_acct: Dict[bytes, List[TransactionFrame]] = {}
+    for t in txs:
+        by_acct.setdefault(t.source_id.to_bytes(), []).append(t)
+    kept: List[TransactionFrame] = []
+    dropped: List[TransactionFrame] = []
+    with LedgerTxn(ltx_parent) as ltx:
+        for chain in by_acct.values():
+            chain.sort(key=lambda t: t.seq_num)
+            for t in chain:
+                if t.check_valid(ltx, current=0, verify=verify):
+                    t._process_seq_num(ltx)
+                    kept.append(t)
+                else:
+                    dropped.append(t)
+                    if stop_on_first:
+                        ltx.rollback()
+                        return kept, dropped
+        ltx.rollback()
+    return kept, dropped
+
+
+def trim_invalid(txs: Sequence[TransactionFrame], ltx_root, verify=None
+                 ) -> Tuple[List[TransactionFrame],
+                            List[TransactionFrame]]:
+    """Split candidates into (valid, invalid) against the LCL state in
+    `ltx_root` (reference: TxSetUtils::trimInvalid,
+    herder/TxSetUtils.cpp:200 — run on the proposer's queue snapshot
+    before surge pricing so a stale-invalid tx can never reach a
+    nominated set; the herder bans the invalid remainder)."""
+    return walk_tx_chains(txs, ltx_root, verify)
+
+
+def make_tx_set_from_transactions(
+        txs: Sequence[TransactionFrame],
+        lcl_header,
+        network_id: bytes,
+        lane_config: Optional[SurgePricingLaneConfig] = None,
+) -> Tuple[TxSetFrame, ApplicableTxSet, List[TransactionFrame]]:
+    """Build a tx set from candidate txs with surge pricing applied
+    (reference: makeTxSetFromTransactions). Returns (wire frame,
+    applicable set, excluded txs — surge-priced-out, still queueable).
+    Proposers run trim_invalid on the candidates first (the reference's
+    makeFromTransactions does the trim internally and reports invalids
+    through an out-param; here the herder owns that step and bans the
+    remainder)."""
+    if lane_config is None:
+        lane_config = SurgePricingLaneConfig([lcl_header.maxTxSetSize])
+    included, base_fees = surge_pricing_filter(txs, lane_config)
+    excluded = [t for t in txs if t not in included]
+
+    prev_hash = _header_hash(lcl_header)
+    if lcl_header.ledgerVersion >= FIRST_GENERALIZED_TX_SET_PROTOCOL:
+        xdr_set = _build_generalized(included, base_fees, lane_config,
+                                     prev_hash, lcl_header)
+    else:
+        envs = [t.envelope for t in _sort_for_contents(included)]
+        xdr_set = TransactionSet(previousLedgerHash=prev_hash, txs=envs)
+    frame = TxSetFrame(xdr_set, network_id)
+    applicable = frame.prepare_for_apply(lcl_header)
+    assert applicable is not None
+    return frame, applicable, excluded
+
+
+def _sort_for_contents(txs: Sequence[TransactionFrame]
+                       ) -> List[TransactionFrame]:
+    """Canonical in-set order: by full hash (reference:
+    TxSetUtils::sortTxsInHashOrder)."""
+    return sorted(txs, key=lambda t: t.full_hash())
+
+
+def _build_generalized(included, base_fees, lane_config, prev_hash,
+                       lcl_header) -> GeneralizedTransactionSet:
+    # one component per distinct base fee (reference:
+    # TxSetFrame::makeFromTransactions building per-lane components);
+    # surged lanes get their clearing fee, others an absent baseFee.
+    comp_txs: Dict[Optional[int], List] = {}
+    for t in included:
+        lane = lane_config.lane_of(t)
+        bf = base_fees.get(lane)
+        if bf is not None:
+            # clearing fee must never exceed what any included tx bid
+            # per op, nor fall below the protocol minimum
+            bf = max(lcl_header.baseFee, bf)
+        comp_txs.setdefault(bf, []).append(t)
+    components = []
+    for bf in sorted(comp_txs, key=lambda v: (v is not None, v or 0)):
+        envs = [t.envelope for t in _sort_for_contents(comp_txs[bf])]
+        comp = TxSetComponent(
+            TxSetComponentType.TXSET_COMP_TXS_MAYBE_DISCOUNTED_FEE)
+        comp.value.baseFee = bf
+        comp.value.txs = envs
+        components.append(comp)
+    phase_classic = TransactionPhase(0, components)
+    phase_soroban = TransactionPhase(0, [])
+    v1 = TransactionSetV1(previousLedgerHash=prev_hash,
+                          phases=[phase_classic, phase_soroban])
+    return GeneralizedTransactionSet(1, v1)

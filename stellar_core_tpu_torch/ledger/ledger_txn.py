@@ -1,0 +1,517 @@
+"""Nested ledger transactions.
+
+Reference: src/ledger/LedgerTxn.{h,cpp} (design essay at LedgerTxn.h:20-120)
+— a parent/child stack of in-memory entry deltas over a root store, with
+commit folding a child's delta into its parent and the root writing SQL.
+
+Copy discipline (the reference's "activation" rules, adapted): every
+value flowing DOWN the chain (`_lookup`) is a shared snapshot that must
+never be mutated; `load()` makes exactly ONE owned copy at the loading
+level and records it in the delta.  The previous value of every touched
+key is captured at first touch (`_prev`) so `get_changes`/`get_delta`
+need no chain re-walks and no further copies (cloning on every chain
+hop and re-fetching prevs at commit cost ~46% of catchup apply time).
+
+Headers follow the same rule: a child clones the parent header only on
+`load_header()`, and commit passes ownership up without another copy.
+
+Order-book queries of the SQL root resolve root offers through its index
+(sellingasset/buyingasset/price/offerid columns) with child deltas
+overlaid, mirroring LedgerTxn::loadBestOffer / the reference's
+loadBestOffersIntoCache SQL (ledger/LedgerTxnOfferSQL.cpp) rather than
+scanning the book.
+
+Counterpart of stellar_core_tpu/ledger/ledger_txn.py. The port has the
+dict-backed InMemoryLedgerTxnRoot, which `from_xdr` fills from the XDR
+bytes of a header and of entries; the SQL-backed LedgerTxnRoot is not
+copied yet (it comes with the db/ slice).
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from ..util.checks import releaseAssert
+from ..xdr.ledger_entries import (Asset, LedgerEntry, LedgerEntryType,
+                                  LedgerKey, OfferEntry, TrustLineAsset,
+                                  ledger_entry_key)
+from ..xdr.ledger import LedgerHeader
+
+
+def _copy_entry(e: LedgerEntry) -> LedgerEntry:
+    return e.clone()
+
+
+def _copy_header(h: LedgerHeader) -> LedgerHeader:
+    return h.clone()
+
+
+def key_bytes(key: LedgerKey) -> bytes:
+    return key.to_bytes()
+
+
+def entry_key_bytes(entry: LedgerEntry) -> bytes:
+    return ledger_entry_key(entry).to_bytes()
+
+
+_OFFER_KB_PREFIX = struct.pack(">i", int(LedgerEntryType.OFFER))
+
+
+class LedgerDelta:
+    """Init/live/dead classification of one committed LedgerTxn, the
+    shape consumed by BucketList.add_batch and tx meta."""
+
+    def __init__(self, init: List[LedgerEntry], live: List[LedgerEntry],
+                 dead: List[LedgerKey]):
+        self.init = init
+        self.live = live
+        self.dead = dead
+
+
+class AbstractLedgerTxnParent:
+    """Interface shared by LedgerTxn and the roots."""
+
+    def _lookup(self, kb: bytes) -> Optional[LedgerEntry]:
+        """Shared snapshot of the current value (None = absent).
+        Callers MUST NOT mutate the returned object."""
+        raise NotImplementedError
+
+    def get_entry(self, kb: bytes) -> Optional[LedgerEntry]:
+        """Back-compat shared read; same contract as _lookup."""
+        return self._lookup(kb)
+
+    def get_header(self) -> LedgerHeader:
+        raise NotImplementedError
+
+    def commit_child(self, delta: Dict[bytes, Optional[LedgerEntry]],
+                     prev: Dict[bytes, Optional[LedgerEntry]],
+                     header: Optional[LedgerHeader]) -> None:
+        raise NotImplementedError
+
+    def _offer_deltas(self, acc: Dict[bytes, Optional[LedgerEntry]]) -> None:
+        """Overlay this level's pending OFFER changes into `acc`
+        (child-first: existing keys are not overwritten)."""
+        return None
+
+    def best_offer(self, selling: Asset, buying: Asset,
+                   exclude) -> Optional[Tuple[bytes, LedgerEntry]]:
+        """Best committed offer for the pair, skipping keys in
+        `exclude`; shared snapshot."""
+        return None
+
+    def offers_by_account(self, account_id) -> Dict[bytes, LedgerEntry]:
+        return {}
+
+    def iter_offers(self) -> Iterable[Tuple[bytes, LedgerEntry]]:
+        """Yield (key_bytes, offer entry) shared snapshots."""
+        return iter(())
+
+    def prefetch(self, keys) -> int:
+        """Warm whatever cache this parent keeps; no-op by default."""
+        return 0
+
+    def child_open(self, child: "LedgerTxn") -> None:
+        releaseAssert(getattr(self, "_child", None) is None,
+                      "parent already has an open child LedgerTxn")
+        self._child = child
+
+    def child_closed(self) -> None:
+        self._child = None
+
+
+class LedgerTxn(AbstractLedgerTxnParent):
+    """One nesting level. Create with an open parent; exactly one child
+    may be open at a time (reference: sealing rules, LedgerTxn.h:60-90)."""
+
+    def __init__(self, parent: AbstractLedgerTxnParent):
+        self._parent = parent
+        parent.child_open(self)
+        self._child = None
+        # kb -> entry object (live, owned by this txn) or None (erased)
+        self._delta: Dict[bytes, Optional[LedgerEntry]] = {}
+        # kb -> shared snapshot of the value in the parent chain at first
+        # touch (None = did not exist).  Never mutated, never cloned.
+        self._prev: Dict[bytes, Optional[LedgerEntry]] = {}
+        self._header: Optional[LedgerHeader] = None
+        self._open = True
+
+    # ------------------------------------------------------------- queries --
+    def _check_open(self) -> None:
+        releaseAssert(self._open, "LedgerTxn is closed")
+        releaseAssert(self._child is None,
+                      "LedgerTxn has an open child; parent is sealed")
+
+    def _lookup(self, kb: bytes) -> Optional[LedgerEntry]:
+        d = self._delta
+        if kb in d:
+            return d[kb]
+        return self._parent._lookup(kb)
+
+    def entry_exists(self, key: LedgerKey) -> bool:
+        return self._lookup(key.to_bytes()) is not None
+
+    def load(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        """Load for modification: the returned object is the live record;
+        mutating it mutates this txn's pending state."""
+        return self.load_by_bytes(key.to_bytes())
+
+    def load_by_bytes(self, kb: bytes) -> Optional[LedgerEntry]:
+        """load() addressed by canonical key bytes (hot paths keep the
+        serialized key cached — e.g. per-account, tx_utils)."""
+        self._check_open()
+        d = self._delta
+        if kb in d:
+            return d[kb]
+        p = self._parent._lookup(kb)
+        if p is None:
+            return None
+        if kb not in self._prev:
+            self._prev[kb] = p
+        e = p.clone()
+        # recorded loads count as modifications: stamp the closing seq
+        # (reference: LedgerTxn sealing's maybeUpdateLastModified)
+        e.lastModifiedLedgerSeq = self.get_header().ledgerSeq
+        d[kb] = e
+        return e
+
+    def load_with_state_snapshot(self, key: LedgerKey):
+        """load() plus a pre-image clone equal to what a nested child
+        txn would snapshot at first touch: the recorded object if this
+        level already touched the key (stamped, post earlier
+        mutations), else the parent chain's shared object (original
+        lastModified). Lets per-item meta (STATE, UPDATED) be built
+        without a LedgerTxn per item — the lean fee phase."""
+        self._check_open()
+        kb = key.to_bytes()
+        if kb in self._delta:
+            cur = self._delta[kb]
+            if cur is None:
+                return None, None
+        else:
+            cur = self._parent._lookup(kb)
+            if cur is None:
+                return None, None
+        prev = cur.clone()
+        return self.load_by_bytes(kb), prev
+
+    def load_without_record(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        """Read-only snapshot (reference: loadWithoutRecord) — does not
+        join the delta.  The returned object is SHARED: do not mutate."""
+        self._check_open()
+        return self._lookup(key.to_bytes())
+
+    # ----------------------------------------------------------- mutations --
+    def create(self, entry: LedgerEntry) -> LedgerEntry:
+        self._check_open()
+        kb = entry_key_bytes(entry)
+        d = self._delta
+        if kb in d:
+            releaseAssert(d[kb] is None, "create: entry already exists")
+        else:
+            p = self._parent._lookup(kb)
+            releaseAssert(p is None, "create: entry already exists")
+            if kb not in self._prev:
+                self._prev[kb] = p
+        entry.lastModifiedLedgerSeq = self.get_header().ledgerSeq
+        d[kb] = entry
+        return entry
+
+    def erase(self, key: LedgerKey) -> None:
+        self._check_open()
+        kb = key.to_bytes()
+        d = self._delta
+        if kb in d:
+            releaseAssert(d[kb] is not None, "erase: entry does not exist")
+            # every delta key has a _prev record (load/create/commit set it)
+            if self._prev[kb] is None:
+                # created at this level: erasing cancels it entirely
+                del d[kb]
+                del self._prev[kb]
+            else:
+                d[kb] = None
+            return
+        p = self._parent._lookup(kb)
+        releaseAssert(p is not None, "erase: entry does not exist")
+        self._prev[kb] = p
+        d[kb] = None
+
+    # -------------------------------------------------------------- header --
+    def load_header(self) -> LedgerHeader:
+        self._check_open()
+        if self._header is None:
+            self._header = self._parent.get_header().clone()
+        return self._header
+
+    def get_header(self) -> LedgerHeader:
+        return self._header if self._header is not None \
+            else self._parent.get_header()
+
+    # ------------------------------------------------------ commit/rollback --
+    def commit(self) -> None:
+        self._check_open()
+        self._parent.commit_child(self._delta, self._prev, self._header)
+        self._open = False
+        self._parent.child_closed()
+
+    def rollback(self) -> None:
+        releaseAssert(self._open, "LedgerTxn is closed")
+        if self._child is not None:
+            self._child.rollback()
+        self._open = False
+        self._delta.clear()
+        self._prev.clear()
+        self._parent.child_closed()
+
+    def get_root(self):
+        """The LedgerTxnRoot (or in-memory root) under this chain."""
+        return self._parent.get_root()
+
+    def __enter__(self) -> "LedgerTxn":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._open:
+            self.rollback()
+        return False
+
+    def commit_child(self, delta: Dict[bytes, Optional[LedgerEntry]],
+                     prev: Dict[bytes, Optional[LedgerEntry]],
+                     header: Optional[LedgerHeader]) -> None:
+        my_prev = self._prev
+        my_delta = self._delta
+        for kb, e in delta.items():
+            if kb not in my_prev:
+                # the child observed the parent chain ABOVE this level
+                # for keys this level never touched
+                my_prev[kb] = prev[kb]
+            if e is None and my_prev[kb] is None:
+                # created and erased within the composite txn: no-op
+                my_delta.pop(kb, None)
+            else:
+                my_delta[kb] = e
+        if header is not None:
+            self._header = header     # adopt: the child is closed now
+
+    # ---------------------------------------------------------------- delta --
+    def get_delta(self) -> LedgerDelta:
+        """Classify pending changes vs the PARENT chain (valid before
+        commit; LedgerManager calls this to feed buckets/meta).
+        Entries are the live objects — consume before further writes."""
+        init, live, dead = [], [], []
+        prev = self._prev
+        for kb, e in self._delta.items():
+            if e is None:
+                dead.append(LedgerKey.from_bytes(kb))
+            elif prev.get(kb) is None:
+                init.append(e)
+            else:
+                live.append(e)
+        return LedgerDelta(init, live, dead)
+
+    def get_changes(self):
+        """LedgerEntryChange list vs the parent chain, the tx-meta shape
+        (reference: LedgerTxn::getChanges).  Uses the first-touch
+        snapshots — no chain re-walk, no copies."""
+        from ..xdr.ledger import LedgerEntryChange, LedgerEntryChangeType
+        changes = []
+        prev_map = self._prev
+        for kb, e in self._delta.items():
+            prev = prev_map.get(kb)
+            if e is None:
+                changes.append(LedgerEntryChange(
+                    LedgerEntryChangeType.LEDGER_ENTRY_STATE, prev))
+                changes.append(LedgerEntryChange(
+                    LedgerEntryChangeType.LEDGER_ENTRY_REMOVED,
+                    LedgerKey.from_bytes(kb)))
+            elif prev is None:
+                changes.append(LedgerEntryChange(
+                    LedgerEntryChangeType.LEDGER_ENTRY_CREATED, e))
+            else:
+                changes.append(LedgerEntryChange(
+                    LedgerEntryChangeType.LEDGER_ENTRY_STATE, prev))
+                changes.append(LedgerEntryChange(
+                    LedgerEntryChangeType.LEDGER_ENTRY_UPDATED, e))
+        return changes
+
+    # ---------------------------------------------------------- order book --
+    def _offer_deltas(self, acc: Dict[bytes, Optional[LedgerEntry]]) -> None:
+        for kb, e in self._delta.items():
+            if kb.startswith(_OFFER_KB_PREFIX) and kb not in acc:
+                acc[kb] = e
+        self._parent._offer_deltas(acc)
+
+    def iter_offers(self):
+        acc: Dict[bytes, Optional[LedgerEntry]] = {}
+        self._offer_deltas(acc)
+        for kb, e in acc.items():
+            if e is not None:
+                yield kb, e
+        root = self._root()
+        for kb, e in root.iter_offers():
+            if kb not in acc:
+                yield kb, e
+
+    def _root(self):
+        p = self._parent
+        while isinstance(p, LedgerTxn):
+            p = p._parent
+        return p
+
+    def load_best_offer(self, selling: Asset,
+                        buying: Asset) -> Optional[LedgerEntry]:
+        """Best (lowest price, then lowest offerId) offer selling
+        `selling` for `buying`, loaded for modification."""
+        self._check_open()
+        acc: Dict[bytes, Optional[LedgerEntry]] = {}
+        self._offer_deltas(acc)
+        best_kb, best = None, None
+        for kb, e in acc.items():
+            if e is None:
+                continue
+            of: OfferEntry = e.data.value
+            if of.selling != selling or of.buying != buying:
+                continue
+            if best is None or _offer_less(of, best.data.value):
+                best_kb, best = kb, e
+        hit = self._root().best_offer(selling, buying, acc)
+        if hit is not None and (best is None or _offer_less(
+                hit[1].data.value, best.data.value)):
+            best_kb, best = hit
+        if best_kb is None:
+            return None
+        return self.load(LedgerKey.from_bytes(best_kb))
+
+    def load_offers_by_account(self, account_id) -> List[LedgerEntry]:
+        self._check_open()
+        acc: Dict[bytes, Optional[LedgerEntry]] = {}
+        self._offer_deltas(acc)
+        hits = dict(self._root().offers_by_account(account_id))
+        for kb, e in acc.items():
+            hits.pop(kb, None)
+            if e is not None and e.data.value.sellerID == account_id:
+                hits[kb] = e
+        return [self.load(LedgerKey.from_bytes(kb)) for kb in hits]
+
+
+def _offer_less(a: OfferEntry, b: OfferEntry) -> bool:
+    # price fraction compare without floats: a.n/a.d < b.n/b.d
+    lhs = a.price.n * b.price.d
+    rhs = b.price.n * a.price.d
+    if lhs != rhs:
+        return lhs < rhs
+    return a.offerID < b.offerID
+
+
+class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
+    """Dict-backed root (reference: InMemoryLedgerTxnRoot, used by
+    --in-memory mode and tests).  Entries are stored as objects and
+    handed out shared; commits adopt the child's objects."""
+
+    def __init__(self, header: Optional[LedgerHeader] = None):
+        self._entries: Dict[bytes, LedgerEntry] = {}
+        self._header = header or LedgerHeader()
+        self._child = None
+        self.hot_archive = None   # state-archival lookup (protocol 23+)
+        self._contract_key_index: Optional[List[bytes]] = None
+
+    @classmethod
+    def from_xdr(cls, header: bytes,
+                 entries: Iterable[bytes]) -> "InMemoryLedgerTxnRoot":
+        """A root holding the ledger given as the XDR bytes of one
+        LedgerHeader and of LedgerEntry values (any root's state, e.g.
+        another implementation's, crosses this way)."""
+        root = cls(LedgerHeader.from_bytes(header))
+        for eb in entries:
+            e = LedgerEntry.from_bytes(eb)
+            kb = entry_key_bytes(e)
+            releaseAssert(kb not in root._entries,
+                          "from_xdr: duplicate ledger entry key")
+            root._entries[kb] = e
+        return root
+
+    def get_root(self) -> "InMemoryLedgerTxnRoot":
+        return self
+
+    def contract_entry_keys(self):
+        """Canonically ordered CONTRACT_DATA/CONTRACT_CODE key bytes
+        (the eviction scan's walk order)."""
+        return sorted(
+            kb for kb in self._entries
+            if LedgerKey.from_bytes(kb).disc in
+            (LedgerEntryType.CONTRACT_DATA, LedgerEntryType.CONTRACT_CODE))
+
+    def contract_key_index(self) -> List[bytes]:
+        """Sorted contract-key index, built once and maintained by every
+        commit (the bounded eviction scan's walk — see _eviction_scan)."""
+        if self._contract_key_index is None:
+            self._contract_key_index = list(self.contract_entry_keys())
+        return self._contract_key_index
+
+    def _lookup(self, kb: bytes) -> Optional[LedgerEntry]:
+        return self._entries.get(kb)
+
+    def get_header(self) -> LedgerHeader:
+        return self._header
+
+    def commit_child(self, delta, prev, header) -> None:
+        for kb, e in delta.items():
+            if e is None:
+                self._entries.pop(kb, None)
+            else:
+                self._entries[kb] = e
+        _index_apply_delta(self._contract_key_index, delta)
+        if header is not None:
+            self._header = header
+
+    def _offer_deltas(self, acc) -> None:
+        return None
+
+    def iter_offers(self):
+        for kb, e in self._entries.items():
+            if kb.startswith(_OFFER_KB_PREFIX):
+                yield kb, e
+
+    def best_offer(self, selling, buying, exclude):
+        best_kb, best = None, None
+        for kb, e in self.iter_offers():
+            if kb in exclude:
+                continue
+            of = e.data.value
+            if of.selling != selling or of.buying != buying:
+                continue
+            if best is None or _offer_less(of, best.data.value):
+                best_kb, best = kb, e
+        return None if best_kb is None else (best_kb, best)
+
+    def offers_by_account(self, account_id) -> Dict[bytes, LedgerEntry]:
+        return {kb: e for kb, e in self.iter_offers()
+                if e.data.value.sellerID == account_id}
+
+    def entry_count(self) -> int:
+        return len(self._entries)
+
+
+_CONTRACT_KB_PREFIXES = (
+    struct.pack(">i", LedgerEntryType.CONTRACT_DATA),
+    struct.pack(">i", LedgerEntryType.CONTRACT_CODE),
+)
+
+
+def _index_apply_delta(idx: Optional[List[bytes]], delta) -> None:
+    """Maintain a sorted contract-key index across a commit —
+    O(changes · log n). No-op until the index is first built, so
+    non-soroban workloads never pay for it."""
+    if idx is None:
+        return
+    import bisect
+    for kb, e in delta.items():
+        if kb[:4] not in _CONTRACT_KB_PREFIXES:
+            continue
+        pos = bisect.bisect_left(idx, kb)
+        present = pos < len(idx) and idx[pos] == kb
+        if e is None:
+            if present:
+                del idx[pos]
+        elif not present:
+            idx.insert(pos, kb)

@@ -1,0 +1,827 @@
+"""Transaction frames: validity, fee/sequence processing, apply.
+
+Reference: transactions/TransactionFrame.{h,cpp} and
+FeeBumpTransactionFrame.{h,cpp}. The lifecycle mirrors the reference's
+modern-protocol path (>= 13):
+
+  queue admission / txset validation:
+      check_valid = commonValid(applying=False) + per-op checkValid
+                    + checkAllSignaturesUsed            (:1398-1455)
+  ledger close:
+      process_fee_seq_num   — charge min(fee, baseFee*numOps) into the
+                              fee pool, clamped to balance (:processFeeSeqNum)
+      apply                 — commonValid(applying=True) + processSeqNum
+                              + processSignatures, then per-op apply in
+                              nested LedgerTxns (:applyOperations)
+
+Signature verification funnels through the injected VerifyFn — the device
+batch-verifier seam (SURVEY.md §3.2 hot path).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from enum import IntEnum
+from typing import List, Optional, Sequence, Tuple
+
+from ..crypto.sha import sha256
+from ..util.checks import releaseAssert
+from ..xdr.ledger_entries import LedgerKey, ThresholdIndexes
+from ..xdr.transaction import (
+    DecoratedSignature, MuxedAccount, Preconditions, PreconditionType,
+    Transaction, TransactionEnvelope, TransactionSignaturePayload,
+    _TaggedTransaction, _TxExt,
+)
+from ..xdr.results import (
+    InnerTransactionResult, InnerTransactionResultPair, OperationResult,
+    OperationResultCode, TransactionResult, TransactionResultCode,
+    _InnerTxResultResult, _TxResultResult,
+)
+from ..xdr.types import EnvelopeType, ExtensionPoint, SignerKey, SignerKeyType
+from ..ledger.ledger_txn import LedgerTxn
+from . import tx_utils
+from .operation_frame import OperationFrame, make_operation_frame
+from .signature_checker import SignatureChecker, VerifyFn, default_verify
+from .sponsorship import (ApplyContext, account_seq_ledger, account_seq_time,
+                          ensure_account_ext_v3)
+
+INT64_MAX = 2**63 - 1
+MIN_PROTOCOL = 13  # this build replays modern-protocol ledgers only
+
+
+class ValidationType(IntEnum):
+    kInvalid = 0
+    kInvalidUpdateSeqNum = 1
+    kInvalidPostAuth = 2
+    kMaybeValid = 3
+
+
+def make_frame(envelope: TransactionEnvelope,
+               network_id: bytes) -> "TransactionFrame":
+    if envelope.disc == EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP:
+        return FeeBumpTransactionFrame(envelope, network_id)
+    return TransactionFrame(envelope, network_id)
+
+
+def _v0_to_v1_tx(v0tx) -> Transaction:
+    """Upgrade a legacy TransactionV0 body for hashing/validation
+    (reference: txbridge convertForV13)."""
+    cond = Preconditions(PreconditionType.PRECOND_TIME, v0tx.timeBounds) \
+        if v0tx.timeBounds is not None \
+        else Preconditions(PreconditionType.PRECOND_NONE)
+    return Transaction(
+        sourceAccount=MuxedAccount.from_ed25519(v0tx.sourceAccountEd25519),
+        fee=v0tx.fee, seqNum=v0tx.seqNum, cond=cond, memo=v0tx.memo,
+        operations=v0tx.operations, ext=_TxExt(0))
+
+
+class TransactionFrame:
+    def __init__(self, envelope: TransactionEnvelope, network_id: bytes):
+        releaseAssert(
+            envelope.disc != EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP,
+            "use FeeBumpTransactionFrame")
+        self.envelope = envelope
+        self.network_id = network_id
+        if envelope.disc == EnvelopeType.ENVELOPE_TYPE_TX_V0:
+            self.tx: Transaction = _v0_to_v1_tx(envelope.value.tx)
+        else:
+            self.tx = envelope.value.tx
+        self.signatures: Sequence[DecoratedSignature] = \
+            envelope.value.signatures
+        self._contents_hash: Optional[bytes] = None
+        self._full_hash: Optional[bytes] = None
+        self._envelope_bytes: Optional[bytes] = None
+        self.result: Optional[TransactionResult] = None
+        self.op_frames: List[OperationFrame] = [
+            make_operation_frame(op, self.tx.sourceAccount, i)
+            for i, op in enumerate(self.tx.operations)]
+
+    # ------------------------------------------------------------- identity --
+    def contents_hash(self) -> bytes:
+        """SHA256(networkID ‖ ENVELOPE_TYPE_TX ‖ tx) — the signed bytes
+        (reference: TransactionFrame.cpp:99-107)."""
+        if self._contents_hash is None:
+            payload = TransactionSignaturePayload(
+                networkId=self.network_id,
+                taggedTransaction=_TaggedTransaction(
+                    EnvelopeType.ENVELOPE_TYPE_TX, self.tx))
+            self._contents_hash = sha256(payload.to_bytes())
+        return self._contents_hash
+
+    def envelope_bytes(self) -> bytes:
+        """Serialized envelope, cached — valid once the envelope is
+        fully signed (apply/store paths; submission signing happens
+        before the first call)."""
+        if self._envelope_bytes is None:
+            self._envelope_bytes = self.envelope.to_bytes()
+        return self._envelope_bytes
+
+    def full_hash(self) -> bytes:
+        """SHA256 of the whole envelope incl. signatures (apply-order
+        tiebreak key, reference: TxSetFrame.cpp:550-599)."""
+        if self._full_hash is None:
+            self._full_hash = sha256(self.envelope_bytes())
+        return self._full_hash
+
+    @property
+    def source_id(self):
+        sid = getattr(self, "_source_id_memo", None)
+        if sid is None:
+            sid = self.tx.sourceAccount.account_id()
+            self._source_id_memo = sid
+        return sid
+
+    @property
+    def fee_source_id(self):
+        return self.source_id
+
+    @property
+    def seq_num(self) -> int:
+        return self.tx.seqNum
+
+    def full_fee(self) -> int:
+        return self.tx.fee
+
+    def inclusion_fee(self) -> int:
+        # Soroban txs bid inclusion separately from the resource fee
+        # (reference: TransactionFrame::getInclusionFee)
+        sd = self.soroban_data()
+        if sd is not None:
+            return self.tx.fee - sd.resourceFee
+        return self.tx.fee
+
+    def is_soroban(self) -> bool:
+        """reference: isSoroban() — any of the 3 contract op types.
+        Memoized: ops never change after construction, and the queue/
+        fee/apply paths ask several times per tx (the un-memoized walk
+        profiled at 6% of the TPSMT leg)."""
+        memo = getattr(self, "_is_soroban_memo", None)
+        if memo is None:
+            from ..xdr.transaction import OperationType
+            memo = any(
+                op.body.disc in (OperationType.INVOKE_HOST_FUNCTION,
+                                 OperationType.EXTEND_FOOTPRINT_TTL,
+                                 OperationType.RESTORE_FOOTPRINT)
+                for op in self.tx.operations)
+            self._is_soroban_memo = memo
+        return memo
+
+    def soroban_data(self):
+        """The declared SorobanTransactionData, or None."""
+        if getattr(self.tx.ext, "disc", 0) == 1:
+            return self.tx.ext.value
+        return None
+
+    def num_operations(self) -> int:
+        return len(self.tx.operations)
+
+    def is_fee_bump(self) -> bool:
+        return False
+
+    # --------------------------------------------------------- preconditions --
+    def time_bounds(self):
+        c = self.tx.cond
+        if c.disc == PreconditionType.PRECOND_TIME:
+            return c.value
+        if c.disc == PreconditionType.PRECOND_V2:
+            return c.value.timeBounds
+        return None
+
+    def ledger_bounds(self):
+        c = self.tx.cond
+        if c.disc == PreconditionType.PRECOND_V2:
+            return c.value.ledgerBounds
+        return None
+
+    def min_seq_num(self):
+        c = self.tx.cond
+        if c.disc == PreconditionType.PRECOND_V2:
+            return c.value.minSeqNum
+        return None
+
+    def min_seq_age(self) -> int:
+        c = self.tx.cond
+        return c.value.minSeqAge if c.disc == PreconditionType.PRECOND_V2 \
+            else 0
+
+    def min_seq_ledger_gap(self) -> int:
+        c = self.tx.cond
+        return c.value.minSeqLedgerGap \
+            if c.disc == PreconditionType.PRECOND_V2 else 0
+
+    def extra_signers(self):
+        c = self.tx.cond
+        return list(c.value.extraSigners) \
+            if c.disc == PreconditionType.PRECOND_V2 else []
+
+    # -------------------------------------------------------------- results --
+    def _fee_for(self, header, base_fee: Optional[int],
+                 applying: bool) -> int:
+        """reference: TransactionFrame::getFee (modern branch)"""
+        if base_fee is None:
+            return self.full_fee()
+        adjusted = base_fee * max(1, self.num_operations())
+        if applying:
+            return min(self.inclusion_fee(), adjusted)
+        return adjusted
+
+    def _reset_result(self, header, base_fee: Optional[int],
+                      applying: bool) -> None:
+        # a REPLACE, never a mutation: a result frozen by a closed
+        # ledger's TransactionResultPair stays untouched, the frame
+        # starts the new validation pass on a fresh mutable object
+        self.result = TransactionResult(
+            feeCharged=self._fee_for(header, base_fee, applying),
+            result=_TxResultResult(TransactionResultCode.txSUCCESS, []),
+            ext=ExtensionPoint(0))
+
+    def _assert_result_mutable(self) -> None:
+        # closeLedger freezes the result when it adopts it into the
+        # stored TransactionResultPair; mutating it afterwards would
+        # silently corrupt committed history / held-back delay-meta.
+        # releaseAssert: the guard must survive `python -O`
+        releaseAssert(
+            not getattr(self.result, "_frozen", False),
+            "mutating a TransactionResult adopted by a closed ledger")
+
+    def set_error(self, code: TransactionResultCode) -> None:
+        self._assert_result_mutable()
+        self.result.result = _TxResultResult(code)
+
+    def _collect_op_results(self) -> List[OperationResult]:
+        return [op.result if op.result is not None
+                else OperationResult(OperationResultCode.opBAD_AUTH)
+                for op in self.op_frames]
+
+    def mark_result_failed(self) -> None:
+        self._assert_result_mutable()
+        self.result.result = _TxResultResult(
+            TransactionResultCode.txFAILED, self._collect_op_results())
+
+    def _mark_result_success_ops(self) -> None:
+        self._assert_result_mutable()
+        self.result.result = _TxResultResult(
+            TransactionResultCode.txSUCCESS, self._collect_op_results())
+
+    # ------------------------------------------------------------- validity --
+    def _is_too_early(self, header, lb_offset: int) -> bool:
+        tb = self.time_bounds()
+        if tb and tb.minTime and \
+                tb.minTime > header.scpValue.closeTime + lb_offset:
+            return True
+        lb = self.ledger_bounds()
+        return bool(lb and lb.minLedger > header.ledgerSeq)
+
+    def _is_too_late(self, header, ub_offset: int) -> bool:
+        tb = self.time_bounds()
+        if tb and tb.maxTime and \
+                tb.maxTime < header.scpValue.closeTime + ub_offset:
+            return True
+        lb = self.ledger_bounds()
+        return bool(lb and lb.maxLedger != 0
+                    and lb.maxLedger <= header.ledgerSeq)
+
+    def _is_too_early_for_account(self, header, source_acc,
+                                  lb_offset: int) -> bool:
+        """minSeqAge / minSeqLedgerGap checks (protocol 19 preconditions,
+        reference: isTooEarlyForAccount)."""
+        if header.ledgerVersion < 19:
+            return False
+        min_age = self.min_seq_age()
+        if min_age:
+            acc_time = account_seq_time(source_acc)
+            if header.scpValue.closeTime + lb_offset < acc_time + min_age:
+                return True
+        min_gap = self.min_seq_ledger_gap()
+        if min_gap:
+            acc_ledger = account_seq_ledger(source_acc)
+            if header.ledgerSeq < acc_ledger + min_gap:
+                return True
+        return False
+
+    def _is_bad_seq(self, header, current: int) -> bool:
+        if self.seq_num == tx_utils.starting_sequence_number(
+                header.ledgerSeq):
+            return True
+        if header.ledgerVersion >= 19:
+            msn = self.min_seq_num()
+            if msn is not None:
+                return current < msn or current >= self.seq_num
+        return current == INT64_MAX or current + 1 != self.seq_num
+
+    def _common_valid_pre_seqnum(self, ltx, charge_fee: bool,
+                                 lb_offset: int, ub_offset: int,
+                                 base_fee: Optional[int]) -> bool:
+        header = ltx.get_header()
+        if header.ledgerVersion < MIN_PROTOCOL and \
+                self.envelope.disc == EnvelopeType.ENVELOPE_TYPE_TX:
+            self.set_error(TransactionResultCode.txNOT_SUPPORTED)
+            return False
+        extra = self.extra_signers()
+        if extra:
+            if len(extra) == 2 and extra[0] == extra[1]:
+                self.set_error(TransactionResultCode.txMALFORMED)
+                return False
+            for sk in extra:
+                if sk.disc == SignerKeyType.\
+                        SIGNER_KEY_TYPE_ED25519_SIGNED_PAYLOAD and \
+                        len(sk.value.payload) == 0:
+                    self.set_error(TransactionResultCode.txMALFORMED)
+                    return False
+        if self.num_operations() == 0:
+            self.set_error(TransactionResultCode.txMISSING_OPERATION)
+            return False
+        # Soroban structural rules (reference: checkSorobanResourceAndSetLedgerCost
+        # + isTooManyOperations): exactly one op, sorobanData required
+        if self.is_soroban():
+            if self.num_operations() != 1 or self.soroban_data() is None \
+                    or self.soroban_data().resourceFee < 0 \
+                    or self.soroban_data().resourceFee > self.tx.fee:
+                self.set_error(TransactionResultCode.txMALFORMED)
+                return False
+        if self._is_too_early(header, lb_offset):
+            self.set_error(TransactionResultCode.txTOO_EARLY)
+            return False
+        if self._is_too_late(header, ub_offset):
+            self.set_error(TransactionResultCode.txTOO_LATE)
+            return False
+        if charge_fee and self.inclusion_fee() < \
+                header.baseFee * max(1, self.num_operations()):
+            self.set_error(TransactionResultCode.txINSUFFICIENT_FEE)
+            return False
+        if not charge_fee and self.inclusion_fee() < 0:
+            self.set_error(TransactionResultCode.txMALFORMED)
+            return False
+        if not ltx.entry_exists(LedgerKey.account(self.source_id)):
+            self.set_error(TransactionResultCode.txNO_ACCOUNT)
+            return False
+        return True
+
+    def check_signature_low(self, checker: SignatureChecker, acc) -> bool:
+        signers = tx_utils.get_signers_with_master(acc)
+        needed = acc.thresholds[ThresholdIndexes.THRESHOLD_LOW]
+        return checker.check_signature(signers, needed)
+
+    def _check_extra_signers(self, checker: SignatureChecker) -> bool:
+        extra = self.extra_signers()
+        if not extra:
+            return True
+        return checker.check_signature([(sk, 1) for sk in extra],
+                                       len(extra))
+
+    def common_valid(self, checker: SignatureChecker, ltx_outer,
+                     current: int, applying: bool, charge_fee: bool,
+                     lb_offset: int, ub_offset: int,
+                     base_fee: Optional[int] = None) -> ValidationType:
+        # every access below is a READ: the reference's nested
+        # LedgerTxn here is rolled back unconditionally, so shared
+        # snapshots through ltx_outer are equivalent — and skip a
+        # LedgerTxn + a recording clone per validated tx
+        res = ValidationType.kInvalid
+        releaseAssert(not (applying and (lb_offset or ub_offset)),
+                      "applying with non-current closeTime")
+        if not self._common_valid_pre_seqnum(
+                ltx_outer, charge_fee, lb_offset, ub_offset, base_fee):
+            return res
+        header = ltx_outer.get_header()
+        source_le = ltx_outer.load_without_record(
+            LedgerKey.account(self.source_id))
+        acc = source_le.data.value
+
+        if current == 0:
+            current = acc.seqNum
+        if self._is_bad_seq(header, current):
+            self.set_error(TransactionResultCode.txBAD_SEQ)
+            return res
+        res = ValidationType.kInvalidUpdateSeqNum
+
+        if self._is_too_early_for_account(header, acc, lb_offset):
+            self.set_error(TransactionResultCode.
+                           txBAD_MIN_SEQ_AGE_OR_GAP)
+            return res
+        if not self.check_signature_low(checker, acc):
+            self.set_error(TransactionResultCode.txBAD_AUTH)
+            return res
+        if header.ledgerVersion >= 19 and \
+                not self._check_extra_signers(checker):
+            self.set_error(TransactionResultCode.txBAD_AUTH)
+            return res
+        res = ValidationType.kInvalidPostAuth
+
+        # fee was already deducted when applying
+        fee_to_pay = 0 if applying else self.full_fee()
+        if charge_fee and tx_utils.available_balance(
+                header, acc) < fee_to_pay:
+            self.set_error(TransactionResultCode.txINSUFFICIENT_BALANCE)
+            return res
+        return ValidationType.kMaybeValid
+
+    # -------------------------------------------------- queue/txset validity --
+    def check_valid(self, ltx_outer, current: int = 0,
+                    lb_offset: int = 0, ub_offset: int = 0,
+                    charge_fee: bool = True,
+                    verify: VerifyFn = default_verify) -> bool:
+        """Non-mutating full validity (reference:
+        checkValidWithOptionallyChargedFee)."""
+        header = ltx_outer.get_header()
+        self._reset_result(header, None, False)
+        checker = SignatureChecker(self.contents_hash(), self.signatures,
+                                   verify)
+        with LedgerTxn(ltx_outer) as ltx:
+            cv = self.common_valid(checker, ltx, current, False, charge_fee,
+                                   lb_offset, ub_offset)
+            if cv != ValidationType.kMaybeValid:
+                return False
+            ok = True
+            for op in self.op_frames:
+                if not op.check_valid(checker, ltx, False):
+                    ok = False
+            if not ok:
+                self.mark_result_failed()
+                return False
+            if not checker.check_all_signatures_used():
+                self.set_error(TransactionResultCode.txBAD_AUTH_EXTRA)
+                return False
+        return True
+
+    # ------------------------------------------------------------ fee stage --
+    def process_fee_seq_num(self, ltx_outer,
+                            base_fee: Optional[int]) -> TransactionResult:
+        """Charge the fee into the fee pool (reference:
+        processFeeSeqNum; seqnum consumption happens in apply for
+        protocol >= 10)."""
+        with LedgerTxn(ltx_outer) as ltx:
+            header = ltx.load_header()
+            self._reset_result(header, base_fee, True)
+            source_le = ltx.load(LedgerKey.account(self.fee_source_id))
+            releaseAssert(source_le is not None,
+                          "fee source account must exist")
+            acc = source_le.data.value
+            fee = self.result.feeCharged
+            if fee > 0:
+                fee = min(acc.balance, fee)
+                self.result.feeCharged = fee
+                acc.balance -= fee
+                header.feePool += fee
+            ltx.commit()
+        return self.result
+
+    def process_fee_seq_num_lean(self, ltx, base_fee: Optional[int]):
+        """Fee phase without a nested LedgerTxn per tx: loads through
+        the shared phase txn and builds the per-tx LedgerEntryChanges
+        [STATE(prev), UPDATED(post)] directly — byte-identical to the
+        nested shape (the golden tx-meta baselines pin this)."""
+        from ..xdr.ledger import LedgerEntryChange, LedgerEntryChangeType
+        header = ltx.load_header()
+        self._reset_result(header, base_fee, True)
+        source_le, prev = ltx.load_with_state_snapshot(
+            LedgerKey.account(self.fee_source_id))
+        releaseAssert(source_le is not None,
+                      "fee source account must exist")
+        acc = source_le.data.value
+        fee = self.result.feeCharged
+        if fee > 0:
+            fee = min(acc.balance, fee)
+            self.result.feeCharged = fee
+            acc.balance -= fee
+            header.feePool += fee
+        return [
+            LedgerEntryChange(
+                LedgerEntryChangeType.LEDGER_ENTRY_STATE, prev),
+            LedgerEntryChange(
+                LedgerEntryChangeType.LEDGER_ENTRY_UPDATED,
+                source_le.clone()),
+        ]
+
+    # ----------------------------------------------------------- apply stage --
+    def _process_seq_num(self, ltx) -> None:
+        header = ltx.load_header()
+        source_le = ltx.load(LedgerKey.account(self.source_id))
+        acc = source_le.data.value
+        releaseAssert(acc.seqNum <= self.seq_num,
+                      "unexpected sequence number")
+        acc.seqNum = self.seq_num
+        if header.ledgerVersion >= 19 and (
+                self.min_seq_age() or self.min_seq_ledger_gap()
+                or header.ledgerVersion >= 20):
+            # v3 ext records when the seqnum moved (CAP-21); the reference
+            # materializes it lazily the same way
+            v3 = ensure_account_ext_v3(acc)
+            v3.seqLedger = header.ledgerSeq
+            v3.seqTime = header.scpValue.closeTime
+
+    def _remove_one_time_signer_from(self, ltx, acc_id) -> None:
+        le = ltx.load_without_record(LedgerKey.account(acc_id))
+        if le is None:
+            return
+        acc = le.data.value
+        hit = any(s.key.disc == SignerKeyType.SIGNER_KEY_TYPE_PRE_AUTH_TX
+                  and s.key.value == self.contents_hash()
+                  for s in acc.signers)
+        if not hit:
+            return
+        le = ltx.load(LedgerKey.account(acc_id))
+        acc = le.data.value
+        for i in range(len(acc.signers) - 1, -1, -1):
+            s = acc.signers[i]
+            if s.key.disc == SignerKeyType.SIGNER_KEY_TYPE_PRE_AUTH_TX \
+                    and s.key.value == self.contents_hash():
+                from .sponsorship import remove_signer_sponsorship
+                remove_signer_sponsorship(ltx, le, i)
+                acc.signers.pop(i)
+                if acc.ext.disc == 1 and acc.ext.value.ext.disc == 2:
+                    sids = acc.ext.value.ext.value.signerSponsoringIDs
+                    if i < len(sids):
+                        sids.pop(i)
+
+    def _remove_one_time_signers(self, ltx) -> None:
+        """Drop PRE_AUTH_TX signers matching this tx from every source
+        account (reference: removeOneTimeSignerFromAllSourceAccounts)."""
+        ids = {self.source_id.to_bytes(): self.source_id}
+        for op in self.op_frames:
+            ids[op.source_id.to_bytes()] = op.source_id
+        for acc_id in ids.values():
+            self._remove_one_time_signer_from(ltx, acc_id)
+
+    def _process_signatures(self, cv: ValidationType,
+                            checker: SignatureChecker, ltx) -> bool:
+        maybe_valid = cv == ValidationType.kMaybeValid
+        if not maybe_valid:
+            self._remove_one_time_signers(ltx)
+            return False
+        all_ops_valid = True
+        with LedgerTxn(ltx) as ltx_inner:
+            for op in self.op_frames:
+                if not op.check_signature(checker, ltx_inner, False):
+                    all_ops_valid = False
+        self._remove_one_time_signers(ltx)
+        if not all_ops_valid:
+            self.mark_result_failed()
+            return False
+        if not checker.check_all_signatures_used():
+            self.set_error(TransactionResultCode.txBAD_AUTH_EXTRA)
+            return False
+        return True
+
+    def _apply_operations(self, checker: SignatureChecker, ltx,
+                          meta_ops: Optional[list],
+                          invariants=None,
+                          meta: Optional[dict] = None) -> bool:
+        from ..invariant.manager import (InvariantDoesNotHold,
+                                         OperationDelta)
+        success = True
+        with LedgerTxn(ltx) as ltx_tx:
+            ctx = ApplyContext(self.network_id, self.source_id, self.seq_num)
+            ctx.soroban_data = self.soroban_data()
+            ctx.fee_source_id = self.fee_source_id
+            ctx.tx_size_bytes = len(self.envelope_bytes())
+            op_metas = []
+            for op in self.op_frames:
+                with LedgerTxn(ltx_tx) as ltx_op:
+                    try:
+                        ok = op.apply(checker, ltx_op, ctx)
+                        if ok and invariants is not None:
+                            # reference: InvariantManager::
+                            # checkOnOperationApply called from
+                            # TransactionFrame.cpp:1557; a violation
+                            # escapes apply entirely (crash semantics)
+                            invariants.check_on_operation_apply(
+                                op, op.result,
+                                OperationDelta.from_ledger_txn(ltx_op))
+                    except InvariantDoesNotHold:
+                        raise
+                    except Exception:
+                        self.set_error(
+                            TransactionResultCode.txINTERNAL_ERROR)
+                        return False
+                    if not ok:
+                        success = False
+                    if success:
+                        op_metas.append(ltx_op.get_changes())
+                    # reference commits ltxOp unconditionally — a failed
+                    # op's mutations stay visible to later ops of the
+                    # (ultimately rolled-back) tx
+                    ltx_op.commit()
+            if success:
+                if ctx.active_sponsorships:
+                    self.set_error(TransactionResultCode.txBAD_SPONSORSHIP)
+                    return False
+                ltx_tx.commit()
+                if meta_ops is not None:
+                    meta_ops.extend(op_metas)
+                if meta is not None and self.is_soroban():
+                    # soroban leg of V3 meta (reference:
+                    # SorobanTransactionMeta — events + return value +
+                    # optional off-consensus diagnostics)
+                    meta["soroban"] = {
+                        "events": list(ctx.soroban_events),
+                        "return_value": ctx.soroban_return_value,
+                        "diagnostics":
+                            list(ctx.soroban_diagnostic_events),
+                        "in_success": True,
+                    }
+                self._mark_result_success_ops()
+                return True
+            if meta is not None and self.is_soroban() and \
+                    ctx.soroban_diagnostic_events:
+                # failed invocation: no contract events in meta, but
+                # diagnostics ARE emitted (reference: diagnostics with
+                # inSuccessfulContractCall=false — the case operators
+                # need them most)
+                meta["soroban"] = {
+                    "events": [],
+                    "return_value": None,
+                    "diagnostics": list(ctx.soroban_diagnostic_events),
+                    "in_success": False,
+                }
+        self.mark_result_failed()
+        return False
+
+    def apply(self, ltx_outer, base_fee: Optional[int] = None,
+              verify: VerifyFn = default_verify,
+              meta: Optional[dict] = None, invariants=None) -> bool:
+        """Full apply (fee must have been processed already); returns
+        success and leaves the TransactionResult in self.result
+        (reference: TransactionFrame::apply :1703)."""
+        header = ltx_outer.get_header()
+        self._reset_result(header, base_fee, True)
+        checker = SignatureChecker(self.contents_hash(), self.signatures,
+                                   verify)
+        with LedgerTxn(ltx_outer) as ltx_tx:
+            cv = self.common_valid(checker, ltx_tx, 0, True, True, 0, 0)
+            if cv >= ValidationType.kInvalidUpdateSeqNum:
+                self._process_seq_num(ltx_tx)
+            signatures_valid = self._process_signatures(cv, checker, ltx_tx)
+            if meta is not None:
+                meta["tx_changes_before"] = ltx_tx.get_changes()
+            ltx_tx.commit()
+        if not (signatures_valid and cv == ValidationType.kMaybeValid):
+            return False
+        meta_ops = [] if meta is not None else None
+        ok = self._apply_operations(checker, ltx_outer, meta_ops, invariants,
+                                    meta=meta)
+        if meta is not None:
+            meta["operations"] = meta_ops or []
+        return ok
+
+
+class FeeBumpTransactionFrame(TransactionFrame):
+    """reference: transactions/FeeBumpTransactionFrame.cpp — wraps an
+    inner v1 tx; outer fee source pays, inner executes; outer result
+    embeds the inner result pair."""
+
+    def __init__(self, envelope: TransactionEnvelope, network_id: bytes):
+        releaseAssert(
+            envelope.disc == EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP,
+            "fee-bump envelope required")
+        self.envelope = envelope
+        self.network_id = network_id
+        self.fee_bump_tx = envelope.value.tx
+        inner_env = TransactionEnvelope(
+            EnvelopeType.ENVELOPE_TYPE_TX, self.fee_bump_tx.innerTx.value)
+        self.inner = TransactionFrame(inner_env, network_id)
+        self.tx = self.inner.tx
+        self.signatures = envelope.value.signatures
+        self._contents_hash = None
+        self._full_hash = None
+        self._envelope_bytes = None
+        self.result: Optional[TransactionResult] = None
+        self.op_frames = self.inner.op_frames
+
+    def contents_hash(self) -> bytes:
+        if self._contents_hash is None:
+            payload = TransactionSignaturePayload(
+                networkId=self.network_id,
+                taggedTransaction=_TaggedTransaction(
+                    EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP,
+                    self.fee_bump_tx))
+            self._contents_hash = sha256(payload.to_bytes())
+        return self._contents_hash
+
+    def is_fee_bump(self) -> bool:
+        return True
+
+    @property
+    def fee_source_id(self):
+        return self.fee_bump_tx.feeSource.account_id()
+
+    def full_fee(self) -> int:
+        return self.fee_bump_tx.fee
+
+    def inclusion_fee(self) -> int:
+        return self.fee_bump_tx.fee
+
+    def num_operations(self) -> int:
+        return self.inner.num_operations() + 1
+
+    def _inner_result_pair(self) -> InnerTransactionResultPair:
+        inner_res = self.inner.result
+        code = inner_res.result.disc
+        value = inner_res.result.value
+        inner = _InnerTxResultResult(code, value) \
+            if _InnerTxResultResult.ARMS.get(code) is not None \
+            else _InnerTxResultResult(code)
+        return InnerTransactionResultPair(
+            transactionHash=self.inner.contents_hash(),
+            result=InnerTransactionResult(
+                feeCharged=inner_res.feeCharged,
+                result=inner,
+                ext=ExtensionPoint(0)))
+
+    def check_valid(self, ltx_outer, current: int = 0,
+                    lb_offset: int = 0, ub_offset: int = 0,
+                    charge_fee: bool = True,
+                    verify: VerifyFn = default_verify) -> bool:
+        header = ltx_outer.get_header()
+        self._reset_result(header, None, False)
+        if header.ledgerVersion < 13:
+            self.set_error(TransactionResultCode.txNOT_SUPPORTED)
+            return False
+        min_fee = header.baseFee * self.num_operations()
+        if self.full_fee() < min_fee:
+            self.set_error(TransactionResultCode.txINSUFFICIENT_FEE)
+            return False
+        # fee-per-op of the bump must beat the inner fee bid
+        # (reference: FeeBumpTransactionFrame::checkValid feeSource rules)
+        inner_bid = self.inner.inclusion_fee()
+        inner_ops = max(1, self.inner.num_operations())
+        if self.full_fee() * inner_ops < inner_bid * self.num_operations():
+            self.set_error(TransactionResultCode.txINSUFFICIENT_FEE)
+            return False
+        checker = SignatureChecker(self.contents_hash(), self.signatures,
+                                   verify)
+        with LedgerTxn(ltx_outer) as ltx:
+            if not self._fee_source_valid(checker, ltx):
+                return False
+            if not checker.check_all_signatures_used():
+                self.set_error(TransactionResultCode.txBAD_AUTH_EXTRA)
+                return False
+            inner_ok = self.inner.check_valid(
+                ltx, current, lb_offset, ub_offset, charge_fee=False,
+                verify=verify)
+        if not inner_ok:
+            self.result = TransactionResult(
+                feeCharged=self.result.feeCharged,
+                result=_TxResultResult(
+                    TransactionResultCode.txFEE_BUMP_INNER_FAILED,
+                    self._inner_result_pair()),
+                ext=ExtensionPoint(0))
+            return False
+        return True
+
+    def _fee_source_valid(self, checker: SignatureChecker, ltx) -> bool:
+        header = ltx.get_header()
+        source_le = ltx.load_without_record(
+            LedgerKey.account(self.fee_source_id))
+        if source_le is None:
+            self.set_error(TransactionResultCode.txNO_ACCOUNT)
+            return False
+        acc = source_le.data.value
+        if not self.check_signature_low(checker, acc):
+            self.set_error(TransactionResultCode.txBAD_AUTH)
+            return False
+        if tx_utils.available_balance(header, acc) < self.full_fee():
+            self.set_error(TransactionResultCode.txINSUFFICIENT_BALANCE)
+            return False
+        return True
+
+    def apply(self, ltx_outer, base_fee: Optional[int] = None,
+              verify: VerifyFn = default_verify,
+              meta: Optional[dict] = None, invariants=None) -> bool:
+        header = ltx_outer.get_header()
+        self._reset_result(header, base_fee, True)
+        checker = SignatureChecker(self.contents_hash(), self.signatures,
+                                   verify)
+        with LedgerTxn(ltx_outer) as ltx:
+            fee_auth_ok = self._fee_source_valid_applying(checker, ltx)
+            # the fee-bump's own PRE_AUTH_TX signer comes off the fee
+            # source whether or not auth succeeded (reference:
+            # removeOneTimeSignerKeyFromFeeSource)
+            self._remove_one_time_signer_from(ltx, self.fee_source_id)
+            if fee_auth_ok and not checker.check_all_signatures_used():
+                self.set_error(TransactionResultCode.txBAD_AUTH_EXTRA)
+                fee_auth_ok = False
+            ltx.commit()
+            if not fee_auth_ok:
+                return False
+        inner_ok = self.inner.apply(ltx_outer, base_fee=None, verify=verify,
+                                    meta=meta, invariants=invariants)
+        code = TransactionResultCode.txFEE_BUMP_INNER_SUCCESS if inner_ok \
+            else TransactionResultCode.txFEE_BUMP_INNER_FAILED
+        self.result = TransactionResult(
+            feeCharged=self.result.feeCharged,
+            result=_TxResultResult(code, self._inner_result_pair()),
+            ext=ExtensionPoint(0))
+        return inner_ok
+
+    def _fee_source_valid_applying(self, checker: SignatureChecker,
+                                   ltx) -> bool:
+        source_le = ltx.load_without_record(
+            LedgerKey.account(self.fee_source_id))
+        if source_le is None:
+            self.set_error(TransactionResultCode.txNO_ACCOUNT)
+            return False
+        if not self.check_signature_low(checker, source_le.data.value):
+            self.set_error(TransactionResultCode.txBAD_AUTH)
+            return False
+        return True

@@ -1,0 +1,200 @@
+"""Threshold signature accounting.
+
+Reference: transactions/SignatureChecker.{h,cpp} — given the tx contents
+hash and the envelope's DecoratedSignatures, `check_signature(signers,
+needed_weight)` consumes signatures (each may be used once), matching by
+the 4-byte hint before any crypto, and sums signer weights until the
+threshold is met. `check_all_signatures_used` enforces the reference's
+txBAD_AUTH_EXTRA rule.
+
+The verify callable is the device seam: by default PubKeyUtils.verify_sig
+(cached libsodium-semantics path, crypto/SecretKey.cpp:427); the batch
+apply paths can inject a `PrevalidatedVerifier` built from one device batch
+verify over a whole txset/checkpoint (SURVEY.md §3.3).
+
+Counterpart of stellar_core_tpu/tx/signature_checker.py; the Soroban
+auth-entry tuples wait for the port's Soroban slice (see
+`_soroban_auth_tuples`).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..crypto.keys import PubKeyUtils
+from ..xdr.types import SignerKey, SignerKeyType
+from ..xdr.transaction import DecoratedSignature
+
+VerifyFn = Callable[[bytes, bytes, bytes], bool]  # (pub, sig, msg) -> ok
+
+
+def default_verify(pub: bytes, sig: bytes, msg: bytes) -> bool:
+    return PubKeyUtils.verify_sig(pub, sig, msg)
+
+
+class PrevalidatedVerifier:
+    """Lookup table of (pub, sig, msg) -> bool filled by one device batch
+    verify; falls back to the sync path on miss (stragglers keep exact
+    semantics, SURVEY.md §7 'latency vs batch')."""
+
+    def __init__(self, fallback: VerifyFn = default_verify):
+        self._results: Dict[bytes, bool] = {}
+        self._fallback = fallback
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _key(pub: bytes, sig: bytes, msg: bytes) -> bytes:
+        return hashlib.blake2b(pub + sig + msg, digest_size=32).digest()
+
+    def add_results(self, tuples: Sequence[Tuple[bytes, bytes, bytes]],
+                    results: Sequence[bool]) -> None:
+        for (p, s, m), ok in zip(tuples, results):
+            self._results[self._key(p, s, m)] = bool(ok)
+
+    def __call__(self, pub: bytes, sig: bytes, msg: bytes) -> bool:
+        r = self._results.get(self._key(pub, sig, msg))
+        if r is not None:
+            self.hits += 1
+            return r
+        self.misses += 1
+        return self._fallback(pub, sig, msg)
+
+
+def signed_payload_hint(pubkey_raw: bytes, payload: bytes) -> bytes:
+    """Hint for an ed25519-signed-payload signature: pubkey tail XOR
+    the zero-right-padded payload tail (reference:
+    SignatureUtils::getSignedPayloadHint)."""
+    tail = payload[-4:] if len(payload) >= 4 else payload.ljust(4, b"\x00")
+    return bytes(a ^ b for a, b in zip(pubkey_raw[28:], tail))
+
+
+class SignatureChecker:
+    def __init__(self, contents_hash: bytes,
+                 signatures: Sequence[DecoratedSignature],
+                 verify: VerifyFn = default_verify):
+        self.contents_hash = contents_hash
+        self.signatures = list(signatures)
+        self.used = [False] * len(self.signatures)
+        self._verify = verify
+
+    def check_signature(self, signers: List[Tuple[SignerKey, int]],
+                        needed_weight: int) -> bool:
+        """signers: (signer key, weight). Matches the reference
+        SignatureChecker::checkSignature exactly: signatures are marked
+        used for txBAD_AUTH_EXTRA bookkeeping but remain matchable by
+        LATER checkSignature calls (the same master signature covers both
+        the tx-low check and each op-threshold check); within one call a
+        matched signer is dropped so it can't double-count; weights clamp
+        to 255; PRE_AUTH_TX signers count without consuming a
+        signature."""
+        # fast path: one ed25519 signer (the overwhelmingly common
+        # master-key case) — same semantics as the general loop below,
+        # without the per-type group scaffolding
+        if len(signers) == 1 and \
+                signers[0][0].disc == SignerKeyType.SIGNER_KEY_TYPE_ED25519:
+            signer, weight = signers[0]
+            for i, ds in enumerate(self.signatures):
+                if self._match_ed25519(ds, signer):
+                    self.used[i] = True
+                    return min(weight, 255) >= needed_weight
+            return False
+
+        total = 0
+        pending: List[Tuple[SignerKey, int]] = []
+        for signer, weight in signers:
+            w = min(weight, 255)
+            if signer.disc == SignerKeyType.SIGNER_KEY_TYPE_PRE_AUTH_TX:
+                if signer.value == self.contents_hash:
+                    total += w
+                    if total >= needed_weight:
+                        return True
+            else:
+                pending.append((signer, w))
+
+        # reference order: HASH_X pass, then ED25519, then SIGNED_PAYLOAD
+        for want_type, match in (
+                (SignerKeyType.SIGNER_KEY_TYPE_HASH_X, self._match_hash_x),
+                (SignerKeyType.SIGNER_KEY_TYPE_ED25519, self._match_ed25519),
+                (SignerKeyType.SIGNER_KEY_TYPE_ED25519_SIGNED_PAYLOAD,
+                 self._match_signed_payload)):
+            group = [(s, w) for (s, w) in pending if s.disc == want_type]
+            for i, ds in enumerate(self.signatures):
+                for j, (signer, w) in enumerate(group):
+                    if match(ds, signer):
+                        self.used[i] = True
+                        total += w
+                        if total >= needed_weight:
+                            return True
+                        group.pop(j)
+                        break
+        # no early return ⇒ threshold never reached; note a call with
+        # needed_weight 0 still requires at least one match (reference
+        # returns false at the end unconditionally)
+        return False
+
+    def _match_ed25519(self, ds: DecoratedSignature,
+                       signer: SignerKey) -> bool:
+        pub = signer.value
+        if ds.hint != pub[28:]:
+            return False
+        return self._verify(pub, ds.signature, self.contents_hash)
+
+    def _match_signed_payload(self, ds: DecoratedSignature,
+                              signer: SignerKey) -> bool:
+        sp = signer.value
+        if ds.hint != signed_payload_hint(bytes(sp.ed25519),
+                                          bytes(sp.payload)):
+            return False
+        return self._verify(sp.ed25519, ds.signature, sp.payload)
+
+    def _match_hash_x(self, ds: DecoratedSignature,
+                      signer: SignerKey) -> bool:
+        hash_x = signer.value
+        preimage = ds.signature
+        if len(preimage) > 64:
+            return False
+        if hashlib.sha256(preimage).digest() != hash_x:
+            return False
+        return ds.hint == hash_x[28:]
+
+    def check_all_signatures_used(self) -> bool:
+        return all(self.used)
+
+
+def collect_signature_tuples(frames, network_id=None):
+    """(pub, sig, msg) candidates for a batch verify: each decorated
+    signature paired with the tx's hint-matching source key, and — when
+    `network_id` is provided — every Soroban address-credential
+    auth-entry signature with its deterministic auth payload (BASELINE.md
+    config #4: contract-heavy ledgers). Signatures from extra signers
+    miss the cache and fall back to the sync path, preserving exact
+    semantics (SURVEY.md §7 'latency vs batch'). Shared by the herder's
+    txset validation and catchup's checkpoint prevalidation (SURVEY.md
+    §3.2/§3.3 collection points)."""
+    tuples = []
+    for frame in frames:
+        src_raw = bytes(frame.source_id.value)  # 32-byte ed25519 key
+        h = frame.contents_hash()
+        for ds in frame.signatures:
+            if bytes(ds.hint) == src_raw[-4:]:
+                tuples.append((src_raw, bytes(ds.signature), h))
+        if network_id is not None:
+            tuples.extend(_soroban_auth_tuples(frame, network_id))
+    return tuples
+
+
+def _soroban_auth_tuples(frame, network_id: bytes):
+    """Address-credential auth signatures of a tx's InvokeHostFunction
+    ops: the payload is deterministic from the envelope alone, so these
+    batch ahead of apply exactly like tx signatures. The port has no
+    Soroban host yet (soroban/host.py, xdr/contract.py): a tx with such
+    an op raises until that slice lands; any other tx has none."""
+    from ..xdr.transaction import OperationType
+    for op in frame.tx.operations:      # fee bump shares the inner .tx
+        if op.body.disc == OperationType.INVOKE_HOST_FUNCTION:
+            raise NotImplementedError(
+                "Soroban auth-entry tuples need soroban/host.py, which the "
+                "port copies in a later slice (ROADMAP Queue 1 item 5)")
+    return []

@@ -2,7 +2,8 @@
 (on the corpus, on edge scalars, and at batch sizes that leave partial
 blocks and partial four-lane groups), and CudaBatchVerifier and the live
 stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
-on a stand-in mesh of four positions and the v1 entry against the oracle.
+on a stand-in mesh of four positions, the v1 entry against the oracle, and
+the txset validation path (chip_smoke.py phase 9 at 64 transactions).
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -205,3 +206,36 @@ def test_v1_entry_on_card(card, lanes):
     assert (got & torch.from_numpy(ok)).tolist() == [
         ref.verify(bytes(p), bytes(s), m) for p, s, m in zip(pubs, sigs,
                                                              msgs)]
+
+
+def test_txset_validation_on_card(card):
+    """A 64-transaction set (chip_smoke.py phase 9's builder and runs,
+    with its chosen mix) validated through the herder's prevalidator over
+    BackendSupervisor(CudaBatchVerifier()) on the card equals the host
+    path: verdicts, trim, result bytes and ledger hash. One device batch
+    (prep 1 + ladder 1) of the paired signatures, equal to the oracle;
+    the supervisor stays CLOSED with no failure and no skip."""
+    import chip_smoke as cs
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    wl = cs.txset_workload(64)
+    sup = BackendSupervisor(CudaBatchVerifier(device=card))
+    try:
+        rec = cs.RecordingVerifier(sup)
+        before = (EK.prep.launches, LD.ladder.launches)
+        a = cs.txset_run(wl, rec)
+        launched = (EK.prep.launches - before[0],
+                    LD.ladder.launches - before[1])
+        st = sup.status()
+    finally:
+        sup.shutdown()
+    b = cs.txset_run(wl)
+    for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
+                "order", "results", "applied_ok", "ledger_hash"):
+        assert a[key] == b[key], key
+    assert launched == (1, 1) and len(rec.calls) == 1
+    items, got, _ = rec.calls[0]
+    assert got == [ref.verify(*t) for t in items]
+    assert a["again_calls"] == 0 and a["again"].hits > 0
+    assert st["state"] == CLOSED and not any(st["failures"].values())
+    assert st["skips"] == 0 and st["transitions"] == []

@@ -359,6 +359,17 @@ assert host_verifier() == "native"
 mesh = make_hybrid_mesh(["cpu"] * 2, n_hosts=2)
 assert HybridShardedVerifier(mesh).verify_tuples(items[:1]) == [True]
 assert ShardedBatchVerifier(["cpu"] * 2).ndev == 2
+for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
+             "xdr.transaction", "xdr.results", "xdr.scp", "xdr.ledger",
+             "ledger.ledger_txn", "tx.tx_utils", "tx.sponsorship",
+             "tx.operation_frame", "tx.signature_checker",
+             "invariant.manager", "tx.frame", "tx.operations.payment_ops",
+             "herder.surge_pricing", "herder.tx_set", "herder.herder"):
+    __import__("stellar_core_tpu_torch." + name)
+import chip_smoke
+out = chip_smoke.txset_run(chip_smoke.txset_workload(8))
+assert out["verdict"] is False and len(out["dropped"]) == 2, out
+assert all(out["applied_ok"]) and len(out["results"]) == 6
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

@@ -1,0 +1,275 @@
+"""Shared by tests/test_torch_{xdr,tx,txset}.py: the JAX package's and the
+port's transaction layers side by side.
+
+State crosses as XDR bytes only: the JAX package's ledger goes into the
+port through `InMemoryLedgerTxnRoot.from_xdr`, and envelopes through
+`TransactionEnvelope.to_bytes()` / `from_bytes()`. `Pkg` gathers one
+package's modules under the same names, so one runner drives either.
+"""
+
+from __future__ import annotations
+
+import importlib
+from types import SimpleNamespace
+
+import numpy as np
+
+from txtest_utils import TEST_NETWORK_ID as NETWORK_ID
+
+XLM = 10_000_000
+
+_MODULES = {
+    "keys": "crypto.keys",
+    "ledger_txn": "ledger.ledger_txn",
+    "frame": "tx.frame",
+    "tx_utils": "tx.tx_utils",
+    "checker": "tx.signature_checker",
+    "op_frame": "tx.operation_frame",
+    "payment_ops": "tx.operations.payment_ops",
+    "tx_set": "herder.tx_set",
+    "herder": "herder.herder",
+    "runtime": "xdr.runtime",
+    "types": "xdr.types",
+    "entries": "xdr.ledger_entries",
+    "transaction": "xdr.transaction",
+    "results": "xdr.results",
+    "ledger": "xdr.ledger",
+}
+
+
+def Pkg(root: str) -> SimpleNamespace:
+    """One package's transaction-layer modules by short name."""
+    return SimpleNamespace(name=root, **{
+        k: importlib.import_module(f"{root}.{m}")
+        for k, m in _MODULES.items()})
+
+
+J = Pkg("stellar_core_tpu")
+P = Pkg("stellar_core_tpu_torch")
+
+
+def clear_caches() -> None:
+    J.keys.clear_verify_cache()
+    P.keys.clear_verify_cache()
+
+
+# ------------------------------------------------------------ state crossing --
+
+def port_root(jroot):
+    """The port's root holding the JAX root's header and entries."""
+    return P.ledger_txn.InMemoryLedgerTxnRoot.from_xdr(
+        jroot.get_header().to_bytes(),
+        [e.to_bytes() for e in jroot._entries.values()])
+
+
+def jax_root_copy(jroot):
+    """A fresh JAX root with the same header and entries (each run
+    mutates its own)."""
+    r = J.ledger_txn.InMemoryLedgerTxnRoot(
+        J.ledger.LedgerHeader.from_bytes(jroot.get_header().to_bytes()))
+    for kb, e in jroot._entries.items():
+        r._entries[kb] = J.entries.LedgerEntry.from_bytes(e.to_bytes())
+    return r
+
+
+def frame_of(pkg, envelope: bytes, network_id: bytes = NETWORK_ID):
+    return pkg.frame.make_frame(
+        pkg.transaction.TransactionEnvelope.from_bytes(envelope), network_id)
+
+
+def state_of(root) -> list:
+    """(key bytes, entry bytes) of every entry, by key, then the
+    header's bytes: the whole ledger as bytes."""
+    return sorted((kb, e.to_bytes()) for kb, e in root._entries.items()) \
+        + [(b"header", root.get_header().to_bytes())]
+
+
+def apply_one(pkg, root, frame) -> bool:
+    """Fee, then apply, in one LedgerTxn that commits (the op-level
+    tests' simplified ledger close, as txtest_utils.TestLedger.apply_tx)."""
+    with pkg.ledger_txn.LedgerTxn(root) as ltx:
+        bf = root.get_header().baseFee
+        frame.process_fee_seq_num(ltx, bf)
+        ok = frame.apply(ltx, bf)
+        ltx.commit()
+    return ok
+
+
+def check_then_apply(pkg, root, envelope: bytes) -> dict:
+    """check_valid, then fee + apply, of one envelope on `root`: both
+    results as bytes and the ledger after."""
+    frame = frame_of(pkg, envelope)
+    with pkg.ledger_txn.LedgerTxn(root) as ltx:
+        valid = frame.check_valid(ltx)
+    checked = frame.result.to_bytes()
+    applied = apply_one(pkg, root, frame)
+    return {"valid": valid, "checked": checked, "applied": applied,
+            "result": frame.result.to_bytes(), "state": state_of(root)}
+
+
+# ---------------------------------------------------------------- tx sets --
+
+class OracleVerifier:
+    """Batch-verifier stand-in: the port's strict oracle per tuple, every
+    call recorded. With `fail`, each call raises after recording."""
+
+    def __init__(self, fail: bool = False):
+        self.calls = []
+        self.fail = fail
+
+    def verify_tuples(self, items):
+        from stellar_core_tpu_torch.crypto import ed25519_ref
+        self.calls.append(list(items))
+        if self.fail:
+            raise RuntimeError("stand-in batch verifier down")
+        return [ed25519_ref.verify(p, s, m) for p, s, m in items]
+
+
+def run_set(pkg, root, envelopes, batch_verifier=None,
+            network_id: bytes = NETWORK_ID) -> dict:
+    """The herder's txset path in `pkg`: a set of the envelopes, its
+    check_valid (through `_LazyBatchPrevalidator(batch_verifier)` when
+    given, else `default_verify`), trim_invalid, a set of the valid
+    ones, and its apply in apply order (every fee, then every tx) in one
+    LedgerTxn over the next ledger's header, which commits."""
+    pkg.keys.clear_verify_cache()
+    frames = [frame_of(pkg, e, network_id) for e in envelopes]
+    _, applicable, excluded = pkg.tx_set.make_tx_set_from_transactions(
+        frames, root.get_header(), network_id)
+    default = pkg.checker.default_verify
+    verify = pkg.herder._LazyBatchPrevalidator(
+        batch_verifier, applicable, default) if batch_verifier else default
+    out = {"excluded": [t.full_hash() for t in excluded],
+           "contents_hash": applicable.get_contents_hash(),
+           "set_bytes": applicable.to_wire().to_bytes(),
+           "apply_order": [t.full_hash()
+                           for t in applicable.get_txs_in_apply_order()],
+           "verdict": applicable.check_valid(root, verify=verify)}
+    kept, dropped = pkg.tx_set.trim_invalid(applicable.txs, root, verify)
+    out["kept"] = [t.full_hash() for t in kept]
+    out["dropped"] = [t.full_hash() for t in dropped]
+    out["codes"] = {t.full_hash(): t.result.to_bytes()
+                    for t in applicable.txs}
+    _, valid_set, _ = pkg.tx_set.make_tx_set_from_transactions(
+        kept, root.get_header(), network_id)
+    order = valid_set.get_txs_in_apply_order()
+    with pkg.ledger_txn.LedgerTxn(root) as ltx:
+        ltx.load_header().ledgerSeq += 1
+        for t in order:
+            t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
+        out["applied"] = [t.apply(ltx, valid_set.base_fee_for(t),
+                                  verify=verify) for t in order]
+        ltx.commit()
+    out["order"] = [t.full_hash() for t in order]
+    out["results"] = [t.result.to_bytes() for t in order]
+    out["state"] = state_of(root)
+    pv = getattr(verify, "_pv", None)
+    out["pv"] = None if pv is None else (pv.hits, pv.misses)
+    return out
+
+
+# the mixed set: (kind, transactions of that kind) per 40
+MIX = (("multisig", 2), ("fee_bump", 2), ("flipped", 1), ("extra_sig", 1),
+       ("bad_seq", 2), ("low_balance", 2), ("underfunded_op", 2),
+       ("chain", 4))
+
+
+def jax_mixed_set(n: int = 40, seed: int = 11, mix=MIX):
+    """A JAX ledger and the envelope bytes of n one-Payment txs: the
+    chosen mix of chip_smoke.py phase 9 (2-of-2 multisig, fee bumps, a
+    flipped signature byte, an unneeded signature) plus bad sequence
+    numbers, a balance below the fee (txINSUFFICIENT_BALANCE), payments
+    the source cannot cover (fail at apply) and chains of two txs from
+    one account (each "chain" kind adds a second tx, so the set holds n
+    plus that many); the rest plain. Returns (root, envelopes, the kind
+    of each envelope)."""
+    from stellar_core_tpu.crypto.keys import SecretKey
+    from stellar_core_tpu.tx import make_frame
+    from txtest_utils import make_header, op_payment
+    T = J.transaction
+    Ty = J.types
+    rng = np.random.default_rng(seed)
+    kinds = []
+    for kind, k in mix:
+        kinds += [kind] * k
+    kinds += ["plain"] * (n - len(kinds))
+    kinds = [kinds[i] for i in rng.permutation(n)]
+    header = make_header()
+    header.maxTxSetSize = 4 * n
+    root = J.ledger_txn.InMemoryLedgerTxnRoot(header)
+    seq0 = J.tx_utils.starting_sequence_number(1)
+
+    def key():
+        return SecretKey.from_seed(rng.bytes(32))
+
+    def decorated(sk, h):
+        return T.DecoratedSignature(hint=sk.public_key().hint(),
+                                    signature=sk.sign(h))
+
+    def account(ltx, sk, balance, second=None):
+        le = J.tx_utils.make_account_ledger_entry(
+            Ty.PublicKey.ed25519(sk.public_key().raw), balance, seq0)
+        if second is not None:
+            acc = le.data.value
+            acc.signers = [J.entries.Signer(key=Ty.SignerKey(
+                Ty.SignerKeyType.SIGNER_KEY_TYPE_ED25519,
+                second.public_key().raw), weight=1)]
+            acc.numSubEntries = 1
+            acc.thresholds = bytes([1, 1, 2, 2])
+        ltx.create(le)
+
+    def envelope(src, dst, seq, amount, signers):
+        tx = T.Transaction(
+            sourceAccount=T.MuxedAccount.from_ed25519(src.public_key().raw),
+            fee=100, seqNum=seq,
+            cond=T.Preconditions(T.PreconditionType.PRECOND_NONE),
+            memo=T.Memo(T.MemoType.MEMO_NONE),
+            operations=[op_payment(
+                T.MuxedAccount.from_ed25519(dst.public_key().raw), amount)],
+            ext=T._TxExt(0))
+        v1 = T.TransactionV1Envelope(tx=tx, signatures=[])
+        env = T.TransactionEnvelope(Ty.EnvelopeType.ENVELOPE_TYPE_TX, v1)
+        h = make_frame(env, NETWORK_ID).contents_hash()
+        v1.signatures = [decorated(sk, h) for sk in signers]
+        return env, v1
+
+    envelopes, env_kinds = [], []
+    with J.ledger_txn.LedgerTxn(root) as ltx:
+        for i, kind in enumerate(kinds):
+            src, dst = key(), key()
+            second = key() if kind == "multisig" else None
+            balance = 10_000_000 if kind == "low_balance" else 1000 * XLM
+            account(ltx, src, balance, second)
+            account(ltx, dst, 1000 * XLM)
+            amount = (5000 if kind == "underfunded_op" else 1 + i) * XLM
+            seq = seq0 + (3 if kind == "bad_seq" else 1)
+            env, v1 = envelope(src, dst, seq, amount,
+                               [src] + ([second] if second else []))
+            if kind == "flipped":
+                sig = bytearray(v1.signatures[0].signature)
+                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+                v1.signatures[0].signature = bytes(sig)
+            elif kind == "extra_sig":
+                h = make_frame(env, NETWORK_ID).contents_hash()
+                v1.signatures.append(decorated(key(), h))
+            elif kind == "fee_bump":
+                fb = T.FeeBumpTransactionEnvelope(
+                    tx=T.FeeBumpTransaction(
+                        feeSource=T.MuxedAccount.from_ed25519(
+                            dst.public_key().raw),
+                        fee=400, innerTx=T._FeeBumpInnerTx(
+                            Ty.EnvelopeType.ENVELOPE_TYPE_TX, v1),
+                        ext=T._TxExt(0)),
+                    signatures=[])
+                env = T.TransactionEnvelope(
+                    Ty.EnvelopeType.ENVELOPE_TYPE_TX_FEE_BUMP, fb)
+                fb.signatures = [decorated(
+                    dst, make_frame(env, NETWORK_ID).contents_hash())]
+            elif kind == "chain":
+                nxt, _ = envelope(src, dst, seq0 + 2, XLM, [src])
+                envelopes.append(nxt.to_bytes())
+                env_kinds.append(kind)
+            envelopes.append(env.to_bytes())
+            env_kinds.append(kind)
+        ltx.commit()
+    return root, envelopes, env_kinds
