@@ -93,11 +93,23 @@ Phases (any failure exits non-zero; nothing is caught):
    `collect_signature_tuples` pairs with prep 1 + ladder 1 launches,
    the second validation launches nothing, and the supervisor ends
    CLOSED with 0 failures and 0 skips.
+10. the classic operation families on the same path at the same size:
+   a ledger of 5000 sources with authorized LOAD trustlines (what the
+   JAX package's load generator leaves after setup_dex) and 5000
+   transactions, one per source, of its MIXED_CLASSIC and PRETEND modes
+   in a chosen mix (40 % resting ManageSellOffers, about 40 % native
+   payments, 15 % SetOptions + ManageData + SetOptions, 2 %
+   PathPaymentStrictSend crossing the offers, 1 % CreateAccount, 1 %
+   ChangeTrust, 1 % with one flipped signature byte). Runs A and B as
+   phase 9's, with the same checks; besides, exactly the flipped
+   transactions are dropped, only a path payment may fail at apply, at
+   least one path payment crossed an offer, and every offer created
+   rests after apply. It prints the results by operation type.
 The oracle verdicts of the live tuples and of phase 5's tuples are
-computed in worker processes while phase 2 builds, phase 9's while its
-runs go. It prints one `kernels` JSON line (launches by path: verifier,
-live, sharded, hybrid, txset), the card line, and last {"ok": true,
-"device": {...}}.
+computed in worker processes while phase 2 builds, those of phases 9
+and 10 while their runs go. It prints one `kernels` JSON line (launches
+by path: verifier, live, sharded, hybrid, txset, classic), the card
+line, and last {"ok": true, "device": {...}}.
 """
 
 import atexit
@@ -142,6 +154,13 @@ TXSET_SEED = 5           # phase 9's ledger, keys and mix
 TXSET_MIX = (("multisig", 0.04), ("fee_bump", 0.02), ("flipped", 0.01),
              ("extra_sig", 0.005))   # phase 9's chosen mix
 XLM = 10_000_000         # stroops
+CLASSIC_N = 5000         # phase 10: the BASELINE.json txset size
+CLASSIC_SEED = 6         # phase 10's ledger, keys and mix
+# phase 10's chosen mix of the load generator's MIXED_CLASSIC and PRETEND
+# modes (stellar_core_tpu/simulation/load_generator.py:210-291); the
+# rest, about 40 %, are MIXED_CLASSIC's native payments
+CLASSIC_MIX = (("offer", 0.40), ("pretend", 0.15), ("path", 0.02),
+               ("create", 0.01), ("change_trust", 0.01), ("flipped", 0.01))
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -983,8 +1002,6 @@ def txset_workload(n, seed=TXSET_SEED):
     from stellar_core_tpu_torch.crypto.keys import SecretKey
     from stellar_core_tpu_torch.crypto.sha import sha256
     from stellar_core_tpu_torch.tx.frame import make_frame
-    # importing a family registers its frames; the port has Payment only
-    from stellar_core_tpu_torch.tx.operations import payment_ops  # noqa
     from stellar_core_tpu_torch.tx.tx_utils import (
         make_account_ledger_entry, starting_sequence_number)
     from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
@@ -1113,8 +1130,8 @@ def txset_run(wl, batch_verifier=None):
     from stellar_core_tpu_torch.ledger.ledger_txn import (
         InMemoryLedgerTxnRoot, LedgerTxn)
     from stellar_core_tpu_torch.tx.frame import make_frame
-    from stellar_core_tpu_torch.tx.operations import payment_ops  # noqa
     from stellar_core_tpu_torch.tx.signature_checker import default_verify
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerEntryType
     from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
 
     out = {}
@@ -1165,33 +1182,34 @@ def txset_run(wl, batch_verifier=None):
     out["apply_s"] = time.perf_counter() - t0
     out["order"] = [t.full_hash() for t in order]
     out["results"] = [t.result.to_bytes() for t in order]
+    out["offers"] = sum(e.data.disc == LedgerEntryType.OFFER
+                        for e in root._entries.values())
     state = root.get_header().to_bytes() + b"".join(
         kb + root._lookup(kb).to_bytes() for kb in sorted(root._entries))
     out["ledger_hash"] = sha256(state)
     return out
 
 
-def txset_phase(card):
-    """Phase 9: the node's txset validation on the card at the size of
-    BASELINE.json config #2 (TXSET_N one-Payment transactions, 2 x
-    TXSET_N funded accounts). Run A: BackendSupervisor(
-    CudaBatchVerifier()) under the herder's lazy prevalidator; run B:
-    the native per-signature path on a fresh root from the same bytes.
-    Returns the launches of run A by kernel."""
+def card_and_host_runs(card, wl):
+    """Runs A and B of a txset phase on the workload `wl`: A through
+    `_LazyBatchPrevalidator(BackendSupervisor(CudaBatchVerifier()))`,
+    the launch counters set to 0 just before and read just after; B
+    native on a fresh root from the same bytes. The oracle verdicts of
+    the paired signatures come from worker processes meanwhile. Returns
+    both runs, A's recorded batches, the pairs, A's launches and the
+    problems that every txset phase checks: A == B, one batch equal to
+    the oracle holding exactly the pairs, prep msg32 1 + ladder 1, B
+    launching nothing, no call in the second validation, and the
+    supervisor CLOSED with 0 failures and 0 skips."""
     from stellar_core_tpu_torch.crypto import ed25519_ref as ref
     from stellar_core_tpu_torch.ops.backend_supervisor import (
         CLOSED, BackendSupervisor)
     from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.tx.frame import make_frame
     from stellar_core_tpu_torch.tx.signature_checker import \
         collect_signature_tuples
-    from stellar_core_tpu_torch.tx.frame import make_frame
-    from stellar_core_tpu_torch.xdr.results import TransactionResult, \
-        TransactionResultCode
     from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
 
-    t0 = time.perf_counter()
-    wl = txset_workload(TXSET_N)
-    build_s = time.perf_counter() - t0
     nid = wl["network_id"]
     frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
               for b in wl["envelopes"]]
@@ -1216,7 +1234,7 @@ def txset_phase(card):
     sup.shutdown()
     problems = []
     for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
-                "order", "results", "applied_ok", "ledger_hash"):
+                "order", "results", "applied_ok", "offers", "ledger_hash"):
         if a[key] != b[key]:
             problems.append(f"run A and run B differ in {key}")
     if a["verdict_again"] != a["verdict"]:
@@ -1245,11 +1263,22 @@ def txset_phase(card):
         problems.append(f"supervisor: {st['state']}, failures "
                         f"{st['failures']}, skips {st['skips']}, "
                         f"transitions {st['transitions']}")
-    kinds = wl["kinds"]
-    by_hash = {make_frame(TransactionEnvelope.from_bytes(e), nid)
-               .full_hash(): k for e, k in zip(wl["envelopes"], kinds)}
-    bad = {"flipped": TransactionResultCode.txBAD_AUTH,
-           "extra_sig": TransactionResultCode.txBAD_AUTH_EXTRA}
+    return a, b, rec, paired, launches, problems
+
+
+def kinds_by_hash(wl):
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+    return {make_frame(TransactionEnvelope.from_bytes(e), wl["network_id"])
+            .full_hash(): k for e, k in zip(wl["envelopes"], wl["kinds"])}
+
+
+def dropped_problems(a, by_hash, bad):
+    """A problem if the dropped transactions are not exactly those of
+    the kinds in `bad` (kind -> the TransactionResultCode each must
+    end with)."""
+    from stellar_core_tpu_torch.xdr.results import TransactionResult
+    problems = []
     for h, code in a["codes"].items():
         k = by_hash[h]
         got_code = TransactionResult.from_bytes(code).result.disc
@@ -1257,12 +1286,31 @@ def txset_phase(card):
                 (k in bad and got_code != bad[k]):
             problems.append(f"a {k} transaction ended {got_code!r}")
             break
+    return problems
+
+
+def txset_phase(card):
+    """Phase 9: the node's txset validation on the card at the size of
+    BASELINE.json config #2 (TXSET_N one-Payment transactions, 2 x
+    TXSET_N funded accounts). Run A: BackendSupervisor(
+    CudaBatchVerifier()) under the herder's lazy prevalidator; run B:
+    the native per-signature path on a fresh root from the same bytes.
+    Returns the launches of run A by kernel."""
+    from stellar_core_tpu_torch.xdr.results import TransactionResultCode
+
+    t0 = time.perf_counter()
+    wl = txset_workload(TXSET_N)
+    build_s = time.perf_counter() - t0
+    a, b, rec, paired, launches, problems = card_and_host_runs(card, wl)
+    problems += dropped_problems(a, kinds_by_hash(wl), {
+        "flipped": TransactionResultCode.txBAD_AUTH,
+        "extra_sig": TransactionResultCode.txBAD_AUTH_EXTRA})
     if not all(a["applied_ok"]):
         problems.append(f"{a['applied_ok'].count(False)} valid transactions "
                         "failed to apply")
     if problems:
         raise SystemExit("txset: " + "; ".join(problems))
-    counts = collections.Counter(kinds)
+    counts = collections.Counter(wl["kinds"])
     first = a["first"]
     print(f"txset: {TXSET_N} one-Payment transactions over {2 * TXSET_N} "
           f"accounts, chosen mix {dict(counts)}; built in {build_s:.3f} s; "
@@ -1283,6 +1331,221 @@ def txset_phase(card):
           f"results and ledger hash {a['ledger_hash'].hex()[:16]}; the "
           f"batch equals the oracle on all {len(paired)} tuples; supervisor "
           f"CLOSED, 0 failures, 0 skips [{card}]", flush=True)
+    return launches
+
+
+def classic_workload(n, seed=CLASSIC_SEED):
+    """Phase 10's ledger and txset as XDR bytes, built with the port only.
+    The ledger is what the JAX package's load generator leaves after
+    `setup_dex` (simulation/load_generator.py:242-259), at protocol 21:
+    an issuer of LOAD and n source accounts of 1,000 XLM, each with an
+    authorized LOAD trustline (limit 2^62, balance 1,000 LOAD) and
+    numSubEntries 1. One transaction per source at seq + 1, signed by
+    the native host library; CLASSIC_MIX marks max(1, round(share * n))
+    of each kind by a seeded permutation, the rest are payments (a
+    chosen mix of the generator's modes, not measured traffic):
+    - offer: MIXED_CLASSIC's ManageSellOffer (`generate_mixed`), 10,000
+      stroops of XLM for LOAD at (100 + i mod 32) / 100, offer ID 0; all
+      on one side of the book, so they rest;
+    - payment: MIXED_CLASSIC's native Payment of 10,000 stroops to the
+      next source;
+    - pretend: PRETEND's three operations (`generate_pretend`,
+      ops_per_tx 3): SetOptions with a home domain, ManageData with a
+      32-byte SHA-256 value, SetOptions;
+    - path: PathPaymentStrictSend of 100 stroops of LOAD for at least 1
+      stroop of XLM to the next source, crossing the offers applied
+      before it (it fails with a failed-op result where none was);
+    - create: CreateAccount of a fresh key with 10 XLM;
+    - change_trust: setup_dex's ChangeTrust (limit 2^62) to a second
+      asset of the same issuer;
+    - flipped: a payment with one signature byte flipped (txBAD_AUTH)."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.tx_utils import (
+        make_account_ledger_entry, starting_sequence_number)
+    from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
+    from stellar_core_tpu_torch.xdr.ledger_entries import (
+        Asset, AssetType, LedgerEntry, LedgerEntryType, Price,
+        TrustLineAsset, TrustLineEntry, TrustLineFlags, _LedgerEntryData)
+    from stellar_core_tpu_torch.xdr.transaction import (
+        ChangeTrustAsset, ChangeTrustOp, CreateAccountOp, DecoratedSignature,
+        ManageDataOp, ManageSellOfferOp, Memo, MemoType, MuxedAccount,
+        Operation, OperationType, PathPaymentStrictSendOp, PaymentOp,
+        Preconditions, PreconditionType, SetOptionsOp, Transaction,
+        TransactionEnvelope, TransactionV1Envelope, _OperationBody, _TxExt)
+    from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
+
+    rng = np.random.default_rng(seed)
+    kinds = ["payment"] * n
+    order = rng.permutation(n)
+    at = 0
+    for kind, share in CLASSIC_MIX:
+        k = max(1, round(share * n))
+        for i in order[at:at + k]:
+            kinds[i] = kind
+        at += k
+    if at > n:
+        raise ValueError(f"classic_workload: {n} transactions hold no mix")
+    network_id = sha256(b"chip smoke classic network")
+    header = LedgerHeader(
+        ledgerVersion=21, ledgerSeq=2, baseFee=100, baseReserve=5_000_000,
+        totalCoins=10 ** 18, maxTxSetSize=3 * n,
+        scpValue=StellarValue(closeTime=1_700_000_000))
+    seq0 = starting_sequence_number(1)
+
+    def key():
+        return SecretKey.from_seed(rng.bytes(32))
+
+    def account_id(sk):
+        return PublicKey.ed25519(sk.public_key().raw)
+
+    def op(kind, body):
+        return Operation(sourceAccount=None, body=_OperationBody(kind, body))
+
+    issuer = key()
+    load = Asset.credit(b"LOAD", account_id(issuer))
+    alt = Asset.credit(b"ALT", account_id(issuer))
+    native = Asset(AssetType.ASSET_TYPE_NATIVE)
+    le = make_account_ledger_entry(account_id(issuer), 1000 * XLM, seq0)
+    le.lastModifiedLedgerSeq = 1
+    entries = [le.to_bytes()]
+    sources = [key() for _ in range(n)]
+    for sk in sources:
+        le = make_account_ledger_entry(account_id(sk), 1000 * XLM, seq0)
+        le.lastModifiedLedgerSeq = 1
+        le.data.value.numSubEntries = 1
+        line = LedgerEntry(lastModifiedLedgerSeq=1, data=_LedgerEntryData(
+            LedgerEntryType.TRUSTLINE, TrustLineEntry(
+                accountID=account_id(sk),
+                asset=TrustLineAsset.from_asset(load), balance=1000 * XLM,
+                limit=2 ** 62, flags=int(TrustLineFlags.AUTHORIZED_FLAG))))
+        entries += [le.to_bytes(), line.to_bytes()]
+
+    envelopes = []
+    for i, (sk, kind) in enumerate(zip(sources, kinds)):
+        nxt = MuxedAccount.from_ed25519(sources[(i + 1) % n].public_key().raw)
+        if kind == "offer":
+            ops = [op(OperationType.MANAGE_SELL_OFFER, ManageSellOfferOp(
+                selling=native, buying=load, amount=10_000,
+                price=Price(n=100 + i % 32, d=100), offerID=0))]
+        elif kind == "pretend":
+            ops = [op(OperationType.SET_OPTIONS, SetOptionsOp(
+                       homeDomain=b"pretend-00.example.com")),
+                   op(OperationType.MANAGE_DATA, ManageDataOp(
+                       dataName=b"load01",
+                       dataValue=sha256(b"pretend-%d-1" % i))),
+                   op(OperationType.SET_OPTIONS, SetOptionsOp(
+                       homeDomain=b"pretend-02.example.com"))]
+        elif kind == "path":
+            ops = [op(OperationType.PATH_PAYMENT_STRICT_SEND,
+                      PathPaymentStrictSendOp(
+                          sendAsset=load, sendAmount=100, destination=nxt,
+                          destAsset=native, destMin=1, path=[]))]
+        elif kind == "create":
+            ops = [op(OperationType.CREATE_ACCOUNT, CreateAccountOp(
+                destination=account_id(key()), startingBalance=10 * XLM))]
+        elif kind == "change_trust":
+            ops = [op(OperationType.CHANGE_TRUST, ChangeTrustOp(
+                line=ChangeTrustAsset(alt.disc, alt.value), limit=2 ** 62))]
+        else:                               # payment, flipped
+            ops = [op(OperationType.PAYMENT, PaymentOp(
+                destination=nxt, asset=native, amount=10_000))]
+        tx = Transaction(
+            sourceAccount=MuxedAccount.from_ed25519(sk.public_key().raw),
+            fee=100 * len(ops), seqNum=seq0 + 1,
+            cond=Preconditions(PreconditionType.PRECOND_NONE),
+            memo=Memo(MemoType.MEMO_NONE), operations=ops, ext=_TxExt(0))
+        v1 = TransactionV1Envelope(tx=tx, signatures=[])
+        env = TransactionEnvelope(EnvelopeType.ENVELOPE_TYPE_TX, v1)
+        h = make_frame(env, network_id).contents_hash()
+        sig = bytearray(sk.sign(h))
+        if kind == "flipped":
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        v1.signatures.append(DecoratedSignature(
+            hint=sk.public_key().hint(), signature=bytes(sig)))
+        envelopes.append(env.to_bytes())
+    return {"header": header.to_bytes(), "entries": entries,
+            "envelopes": envelopes, "network_id": network_id,
+            "kinds": kinds}
+
+
+def classic_outcomes(a, by_hash):
+    """Run A's apply by operation: {(op type, result code): count}, the
+    transactions that failed at apply by kind, and the path payments
+    that crossed at least one offer (a non-empty ClaimAtom list)."""
+    from stellar_core_tpu_torch.xdr.results import (OperationResultCode,
+                                                    TransactionResult)
+    from stellar_core_tpu_torch.xdr.transaction import OperationType
+    codes, failed, crossed = collections.Counter(), collections.Counter(), 0
+    for h, ok, raw in zip(a["order"], a["applied_ok"], a["results"]):
+        if not ok:
+            failed[by_hash[h]] += 1
+        res = TransactionResult.from_bytes(raw).result.value
+        for r in res if isinstance(res, list) else []:
+            if r.disc != OperationResultCode.opINNER:
+                codes[(by_hash[h], r.disc.name)] += 1
+                continue
+            tr = r.value
+            codes[(tr.disc.name, tr.value.disc.name)] += 1
+            if tr.disc == OperationType.PATH_PAYMENT_STRICT_SEND and \
+                    tr.value.disc == 0 and tr.value.value.offers:
+                crossed += 1
+    return codes, failed, crossed
+
+
+def classic_phase(card):
+    """Phase 10: the classic operation families on the card's txset path
+    at the size of BASELINE.json config #2: CLASSIC_N transactions of the
+    load generator's MIXED_CLASSIC and PRETEND modes over what its
+    setup_dex leaves (classic_workload). Runs A and B as phase 9's.
+    Returns the launches of run A by kernel."""
+    from stellar_core_tpu_torch.xdr.results import TransactionResultCode
+
+    t0 = time.perf_counter()
+    wl = classic_workload(CLASSIC_N)
+    build_s = time.perf_counter() - t0
+    a, b, rec, paired, launches, problems = card_and_host_runs(card, wl)
+    by_hash = kinds_by_hash(wl)
+    problems += dropped_problems(a, by_hash, {
+        "flipped": TransactionResultCode.txBAD_AUTH})
+    codes, failed, crossed = classic_outcomes(a, by_hash)
+    if set(failed) - {"path"}:
+        problems.append(f"transactions failed at apply: {dict(failed)}; "
+                        "only a path payment with no offer before it may")
+    if not crossed:
+        problems.append("no path payment crossed an offer")
+    kinds = collections.Counter(wl["kinds"])
+    if a["offers"] != kinds["offer"]:
+        problems.append(f"{a['offers']} offers rest after apply, not the "
+                        f"{kinds['offer']} created")
+    if problems:
+        raise SystemExit("classic: " + "; ".join(problems))
+    first = a["first"]
+    print(f"classic: {CLASSIC_N} transactions ({len(a['kept'])} valid) of "
+          f"the load generator's "
+          f"MIXED_CLASSIC and PRETEND modes over {len(wl['entries'])} "
+          f"entries, chosen mix {dict(kinds)}; built in {build_s:.3f} s; "
+          f"validation A (card) {a['validate_s'] * 1e3:.1f} ms, of it the "
+          f"device dispatch {rec.calls[0][2] * 1e3:.2f} ms "
+          f"({len(paired)} signatures, prep 1 + ladder 1), validation B "
+          f"(host) {b['validate_s'] * 1e3:.1f} ms; trim_invalid A "
+          f"{a['trim_s'] * 1e3:.1f} ms, B {b['trim_s'] * 1e3:.1f} ms; again "
+          f"with the cache seeded {a['again_s'] * 1e3:.1f} ms, 0 launches; "
+          f"apply A {a['apply_s'] * 1e3:.1f} ms, B {b['apply_s'] * 1e3:.1f} "
+          f"ms; dropped {len(a['dropped'])} [{card}]", flush=True)
+    print("classic: results by operation "
+          + ", ".join(f"{op} {code} {c}" for (op, code), c
+                      in sorted(codes.items()))
+          + f"; failed at apply {dict(failed)}; {crossed} of "
+          f"{kinds['path']} path payments crossed offers; {a['offers']} "
+          f"offers rest after apply", flush=True)
+    print(f"classic: prevalidator hits {first.hits}, misses {first.misses} "
+          f"(second validation: hits {a['again'].hits}, misses "
+          f"{a['again'].misses}); runs A and B equal on verdicts, trim, "
+          f"results, offers and ledger hash {a['ledger_hash'].hex()[:16]}; "
+          f"the batch equals the oracle on all {len(paired)} tuples; "
+          f"supervisor CLOSED, 0 failures, 0 skips [{card}]", flush=True)
     return launches
 
 
@@ -1622,9 +1885,13 @@ def main():
     # --- 9. txset validation on the card --------------------------------
     txset = txset_phase(card)
 
+    # --- 10. the classic operation families on the card's txset path ---
+    classic = classic_phase(card)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
-    # (the sharded and hybrid verifiers) and run A of phase 9 (txset)
+    # (the sharded and hybrid verifiers), run A of phase 9 (txset) and run
+    # A of phase 10 (classic)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -1632,7 +1899,7 @@ def main():
             "verifier": verifier[kind], "live": live[kind],
             "sharded": mesh["sharded"].get(kind, 0),
             "hybrid": mesh["hybrid"].get(kind, 0),
-            "txset": txset[kind]}
+            "txset": txset[kind], "classic": classic[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):

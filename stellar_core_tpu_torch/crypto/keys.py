@@ -106,7 +106,8 @@ class PublicKey:
         return hash(self.raw)
 
     def __repr__(self) -> str:
-        return f"PublicKey({self.raw.hex()})"
+        from .strkey import StrKey
+        return f"PublicKey({StrKey.encode_ed25519_public(self.raw)})"
 
 
 class SecretKey:

@@ -4,7 +4,7 @@ Reference: src/herder/HerderImpl.{h,cpp}. Counterpart of
 stellar_core_tpu/herder/herder.py; so far the port has only the piece
 txset validation runs on, `_LazyBatchPrevalidator` (one device batch per
 txset). `Herder` itself, with flood admission over the ported
-VerifyService, comes with the next slice (ROADMAP Queue 1 item 5).
+VerifyService, comes in a later slice (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

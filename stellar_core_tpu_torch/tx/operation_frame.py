@@ -9,7 +9,9 @@ source), opNO_ACCOUNT when the source vanished, opBAD_AUTH when the
 source account's signers don't reach the needed threshold.
 
 Counterpart of stellar_core_tpu/tx/operation_frame.py. The port's
-registry holds only the families whose modules were imported.
+registry holds the families that `tx/operations` imports (payment,
+account, misc, trust, offer, path payment); any other op type raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -51,17 +53,22 @@ def register_op(op_type: OperationType):
     return deco
 
 
+# op types whose family comes with the Soroban slice (ROADMAP Queue 1
+# item 3); the other unported families are classic (item 2)
+_SOROBAN_OPS = (OperationType.INVOKE_HOST_FUNCTION,
+                OperationType.EXTEND_FOOTPRINT_TTL,
+                OperationType.RESTORE_FOOTPRINT)
+
+
 def make_operation_frame(op: Operation, tx_source: MuxedAccount,
                          op_index: int) -> "OperationFrame":
     cls = _REGISTRY.get(op.body.disc)
     if cls is None:
-        # the port's tx/operations/__init__.py imports nothing: each
-        # family registers when its module is imported (payment_ops
-        # only, so far); the other families come in later slices
+        item = 3 if op.body.disc in _SOROBAN_OPS else 2
         raise NotImplementedError(
-            f"no operation frame registered for {op.body.disc!r}: import "
-            f"its tx/operations module (the port has payment_ops; the "
-            f"other families come in later slices, ROADMAP Queue 1 item 5)")
+            f"no operation frame registered for {op.body.disc!r}: the port "
+            f"copies its family in a later slice (ROADMAP Queue 1 item "
+            f"{item})")
     return cls(op, tx_source, op_index)
 
 

@@ -189,12 +189,12 @@ def _soroban_auth_tuples(frame, network_id: bytes):
     """Address-credential auth signatures of a tx's InvokeHostFunction
     ops: the payload is deterministic from the envelope alone, so these
     batch ahead of apply exactly like tx signatures. The port has no
-    Soroban host yet (soroban/host.py, xdr/contract.py): a tx with such
-    an op raises until that slice lands; any other tx has none."""
+    Soroban host yet (soroban/host.py): a tx with such an op raises until
+    that slice lands; any other tx has none."""
     from ..xdr.transaction import OperationType
     for op in frame.tx.operations:      # fee bump shares the inner .tx
         if op.body.disc == OperationType.INVOKE_HOST_FUNCTION:
             raise NotImplementedError(
                 "Soroban auth-entry tuples need soroban/host.py, which the "
-                "port copies in a later slice (ROADMAP Queue 1 item 5)")
+                "port copies in a later slice (ROADMAP Queue 1 item 3)")
     return []

@@ -98,9 +98,8 @@ class LedgerUpgradeType(IntEnum):
 
 
 def _config_upgrade_set_key():
-    raise NotImplementedError(
-        "LEDGER_UPGRADE_CONFIG needs xdr/contract.py, which the port copies "
-        "in a later slice (Soroban; ROADMAP Queue 1 item 5)")
+    from .contract import ConfigUpgradeSetKey
+    return ConfigUpgradeSetKey
 
 
 class LedgerUpgrade(Union):
@@ -269,9 +268,8 @@ class SorobanTransactionMeta(Struct):
 
 
 def _contract():
-    raise NotImplementedError(
-        "Soroban meta needs xdr/contract.py, which the port copies in a "
-        "later slice (ROADMAP Queue 1 item 5)")
+    from . import contract
+    return contract
 
 
 def _Bool():

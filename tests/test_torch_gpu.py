@@ -3,7 +3,8 @@
 blocks and partial four-lane groups), and CudaBatchVerifier and the live
 stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
 on a stand-in mesh of four positions, the v1 entry against the oracle, and
-the txset validation path (chip_smoke.py phase 9 at 64 transactions).
+the txset validation path (chip_smoke.py phase 9 at 64 transactions) and
+the classic operation families on it (phase 10 at 64 transactions).
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -236,6 +237,43 @@ def test_txset_validation_on_card(card):
     assert launched == (1, 1) and len(rec.calls) == 1
     items, got, _ = rec.calls[0]
     assert got == [ref.verify(*t) for t in items]
+    assert a["again_calls"] == 0 and a["again"].hits > 0
+    assert st["state"] == CLOSED and not any(st["failures"].values())
+    assert st["skips"] == 0 and st["transitions"] == []
+
+
+def test_classic_txset_on_card(card):
+    """chip_smoke.py phase 10's builder and runs at 64 transactions (the
+    load generator's MIXED_CLASSIC and PRETEND traffic): the card path
+    equals the host path on verdicts, trim, result bytes, resting offers
+    and ledger hash, with one device batch (prep 1 + ladder 1) equal to
+    the oracle; the flipped transaction alone is dropped, a path payment
+    crossed an offer, and the supervisor stays CLOSED."""
+    import chip_smoke as cs
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    wl = cs.classic_workload(64)
+    sup = BackendSupervisor(CudaBatchVerifier(device=card))
+    try:
+        rec = cs.RecordingVerifier(sup)
+        before = (EK.prep.launches, LD.ladder.launches)
+        a = cs.txset_run(wl, rec)
+        launched = (EK.prep.launches - before[0],
+                    LD.ladder.launches - before[1])
+        st = sup.status()
+    finally:
+        sup.shutdown()
+    b = cs.txset_run(wl)
+    for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
+                "order", "results", "applied_ok", "offers", "ledger_hash"):
+        assert a[key] == b[key], key
+    assert launched == (1, 1) and len(rec.calls) == 1
+    items, got, _ = rec.calls[0]
+    assert got == [ref.verify(*t) for t in items] and got.count(False) == 1
+    by_hash = cs.kinds_by_hash(wl)
+    assert [by_hash[h] for h in a["dropped"]] == ["flipped"]
+    _, failed, crossed = cs.classic_outcomes(a, by_hash)
+    assert not failed and crossed >= 1
     assert a["again_calls"] == 0 and a["again"].hits > 0
     assert st["state"] == CLOSED and not any(st["failures"].values())
     assert st["skips"] == 0 and st["transitions"] == []

@@ -11,7 +11,9 @@ herder's lazy prevalidator over an oracle-backed stand-in for the batch
 verifier (no XLA, no kernel), and when that stand-in raises. One test
 runs the port's plain kernels (`CudaBatchVerifier(device="cpu")`) under
 the prevalidator; one runs chip_smoke.py's phase 9 functions on a small
-set against the JAX package."""
+set against the JAX package; one runs phase 10's (the load generator's
+MIXED_CLASSIC and PRETEND traffic) through the port's plain kernels and
+the native path, against the JAX package."""
 
 import hashlib
 
@@ -189,3 +191,48 @@ def test_chip_smoke_txset_phase_functions_match_jax():
     assert got["ledger_hash"] == hashlib.sha256(header + b"".join(
         kb + eb for kb, eb in want["state"][:-1])).digest()
     assert len(got["dropped"]) == 2 and all(got["applied_ok"])
+
+
+def _jax_run_of(wl):
+    """The JAX package's txset path on the workload's bytes."""
+    jroot = J.ledger_txn.InMemoryLedgerTxnRoot(
+        J.ledger.LedgerHeader.from_bytes(wl["header"]))
+    for e in wl["entries"]:
+        le = J.entries.LedgerEntry.from_bytes(e)
+        jroot._entries[J.entries.ledger_entry_key(le).to_bytes()] = le
+    return run_set(J, jroot, wl["envelopes"], network_id=wl["network_id"])
+
+
+def test_chip_smoke_classic_phase_functions_match_jax():
+    """chip_smoke.py phase 10's workload at 60 transactions: run A
+    through the herder's prevalidator over the port's plain kernels (one
+    dispatch), run B through the native path, and the JAX package on the
+    same bytes: the same verdicts, trim, result bytes and ledger. The
+    flipped transaction alone is dropped, every offer rests, and the
+    path payment crossed one."""
+    import chip_smoke as cs
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    wl = cs.classic_workload(60)
+    rec = cs.RecordingVerifier(CudaBatchVerifier(device="cpu",
+                                                 device_min_batch=1))
+    a = cs.txset_run(wl, rec)
+    b = cs.txset_run(wl)
+    want = _jax_run_of(wl)
+    for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
+                "order", "results"):
+        assert a[key] == b[key] == want[key], key
+    assert a["applied_ok"] == b["applied_ok"] == want["applied"]
+    header = want["state"][-1][1]
+    assert a["ledger_hash"] == b["ledger_hash"] == hashlib.sha256(
+        header + b"".join(kb + eb for kb, eb in want["state"][:-1])).digest()
+    assert len(rec.calls) == 1 and len(rec.calls[0][0]) == 60
+    assert rec.calls[0][1].count(False) == 1        # the flipped byte
+    by_hash = cs.kinds_by_hash(wl)
+    assert [by_hash[h] for h in a["dropped"]] == ["flipped"]
+    codes, failed, crossed = cs.classic_outcomes(a, by_hash)
+    assert not failed and crossed == 1
+    assert a["offers"] == wl["kinds"].count("offer") == 24
+    ops = {op for op, _ in codes}
+    assert ops == {"MANAGE_SELL_OFFER", "PAYMENT", "SET_OPTIONS",
+                   "MANAGE_DATA", "PATH_PAYMENT_STRICT_SEND",
+                   "CHANGE_TRUST", "CREATE_ACCOUNT"}

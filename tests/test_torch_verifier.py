@@ -364,12 +364,24 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "ledger.ledger_txn", "tx.tx_utils", "tx.sponsorship",
              "tx.operation_frame", "tx.signature_checker",
              "invariant.manager", "tx.frame", "tx.operations.payment_ops",
-             "herder.surge_pricing", "herder.tx_set", "herder.herder"):
+             "herder.surge_pricing", "herder.tx_set", "herder.herder",
+             "crypto.strkey", "crypto.shorthash", "util.xdr_stream",
+             "xdr.contract", "xdr.overlay", "xdr.next_types", "xdr.schema",
+             "tx.operations", "tx.operations.account_ops",
+             "tx.operations.misc_ops", "tx.pool_trust", "tx.offer_math",
+             "tx.liabilities", "tx.operations.trust_ops",
+             "tx.offer_exchange", "tx.operations.offer_ops",
+             "tx.operations.path_payment_ops"):
     __import__("stellar_core_tpu_torch." + name)
+from stellar_core_tpu_torch.xdr import schema
+assert len(schema.identity()["curr"]) == 64
 import chip_smoke
 out = chip_smoke.txset_run(chip_smoke.txset_workload(8))
 assert out["verdict"] is False and len(out["dropped"]) == 2, out
 assert all(out["applied_ok"]) and len(out["results"]) == 6
+out = chip_smoke.txset_run(chip_smoke.classic_workload(40))
+assert out["verdict"] is False and len(out["dropped"]) == 1, out
+assert all(out["applied_ok"]) and out["offers"] == 16, out
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

@@ -4,7 +4,8 @@ Values are built with the JAX package (tests/txtest_utils.py and real
 applied operations), their bytes go through the port's `from_bytes` /
 `to_bytes` and must come back byte for byte, with equal contents and
 full hashes. Corrupted bytes must fail, or re-encode, alike in both. The
-pieces the port leaves to later slices raise NotImplementedError."""
+pieces the port leaves to later slices raise NotImplementedError.
+tests/test_torch_xdr_leaves.py covers the rest of the XDR layer."""
 
 import hashlib
 from types import SimpleNamespace
@@ -213,22 +214,73 @@ def test_envelope_roundtrip_and_hashes(kind):
     jframe = J.frame.make_frame(jenv, TEST_NETWORK_ID)
     assert _port_contents_hash(penv) == jframe.contents_hash()
     assert hashlib.sha256(penv.to_bytes()).digest() == jframe.full_hash()
-    if kind != "many_ops":
-        pframe = P.frame.make_frame(penv, TEST_NETWORK_ID)
-        assert pframe.contents_hash() == jframe.contents_hash()
-        assert pframe.full_hash() == jframe.full_hash()
-        assert pframe.source_id.to_bytes() == jframe.source_id.to_bytes()
-        assert pframe.fee_source_id.to_bytes() == \
-            jframe.fee_source_id.to_bytes()
-        assert pframe.num_operations() == jframe.num_operations()
+    pframe = P.frame.make_frame(penv, TEST_NETWORK_ID)
+    assert pframe.contents_hash() == jframe.contents_hash()
+    assert pframe.full_hash() == jframe.full_hash()
+    assert pframe.source_id.to_bytes() == jframe.source_id.to_bytes()
+    assert pframe.fee_source_id.to_bytes() == \
+        jframe.fee_source_id.to_bytes()
+    assert pframe.num_operations() == jframe.num_operations()
+
+
+def env_invoke_host_function():
+    """An InvokeHostFunction envelope with an address-credential auth
+    entry and Soroban resources in the tx ext (xdr/contract.py)."""
+    from stellar_core_tpu.xdr import contract as cx
+    from stellar_core_tpu.xdr.transaction import Operation, OperationType
+    from stellar_core_tpu.xdr.transaction import _OperationBody
+    src = _key(1).public_key().raw
+    invoke = cx.InvokeContractArgs(
+        contractAddress=cx.SCAddress(
+            cx.SCAddressType.SC_ADDRESS_TYPE_CONTRACT, b"\x21" * 32),
+        functionName=b"transfer", args=[cx.SCVal(cx.SCValType.SCV_U32, 7)])
+    auth = cx.SorobanAuthorizationEntry(
+        credentials=cx.SorobanCredentials(
+            cx.SorobanCredentialsType.SOROBAN_CREDENTIALS_ADDRESS,
+            cx.SorobanAddressCredentials(
+                address=cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_ACCOUNT,
+                                     PublicKey.ed25519(src)),
+                nonce=5, signatureExpirationLedger=100,
+                signature=cx.SCVal(cx.SCValType.SCV_VOID))),
+        rootInvocation=cx.SorobanAuthorizedInvocation(
+            function=cx.SorobanAuthorizedFunction(
+                cx.SorobanAuthorizedFunctionType
+                .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CONTRACT_FN, invoke),
+            subInvocations=[]))
+    op = Operation(sourceAccount=None, body=_OperationBody(
+        OperationType.INVOKE_HOST_FUNCTION, cx.InvokeHostFunctionOp(
+            hostFunction=cx.HostFunction(
+                cx.HostFunctionType.HOST_FUNCTION_TYPE_INVOKE_CONTRACT,
+                invoke), auth=[auth])))
+    frame = _v1(_key(1), [op])
+    frame.envelope.value.tx.ext = _TxExt(1, cx.SorobanTransactionData(
+        resources=cx.SorobanResources(
+            footprint=cx.LedgerFootprint(readOnly=[], readWrite=[]),
+            instructions=1000, readBytes=10, writeBytes=10),
+        resourceFee=100))
+    return frame.envelope
 
 
 def test_frame_for_unported_op_type_raises():
-    """The port registers only the families whose modules were imported
-    (Payment); any other op type raises rather than take another path."""
-    penv = P.transaction.TransactionEnvelope.from_bytes(
-        env_many_ops().to_bytes())
-    with pytest.raises(NotImplementedError, match="later slices"):
+    """The port registers the families tx/operations imports (payment,
+    account, misc, trust, offer, path payment); an op type of any other
+    family raises NotImplementedError naming the ROADMAP item that
+    brings it, rather than take another path. A Soroban envelope now
+    decodes and re-encodes equal (xdr/contract.py), but has no frame."""
+    from stellar_core_tpu.xdr.transaction import (CreateClaimableBalanceOp,
+                                                  Operation, OperationType,
+                                                  _OperationBody)
+    op = Operation(sourceAccount=None, body=_OperationBody(
+        OperationType.CREATE_CLAIMABLE_BALANCE, CreateClaimableBalanceOp(
+            asset=Asset(AssetType.ASSET_TYPE_NATIVE), amount=XLM,
+            claimants=[])))
+    penv = _roundtrip(_v1(_key(1), [op]).envelope,
+                      P.transaction.TransactionEnvelope)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        P.frame.make_frame(penv, TEST_NETWORK_ID)
+    penv = _roundtrip(env_invoke_host_function(),
+                      P.transaction.TransactionEnvelope)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         P.frame.make_frame(penv, TEST_NETWORK_ID)
 
 
@@ -470,22 +522,33 @@ def test_nonzero_padding_and_bad_bool_raise():
             pkg.runtime.Bool.unpack(pkg.runtime.Reader(b"\x00\x00\x00\x02"))
 
 
-# ----------------------------------------------- what waits for later slices --
+# ------------------------------------ Soroban XDR; what waits for later slices --
 
 def test_config_upgrade_waits_for_contract_xdr():
-    """A LEDGER_UPGRADE_CONFIG arm needs xdr/contract.py: building one or
-    decoding one raises; the classic arms work (test_header_roundtrip)."""
-    config = P.ledger.LedgerUpgradeType.LEDGER_UPGRADE_CONFIG
-    with pytest.raises(NotImplementedError, match="contract.py"):
-        P.ledger.LedgerUpgrade(config)
-    with pytest.raises(NotImplementedError, match="contract.py"):
-        P.ledger.LedgerUpgrade.from_bytes(
-            int(config).to_bytes(4, "big") + b"\x00" * 64)
+    """A LEDGER_UPGRADE_CONFIG arm needed xdr/contract.py, which the port
+    now has: such an upgrade decodes and re-encodes as the JAX package's
+    does, and so does the Soroban meta of xdr/ledger.py."""
+    from stellar_core_tpu.xdr import contract as cx
+    up = J.ledger.LedgerUpgrade(
+        J.ledger.LedgerUpgradeType.LEDGER_UPGRADE_CONFIG,
+        cx.ConfigUpgradeSetKey(contractID=b"\x31" * 32,
+                               contentHash=b"\x32" * 32))
+    pu = _roundtrip(up, P.ledger.LedgerUpgrade)
+    assert pu.value.contractID == b"\x31" * 32
+    meta = J.ledger.SorobanTransactionMeta(
+        events=[cx.ContractEvent(
+            contractID=b"\x33" * 32, type=cx.ContractEventType.CONTRACT,
+            body=cx._ContractEventBody(0, cx._ContractEventV0(
+                topics=[cx.SCVal(cx.SCValType.SCV_SYMBOL, b"transfer")],
+                data=cx.SCVal(cx.SCValType.SCV_I64, -3))))],
+        returnValue=cx.SCVal(cx.SCValType.SCV_BOOL, True))
+    _roundtrip(meta, P.ledger.SorobanTransactionMeta)
 
 
 def test_soroban_auth_tuples_wait_for_the_soroban_slice():
     """With a network id, an INVOKE_HOST_FUNCTION op raises (no Soroban
-    host in the port); without one, the envelope tuples are exact."""
+    host in the port) NotImplementedError, never XdrError; without one,
+    the envelope tuples are exact."""
     frame = P.frame.make_frame(P.transaction.TransactionEnvelope.from_bytes(
         env_plain().to_bytes()), TEST_NETWORK_ID)
     jframe = J.frame.make_frame(env_plain(), TEST_NETWORK_ID)
@@ -501,4 +564,9 @@ def test_soroban_auth_tuples_wait_for_the_soroban_slice():
     assert P.checker.collect_signature_tuples([invoke]) == \
         P.checker.collect_signature_tuples([frame])
     with pytest.raises(NotImplementedError, match="soroban"):
+        P.checker.collect_signature_tuples([invoke], NETWORK_ID)
+    penv = P.transaction.TransactionEnvelope.from_bytes(
+        env_invoke_host_function().to_bytes())
+    invoke.tx = penv.value.tx
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         P.checker.collect_signature_tuples([invoke], NETWORK_ID)

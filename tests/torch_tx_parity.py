@@ -1,14 +1,17 @@
-"""Shared by tests/test_torch_{xdr,tx,txset}.py: the JAX package's and the
-port's transaction layers side by side.
+"""Shared by tests/test_torch_{xdr,tx,txset,ops,dex}.py: the JAX package's
+and the port's transaction layers side by side.
 
 State crosses as XDR bytes only: the JAX package's ledger goes into the
 port through `InMemoryLedgerTxnRoot.from_xdr`, and envelopes through
 `TransactionEnvelope.to_bytes()` / `from_bytes()`. `Pkg` gathers one
 package's modules under the same names, so one runner drives either.
+`mirrored()` replays every transaction a JAX-package test applies
+through tests/txtest_utils.py in the port, and compares.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 from types import SimpleNamespace
 
@@ -26,6 +29,15 @@ _MODULES = {
     "checker": "tx.signature_checker",
     "op_frame": "tx.operation_frame",
     "payment_ops": "tx.operations.payment_ops",
+    "account_ops": "tx.operations.account_ops",
+    "misc_ops": "tx.operations.misc_ops",
+    "trust_ops": "tx.operations.trust_ops",
+    "offer_ops": "tx.operations.offer_ops",
+    "path_payment_ops": "tx.operations.path_payment_ops",
+    "offer_math": "tx.offer_math",
+    "liabilities": "tx.liabilities",
+    "offer_exchange": "tx.offer_exchange",
+    "pool_trust": "tx.pool_trust",
     "tx_set": "herder.tx_set",
     "herder": "herder.herder",
     "runtime": "xdr.runtime",
@@ -84,11 +96,11 @@ def state_of(root) -> list:
         + [(b"header", root.get_header().to_bytes())]
 
 
-def apply_one(pkg, root, frame) -> bool:
+def apply_one(pkg, root, frame, base_fee=None) -> bool:
     """Fee, then apply, in one LedgerTxn that commits (the op-level
     tests' simplified ledger close, as txtest_utils.TestLedger.apply_tx)."""
     with pkg.ledger_txn.LedgerTxn(root) as ltx:
-        bf = root.get_header().baseFee
+        bf = base_fee if base_fee is not None else root.get_header().baseFee
         frame.process_fee_seq_num(ltx, bf)
         ok = frame.apply(ltx, bf)
         ltx.commit()
@@ -105,6 +117,114 @@ def check_then_apply(pkg, root, envelope: bytes) -> dict:
     applied = apply_one(pkg, root, frame)
     return {"valid": valid, "checked": checked, "applied": applied,
             "result": frame.result.to_bytes(), "state": state_of(root)}
+
+
+# ------------------------------------------------------- mirrored tests --
+
+@contextlib.contextmanager
+def mirrored():
+    """While open, every `TestLedger.apply_tx` and `check_valid` of
+    tests/txtest_utils.py (the JAX package's op-level test ledger) runs
+    in the port too, on a port root carried from the JAX root's bytes:
+    the verdict, the result bytes and, after an apply, every ledger entry
+    and the header must be equal. A port root is (re)built from the JAX
+    root whenever the two differ before a step, which happens only when
+    the test changed the JAX ledger by hand (`advance_ledger`, a direct
+    entry edit) or on a ledger's first step. An envelope the JAX package
+    cannot encode (a hand-built 65-byte signature) cannot reach the
+    port, and is only counted. Yields counters: applied, checked,
+    synced, unencodable, and the JAX result code of each apply."""
+    import txtest_utils as tu
+    stats = SimpleNamespace(applied=0, checked=0, synced=0, unencodable=0,
+                            codes=[])
+    roots = {}
+    orig_apply, orig_check = tu.TestLedger.apply_tx, tu.TestLedger.check_valid
+
+    def port_root_for(led):
+        held = roots.get(id(led))
+        if held is None or state_of(held[1]) != state_of(led.root):
+            held = roots[id(led)] = (led, port_root(led.root))
+            stats.synced += 1
+        return held[1]
+
+    def port_frame(frame):
+        try:
+            data = frame.envelope.to_bytes()
+        except J.runtime.XdrError:
+            stats.unencodable += 1
+            return None
+        return frame_of(P, data)
+
+    def apply_tx(self, frame, base_fee=None):
+        proot = port_root_for(self)
+        pframe = port_frame(frame)
+        if pframe is None:
+            return orig_apply(self, frame, base_fee)
+        ok = orig_apply(self, frame, base_fee)
+        pok = apply_one(P, proot, pframe, base_fee)
+        assert (pok, pframe.result.to_bytes()) == \
+            (ok, frame.result.to_bytes())
+        assert state_of(proot) == state_of(self.root)
+        stats.applied += 1
+        stats.codes.append(frame.result.result.disc)
+        return ok
+
+    def check_valid(self, frame):
+        proot = port_root_for(self)
+        pframe = port_frame(frame)
+        ok = orig_check(self, frame)
+        if pframe is None:
+            return ok
+        with P.ledger_txn.LedgerTxn(proot) as ltx:
+            pok = pframe.check_valid(ltx)
+        assert (pok, pframe.result.to_bytes()) == \
+            (ok, frame.result.to_bytes())
+        stats.checked += 1
+        return ok
+
+    tu.TestLedger.apply_tx, tu.TestLedger.check_valid = apply_tx, check_valid
+    try:
+        yield stats
+    finally:
+        tu.TestLedger.apply_tx = orig_apply
+        tu.TestLedger.check_valid = orig_check
+
+
+def run_reference_test(module, owner, name) -> SimpleNamespace:
+    """Run one JAX-package test (`owner.name` of `module`, or the module
+    function `name`) under `mirrored()`: a method gets the fixtures
+    `ledger` (a fresh TestLedger) and `root` (its root account). Returns
+    the mirror's counters."""
+    import txtest_utils as tu
+    clear_caches()
+    with mirrored() as stats:
+        if owner is None:
+            getattr(module, name)()
+        else:
+            ledger = tu.TestLedger()
+            getattr(getattr(module, owner)(), name)(ledger,
+                                                    ledger.root_account)
+    assert stats.applied + stats.checked > 0
+    return stats
+
+
+def reference_cases(module, owners):
+    """(module, owner, name) of each test method of the named classes;
+    an owner of None names the module's test functions."""
+    out = []
+    for owner in owners:
+        if owner is None:
+            out += [(module, None, n) for n, f in vars(module).items()
+                    if n.startswith("test_") and callable(f)]
+        else:
+            out += [(module, owner, n) for n in vars(getattr(module, owner))
+                    if n.startswith("test_")]
+    return out
+
+
+def case_id(case) -> str:
+    module, owner, name = case
+    return f"{module.__name__}.{owner + '.' if owner else ''}{name}"
 
 
 # ---------------------------------------------------------------- tx sets --
