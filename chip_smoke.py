@@ -105,11 +105,34 @@ Phases (any failure exits non-zero; nothing is caught):
    transactions are dropped, only a path payment may fail at apply, at
    least one path payment crossed an offer, and every offer created
    rests after apply. It prints the results by operation type.
+11. contract auth-entry signatures batched on the card (BASELINE.json
+   config #4, contract-heavy ledgers), every default invariant enabled:
+   a protocol-21 ledger with the initial CONFIG_SETTING entries, the
+   native-asset SAC and an SCVM contract deployed by transactions, 5000
+   relayers and 5000 holders; 5000 InvokeHostFunction transactions in a
+   chosen mix (88 % native-SAC transfers authorized by the holder's
+   address credentials, 5 % the load generator's source-account form,
+   3 % an SCVM auth_bump with address credentials, 2 % a flipped auth
+   signature, 1 % an expired auth entry, 1 % a flipped envelope
+   signature). Run A validates and trims as phase 9 does, then verifies
+   as catchup does: the kept transactions' envelope and auth-entry
+   tuples in one dispatch, a PrevalidatedVerifier of its verdicts as the
+   apply's verify, every verdict written through to the verify cache;
+   run B the same with the native library as the batch verifier. Fails
+   unless A equals B on verdicts, trim, results, the holders' XLM and
+   the ledger hash; each batch holds exactly its collect_signature_tuples
+   pairs and equals the oracle, false exactly on the flipped envelopes
+   and the flipped auth signatures; prep msg32 2 + ladder 2; every auth
+   verify of the host's is a cache hit (0 native verifies); sac_addr,
+   sac_source and scvm succeed, bad_auth and expired fail as TRAPPED
+   with the fee charged and the sequence number used, flipped is
+   dropped; one nonce entry and one TTL per verified address entry;
+   the supervisor CLOSED with 0 failures and 0 skips.
 The oracle verdicts of the live tuples and of phase 5's tuples are
-computed in worker processes while phase 2 builds, those of phases 9
-and 10 while their runs go. It prints one `kernels` JSON line (launches
-by path: verifier, live, sharded, hybrid, txset, classic), the card
-line, and last {"ok": true, "device": {...}}.
+computed in worker processes while phase 2 builds, those of phases 9,
+10 and 11 while their runs go. It prints one `kernels` JSON line
+(launches by path: verifier, live, sharded, hybrid, txset, classic,
+soroban), the card line, and last {"ok": true, "device": {...}}.
 """
 
 import atexit
@@ -161,6 +184,14 @@ CLASSIC_SEED = 6         # phase 10's ledger, keys and mix
 # rest, about 40 %, are MIXED_CLASSIC's native payments
 CLASSIC_MIX = (("offer", 0.40), ("pretend", 0.15), ("path", 0.02),
                ("create", 0.01), ("change_trust", 0.01), ("flipped", 0.01))
+SOROBAN_N = 5000         # phase 11: the BASELINE.json txset size
+SOROBAN_SEED = 7         # phase 11's ledger, keys and mix
+# phase 11's chosen mix: the load generator's native-SAC transfers
+# (stellar_core_tpu/simulation/load_generator.py:335-385) with address
+# credentials; the rest, 88 %, are sac_addr
+SOROBAN_MIX = (("sac_source", 0.05), ("scvm", 0.03), ("bad_auth", 0.02),
+               ("expired", 0.01), ("flipped", 0.01))
+SOROBAN_RESOURCE_FEE = 10_000_000   # the load generator's _soroban_ext
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -1111,7 +1142,7 @@ class RecordingVerifier:
         return out
 
 
-def txset_run(wl, batch_verifier=None):
+def txset_run(wl, batch_verifier=None, apply_batch=None, invariants=False):
     """The node's txset validation and apply on a fresh root from the
     workload's bytes. With `batch_verifier`, signatures go through
     `_LazyBatchPrevalidator(batch_verifier, ...)`, the herder's per-txset
@@ -1121,16 +1152,32 @@ def txset_run(wl, batch_verifier=None):
     `default_verify`, the native per-signature path. Then
     `trim_invalid`, a set of the valid transactions, and its apply in
     `get_txs_in_apply_order`: every fee, then every transaction, in one
-    LedgerTxn over the next ledger's header, which commits."""
-    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    LedgerTxn over the next ledger's header, which commits.
+
+    With `apply_batch`, the apply verifies as catchup's does
+    (stellar_core_tpu/catchup/catchup_work.py:566-643): the valid
+    transactions' tuples collected with the network id (envelope and
+    Soroban auth-entry signatures) go to `apply_batch.verify_tuples` in
+    one call, and a `PrevalidatedVerifier` of its results is the apply's
+    `verify`. Every result is also written through to the process verify
+    cache, as the herder's prevalidator does, since the host's auth
+    check verifies through that cache and not through `verify`; the
+    cache's hits and misses during the apply are returned. With
+    `invariants`, the apply runs under every default invariant."""
+    from stellar_core_tpu_torch.crypto.keys import (clear_verify_cache,
+                                                    flush_verify_cache_counts,
+                                                    seed_verify_cache)
     from stellar_core_tpu_torch.crypto.sha import sha256
     from stellar_core_tpu_torch.herder.herder import _LazyBatchPrevalidator
     from stellar_core_tpu_torch.herder.tx_set import (
         make_tx_set_from_transactions, trim_invalid)
+    from stellar_core_tpu_torch.invariant import (InvariantManager,
+                                                  register_default_invariants)
     from stellar_core_tpu_torch.ledger.ledger_txn import (
         InMemoryLedgerTxnRoot, LedgerTxn)
     from stellar_core_tpu_torch.tx.frame import make_frame
-    from stellar_core_tpu_torch.tx.signature_checker import default_verify
+    from stellar_core_tpu_torch.tx.signature_checker import (
+        PrevalidatedVerifier, collect_signature_tuples, default_verify)
     from stellar_core_tpu_torch.xdr.ledger_entries import LedgerEntryType
     from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
 
@@ -1170,16 +1217,37 @@ def txset_run(wl, batch_verifier=None):
                     for t in applicable.txs}
     _, valid_set, _ = make_tx_set_from_transactions(kept, root.get_header(),
                                                     nid)
-    t0 = time.perf_counter()
     order = valid_set.get_txs_in_apply_order()
+    manager = None
+    if invariants:
+        manager = InvariantManager()
+        register_default_invariants(manager)
+        manager.enable([".*"])
+    if apply_batch is not None:
+        t0 = time.perf_counter()
+        tuples = collect_signature_tuples(order, nid)
+        out["apply_tuples"] = tuples
+        out["apply_verdicts"] = list(apply_batch.verify_tuples(tuples))
+        verify = PrevalidatedVerifier(fallback=default_verify)
+        verify.add_results(tuples, out["apply_verdicts"])
+        for (pub, sig, msg), ok in zip(tuples, out["apply_verdicts"]):
+            seed_verify_cache(pub, sig, msg, ok)
+        out["apply_batch_s"] = time.perf_counter() - t0
+        flush_verify_cache_counts()
+    t0 = time.perf_counter()
     with LedgerTxn(root) as ltx:
         ltx.load_header().ledgerSeq += 1
         for t in order:
             t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
         out["applied_ok"] = [t.apply(ltx, valid_set.base_fee_for(t),
-                                     verify=verify) for t in order]
+                                     verify=verify, invariants=manager)
+                             for t in order]
         ltx.commit()
     out["apply_s"] = time.perf_counter() - t0
+    if apply_batch is not None:
+        out["apply_cache"] = flush_verify_cache_counts()
+        out["apply_pv"] = (verify.hits, verify.misses)
+    out["root"] = root
     out["order"] = [t.full_hash() for t in order]
     out["results"] = [t.result.to_bytes() for t in order]
     out["offers"] = sum(e.data.disc == LedgerEntryType.OFFER
@@ -1549,6 +1617,483 @@ def classic_phase(card):
     return launches
 
 
+def soroban_workload(n, seed=SOROBAN_SEED):
+    """Phase 11's ledger and txset as XDR bytes, built with the port only
+    (BASELINE.json config #4, contract-heavy ledgers). A protocol-21
+    ledger with the CONFIG_SETTING entries of `create_initial_settings`
+    (its default limits: this path enforces no per-ledger limit), a
+    deployer, n relayers and n holders of 1,000 XLM each. The deployer's
+    three setup transactions are applied to it, each required to
+    succeed: the native-asset SAC created by a CREATE_CONTRACT
+    transaction (the load generator's `setup_sac`), then an SCVM
+    contract uploaded and created whose `auth_bump(addr)` calls
+    require_auth(addr) and emits an event (tests/test_soroban.py).
+    Then n transactions, one InvokeHostFunction each, the load
+    generator's `generate_sac_transfers` with address credentials; a
+    chosen mix (not measured traffic), SOROBAN_MIX marking max(1,
+    round(share * n)) of each kind by a seeded permutation:
+    - sac_addr (the rest): relayer i submits native-SAC transfer(holder
+      i, holder i + 1, 100 stroops); holder i authorizes it with an
+      address-credential entry (a fresh nonce, signatureExpirationLedger
+      ledgerSeq + 100, a {public_key, signature} map over
+      `soroban_auth_payload`): one auth tuple;
+    - sac_source: holder i submits the transfer with source-account
+      credentials, the load generator's form: no auth tuple;
+    - scvm: relayer i submits auth_bump(holder i) with holder i's
+      address credentials: one auth tuple;
+    - bad_auth: a sac_addr with one bit of the auth signature flipped;
+    - expired: a sac_addr whose signatureExpirationLedger is below the
+      ledger it applies in; its signature is valid;
+    - flipped: a sac_source with one bit of its envelope signature
+      flipped (txBAD_AUTH)."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.ledger.ledger_txn import (
+        InMemoryLedgerTxnRoot, LedgerTxn)
+    from stellar_core_tpu_torch.soroban import scvm
+    from stellar_core_tpu_torch.soroban.host import (
+        contract_id_from_preimage, instance_key, soroban_auth_payload)
+    from stellar_core_tpu_torch.soroban.network_config import \
+        create_initial_settings
+    from stellar_core_tpu_torch.soroban.sac import _addr_scval, sc_i128
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.tx_utils import (
+        make_account_ledger_entry, starting_sequence_number)
+    from stellar_core_tpu_torch.xdr import contract as cx
+    from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
+    from stellar_core_tpu_torch.xdr.ledger_entries import (Asset, AssetType,
+                                                           LedgerKey)
+    from stellar_core_tpu_torch.xdr.transaction import (
+        DecoratedSignature, Memo, MemoType, MuxedAccount, Operation,
+        OperationType, Preconditions, PreconditionType, Transaction,
+        TransactionEnvelope, TransactionV1Envelope, _OperationBody, _TxExt)
+    from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
+
+    rng = np.random.default_rng(seed)
+    kinds = ["sac_addr"] * n
+    order = rng.permutation(n)
+    at = 0
+    for kind, share in SOROBAN_MIX:
+        k = max(1, round(share * n))
+        for i in order[at:at + k]:
+            kinds[i] = kind
+        at += k
+    if at > n:
+        raise ValueError(f"soroban_workload: {n} transactions hold no mix")
+    network_id = sha256(b"chip smoke soroban network")
+    header = LedgerHeader(
+        ledgerVersion=21, ledgerSeq=2, baseFee=100, baseReserve=5_000_000,
+        totalCoins=10 ** 18, maxTxSetSize=2 * n,
+        scpValue=StellarValue(closeTime=1_700_000_000))
+    seq0 = starting_sequence_number(1)
+
+    def key():
+        return SecretKey.from_seed(rng.bytes(32))
+
+    def account_id(sk):
+        return PublicKey.ed25519(sk.public_key().raw)
+
+    def sc_account(sk):
+        return cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_ACCOUNT,
+                            account_id(sk))
+
+    def envelope(source, seq, body, ro, rw, flip=False):
+        sd = cx.SorobanTransactionData(
+            resources=cx.SorobanResources(
+                footprint=cx.LedgerFootprint(readOnly=ro, readWrite=rw),
+                instructions=4_000_000, readBytes=50_000, writeBytes=50_000),
+            resourceFee=SOROBAN_RESOURCE_FEE)
+        tx = Transaction(
+            sourceAccount=MuxedAccount.from_ed25519(source.public_key().raw),
+            fee=100 + SOROBAN_RESOURCE_FEE, seqNum=seq,
+            cond=Preconditions(PreconditionType.PRECOND_NONE),
+            memo=Memo(MemoType.MEMO_NONE),
+            operations=[Operation(sourceAccount=None, body=_OperationBody(
+                OperationType.INVOKE_HOST_FUNCTION, body))],
+            ext=_TxExt(1, sd))
+        v1 = TransactionV1Envelope(tx=tx, signatures=[])
+        env = TransactionEnvelope(EnvelopeType.ENVELOPE_TYPE_TX, v1)
+        sig = bytearray(source.sign(make_frame(env, network_id)
+                                    .contents_hash()))
+        if flip:
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        v1.signatures.append(DecoratedSignature(
+            hint=source.public_key().hint(), signature=bytes(sig)))
+        return env
+
+    def invoke(contract, fn, args, auth):
+        return cx.InvokeHostFunctionOp(hostFunction=cx.HostFunction(
+            cx.HostFunctionType.HOST_FUNCTION_TYPE_INVOKE_CONTRACT,
+            cx.InvokeContractArgs(contractAddress=contract,
+                                  functionName=fn, args=list(args))),
+            auth=auth)
+
+    def invocation(contract, fn, args):
+        return cx.SorobanAuthorizedInvocation(
+            function=cx.SorobanAuthorizedFunction(
+                cx.SorobanAuthorizedFunctionType
+                .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CONTRACT_FN,
+                cx.InvokeContractArgs(contractAddress=contract,
+                                      functionName=fn, args=list(args))),
+            subInvocations=[])
+
+    def source_auth(root_inv):
+        return cx.SorobanAuthorizationEntry(
+            credentials=cx.SorobanCredentials(
+                cx.SorobanCredentialsType.SOROBAN_CREDENTIALS_SOURCE_ACCOUNT),
+            rootInvocation=root_inv)
+
+    def address_auth(sk, root_inv, expiration, flip=False):
+        nonce = int(rng.integers(0, 2 ** 62))
+        sig = bytearray(sk.sign(soroban_auth_payload(
+            network_id, nonce, expiration, root_inv)))
+        if flip:
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        sig_map = cx.SCVal(cx.SCValType.SCV_MAP, [
+            cx.SCMapEntry(key=cx.SCVal(cx.SCValType.SCV_SYMBOL,
+                                       b"public_key"),
+                          val=cx.SCVal(cx.SCValType.SCV_BYTES,
+                                       sk.public_key().raw)),
+            cx.SCMapEntry(key=cx.SCVal(cx.SCValType.SCV_SYMBOL,
+                                       b"signature"),
+                          val=cx.SCVal(cx.SCValType.SCV_BYTES, bytes(sig)))])
+        return cx.SorobanAuthorizationEntry(
+            credentials=cx.SorobanCredentials(
+                cx.SorobanCredentialsType.SOROBAN_CREDENTIALS_ADDRESS,
+                cx.SorobanAddressCredentials(
+                    address=sc_account(sk), nonce=nonce,
+                    signatureExpirationLedger=expiration,
+                    signature=cx.SCVal(cx.SCValType.SCV_VEC, [sig_map]))),
+            rootInvocation=root_inv)
+
+    deployer = key()
+    relayers = [key() for _ in range(n)]
+    holders = [key() for _ in range(n)]
+    root = InMemoryLedgerTxnRoot(header)
+    with LedgerTxn(root) as ltx:
+        create_initial_settings(ltx)
+        for sk in [deployer] + relayers + holders:
+            le = make_account_ledger_entry(account_id(sk), 1000 * XLM, seq0)
+            le.lastModifiedLedgerSeq = 1
+            ltx.create(le)
+        ltx.commit()
+
+    # setup: the native SAC, then the SCVM contract's upload and create
+    preimage = cx.ContractIDPreimage(
+        cx.ContractIDPreimageType.CONTRACT_ID_PREIMAGE_FROM_ASSET,
+        Asset(AssetType.ASSET_TYPE_NATIVE))
+    sac = cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_CONTRACT,
+                       contract_id_from_preimage(network_id, preimage))
+    code = scvm.make_code({"auth_bump": scvm.op(
+        scvm.sym("seq"),
+        scvm.op(scvm.sym("require_auth"), scvm.op(scvm.sym("arg"),
+                                                  scvm.u64(0))),
+        scvm.op(scvm.sym("event"),
+                scvm.op(scvm.sym("lit"), scvm.sym("bumped")),
+                scvm.u64(1)))})
+    code_key = LedgerKey.contract_code(sha256(code))
+    wasm = cx.ContractExecutable(
+        cx.ContractExecutableType.CONTRACT_EXECUTABLE_WASM, sha256(code))
+    from_deployer = cx.ContractIDPreimage(
+        cx.ContractIDPreimageType.CONTRACT_ID_PREIMAGE_FROM_ADDRESS,
+        cx._ContractIDPreimageFromAddress(address=sc_account(deployer),
+                                          salt=b"\x01" * 32))
+    bump = cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_CONTRACT,
+                        contract_id_from_preimage(network_id, from_deployer))
+    create_bump = cx.CreateContractArgs(contractIDPreimage=from_deployer,
+                                        executable=wasm)
+
+    def host_fn(kind, value):
+        return cx.InvokeHostFunctionOp(
+            hostFunction=cx.HostFunction(kind, value), auth=[])
+
+    HF = cx.HostFunctionType
+    setup = [
+        (host_fn(HF.HOST_FUNCTION_TYPE_CREATE_CONTRACT, cx.CreateContractArgs(
+            contractIDPreimage=preimage, executable=cx.ContractExecutable(
+                cx.ContractExecutableType.CONTRACT_EXECUTABLE_STELLAR_ASSET))),
+         [], [instance_key(sac)]),
+        (host_fn(HF.HOST_FUNCTION_TYPE_UPLOAD_CONTRACT_WASM, code), [],
+         [code_key]),
+        (host_fn(HF.HOST_FUNCTION_TYPE_CREATE_CONTRACT, create_bump),
+         [code_key], [instance_key(bump)])]
+    setup[2][0].auth = [source_auth(cx.SorobanAuthorizedInvocation(
+        function=cx.SorobanAuthorizedFunction(
+            cx.SorobanAuthorizedFunctionType
+            .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CREATE_CONTRACT_HOST_FN,
+            create_bump), subInvocations=[]))]
+    for j, (body, ro, rw) in enumerate(setup):
+        frame = make_frame(envelope(deployer, seq0 + 1 + j, body, ro, rw),
+                           network_id)
+        with LedgerTxn(root) as ltx:
+            frame.process_fee_seq_num(ltx, 100)
+            ok = frame.apply(ltx, 100)
+            ltx.commit()
+        if not ok:
+            raise SystemExit(f"soroban setup transaction {j} failed: "
+                             f"{frame.result.result.disc!r}")
+
+    envelopes = []
+    expire_ok, expire_past = header.ledgerSeq + 100, header.ledgerSeq - 1
+    for i, kind in enumerate(kinds):
+        holder, nxt = holders[i], holders[(i + 1) % n]
+        if kind == "scvm":
+            args = [_addr_scval(sc_account(holder))]
+            auth = address_auth(holder, invocation(bump, b"auth_bump", args),
+                                expire_ok)
+            env = envelope(relayers[i], seq0 + 1,
+                           invoke(bump, b"auth_bump", args, [auth]),
+                           [code_key, instance_key(bump)], [])
+        else:
+            args = [_addr_scval(sc_account(holder)),
+                    _addr_scval(sc_account(nxt)), sc_i128(100)]
+            root_inv = invocation(sac, b"transfer", args)
+            rw = [LedgerKey.account(account_id(holder)),
+                  LedgerKey.account(account_id(nxt))]
+            if kind in ("sac_source", "flipped"):
+                env = envelope(holder, seq0 + 1,
+                               invoke(sac, b"transfer", args,
+                                      [source_auth(root_inv)]),
+                               [instance_key(sac)], rw,
+                               flip=kind == "flipped")
+            else:
+                auth = address_auth(
+                    holder, root_inv,
+                    expire_past if kind == "expired" else expire_ok,
+                    flip=kind == "bad_auth")
+                env = envelope(relayers[i], seq0 + 1,
+                               invoke(sac, b"transfer", args, [auth]),
+                               [instance_key(sac)], rw)
+        envelopes.append(env.to_bytes())
+    return {"header": root.get_header().to_bytes(),
+            "entries": [e.to_bytes() for e in root._entries.values()],
+            "envelopes": envelopes, "network_id": network_id,
+            "kinds": kinds,
+            "holders": [account_id(sk).to_bytes() for sk in holders]}
+
+
+class NativeBatchVerifier:
+    """verify_tuples on the host: the native library, one signature at a
+    time, no cache."""
+
+    def verify_tuples(self, items):
+        from stellar_core_tpu_torch.crypto.keys import verify_sig_uncached
+        return [verify_sig_uncached(p, s, m) for p, s, m in items]
+
+
+def soroban_outcomes(run, wl):
+    """A run's apply by kind: {(kind, result): count}, the result being
+    the InvokeHostFunction result code of the one operation, or the
+    transaction's code where there is none; and the applied transactions
+    that charged no fee or left their source's sequence number below
+    their own."""
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
+    from stellar_core_tpu_torch.xdr.results import (OperationResultCode,
+                                                    TransactionResult)
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+    frames = {}
+    for env, kind in zip(wl["envelopes"], wl["kinds"]):
+        f = make_frame(TransactionEnvelope.from_bytes(env), wl["network_id"])
+        frames[f.full_hash()] = (f, kind)
+    out, unpaid = collections.Counter(), collections.Counter()
+    root = run["root"]
+    for h, raw in zip(run["order"], run["results"]):
+        frame, kind = frames[h]
+        res = TransactionResult.from_bytes(raw)
+        ops = res.result.value if isinstance(res.result.value, list) else []
+        if ops and ops[0].disc == OperationResultCode.opINNER:
+            code = ops[0].value.value.disc.name
+        else:
+            code = res.result.disc.name
+        out[(kind, code)] += 1
+        src = root._lookup(LedgerKey.account(frame.source_id).to_bytes())
+        if res.feeCharged <= 0 or src.data.value.seqNum < frame.seq_num:
+            unpaid[kind] += 1
+    return out, unpaid
+
+
+def nonce_entries(root):
+    """The nonce entries (CONTRACT_DATA keyed by a nonce) in `root`, and
+    how many of them have a TTL entry."""
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.xdr.contract import SCValType
+    from stellar_core_tpu_torch.xdr.ledger_entries import (LedgerEntryType,
+                                                           LedgerKey)
+    nonces = [kb for kb, e in root._entries.items()
+              if e.data.disc == LedgerEntryType.CONTRACT_DATA
+              and e.data.value.key.disc == SCValType.SCV_LEDGER_KEY_NONCE]
+    ttls = sum(LedgerKey.ttl(sha256(kb)).to_bytes() in root._entries
+               for kb in nonces)
+    return len(nonces), ttls
+
+
+def soroban_phase(card, n=SOROBAN_N):
+    """Phase 11: contract auth-entry signatures batched on the card
+    (BASELINE.json config #4) at n transactions of soroban_workload,
+    with every default invariant enabled. Run A:
+    validation and trim through `_LazyBatchPrevalidator(
+    BackendSupervisor(CudaBatchVerifier()))`, then catchup's apply-time
+    batch over the kept transactions (envelope and auth-entry tuples,
+    one dispatch) written through to the verify cache, then the apply.
+    Run B: the same steps with the native library as the batch
+    verifier. The launch counters are set to 0 just before run A and
+    read just after. Returns the launches of run A by kernel."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.signature_checker import \
+        collect_signature_tuples
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
+    from stellar_core_tpu_torch.xdr.results import TransactionResultCode
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+    from stellar_core_tpu_torch.xdr.types import PublicKey
+
+    t0 = time.perf_counter()
+    wl = soroban_workload(n)
+    build_s = time.perf_counter() - t0
+    nid = wl["network_id"]
+    frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
+              for b in wl["envelopes"]]
+    kind_of = {f.full_hash(): k for f, k in zip(frames, wl["kinds"])}
+    paired = collect_signature_tuples(frames)
+    uniq = sorted(set(collect_signature_tuples(frames, nid)))
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    try:
+        oracle = pool.starmap_async(ref.verify, uniq, chunksize=64)
+        sup = BackendSupervisor(CudaBatchVerifier())
+        rec = RecordingVerifier(sup)
+        zero_launches()
+        t0 = time.perf_counter()
+        a = txset_run(wl, rec, apply_batch=rec, invariants=True)
+        a_s = time.perf_counter() - t0
+        launches = launch_counts()
+        zero_launches()
+        native = RecordingVerifier(NativeBatchVerifier())
+        t0 = time.perf_counter()
+        b = txset_run(wl, native, apply_batch=native, invariants=True)
+        b_s = time.perf_counter() - t0
+        b_launches = launch_counts()
+        want = dict(zip(uniq, oracle.get(timeout=900)))
+    finally:
+        pool.terminate()
+        pool.join()
+    st = sup.status()
+    sup.shutdown()
+
+    def balances(run):
+        return [run["root"]._lookup(LedgerKey.account(
+            PublicKey.from_bytes(h)).to_bytes()).data.value.balance
+            for h in wl["holders"]]
+
+    problems = []
+    for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
+                "order", "results", "applied_ok", "apply_verdicts",
+                "apply_cache", "ledger_hash"):
+        if a[key] != b[key]:
+            problems.append(f"run A and run B differ in {key}")
+    if balances(a) != balances(b):
+        problems.append("run A and run B differ in the holders' XLM")
+    kept = [f for f in frames if f.full_hash() in set(a["kept"])]
+    by_kind = collections.defaultdict(list)
+    for f in frames:
+        by_kind[kind_of[f.full_hash()]].append(f)
+    bad_envelope = collect_signature_tuples(by_kind["flipped"])
+    bad_auth = [t for f in by_kind["bad_auth"]
+                for t in collect_signature_tuples([f], nid)
+                if t not in collect_signature_tuples([f])]
+    expect = (("validation", paired, bad_envelope),
+              ("apply", collect_signature_tuples(kept, nid), bad_auth))
+    if len(rec.calls) != 2:
+        problems.append(f"{len(rec.calls)} verify_tuples calls, not 2")
+    else:
+        for (tag, pairs, false), (items, got, _) in zip(expect, rec.calls):
+            if sorted(items) != sorted(pairs):
+                problems.append(f"the {tag} batch holds {len(items)} tuples, "
+                                f"not the {len(pairs)} collect_signature_"
+                                "tuples pairs")
+            off = sum(g != want[t] for g, t in zip(got, items))
+            if off:
+                problems.append(f"{off} {tag} verdicts differ from the "
+                                "oracle")
+            if sorted(t for t, g in zip(items, got) if not g) != \
+                    sorted(false):
+                problems.append(f"the {tag} batch's false verdicts are not "
+                                f"exactly its {len(false)} bad signatures")
+    if launches != {"msg32": 2, "k": 0, "ladder": 2}:
+        problems.append(f"run A launched {launches}, not prep msg32 2 + "
+                        "ladder 2")
+    if any(b_launches.values()):
+        problems.append(f"run B launched {b_launches}")
+    if a["again_calls"]:
+        problems.append(f"the second validation made {a['again_calls']} "
+                        "verify_tuples calls")
+    counts = collections.Counter(kind_of[f.full_hash()] for f in kept)
+    verified = counts["sac_addr"] + counts["scvm"] + counts["bad_auth"]
+    if a["apply_cache"] != (verified, 0) or a["apply_pv"][1]:
+        problems.append(f"the apply's verify cache (hits, misses) was "
+                        f"{a['apply_cache']}, not ({verified}, 0), and its "
+                        f"table missed {a['apply_pv'][1]} times")
+    problems += dropped_problems(a, kind_of, {
+        "flipped": TransactionResultCode.txBAD_AUTH})
+    outcomes, unpaid = soroban_outcomes(a, wl)
+    code_of = {"sac_addr": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "sac_source": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "scvm": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "bad_auth": "INVOKE_HOST_FUNCTION_TRAPPED",
+               "expired": "INVOKE_HOST_FUNCTION_TRAPPED"}
+    wrong = {k: c for k, c in outcomes.items() if code_of.get(k[0]) != k[1]}
+    if wrong:
+        problems.append(f"results off their kind: {wrong}")
+    if unpaid:
+        problems.append(f"transactions that charged no fee or kept their "
+                        f"sequence number: {dict(unpaid)}")
+    nonces = nonce_entries(a["root"])
+    if nonces != (counts["sac_addr"] + counts["scvm"],) * 2:
+        problems.append(f"{nonces[0]} nonce entries ({nonces[1]} with a "
+                        f"TTL) for {counts['sac_addr'] + counts['scvm']} "
+                        "verified address entries")
+    if st["state"] != CLOSED or any(st["failures"].values()) or \
+            st["skips"] or st["transitions"]:
+        problems.append(f"supervisor: {st['state']}, failures "
+                        f"{st['failures']}, skips {st['skips']}, "
+                        f"transitions {st['transitions']}")
+    if problems:
+        raise SystemExit("soroban: " + "; ".join(problems))
+    walls = [c[2] for c in rec.calls]
+    kinds = collections.Counter(wl["kinds"])
+    print(f"soroban: {n} InvokeHostFunction transactions "
+          f"({len(a['kept'])} valid) over {len(wl['entries'])} entries, "
+          f"chosen mix {dict(kinds)}; built in {build_s:.3f} s; dispatches "
+          f"{len(rec.calls[0][0])} signatures (validation) "
+          f"{walls[0] * 1e3:.2f} ms and {len(rec.calls[1][0])} (apply, "
+          f"{len(rec.calls[1][0]) - len(kept)} auth entries) "
+          f"{walls[1] * 1e3:.2f} ms, prep msg32 2 + ladder 2 [{card}]",
+          flush=True)
+    print(f"soroban: walls A (card) / B (host): validation "
+          f"{a['validate_s'] * 1e3:.1f} / {b['validate_s'] * 1e3:.1f} ms, "
+          f"trim {a['trim_s'] * 1e3:.1f} / {b['trim_s'] * 1e3:.1f} ms, "
+          f"apply-time batch with its collect and write-through "
+          f"{a['apply_batch_s'] * 1e3:.1f} / {b['apply_batch_s'] * 1e3:.1f} "
+          f"ms, apply {a['apply_s'] * 1e3:.1f} / {b['apply_s'] * 1e3:.1f} "
+          f"ms, run {a_s:.3f} / {b_s:.3f} s; the card's dispatches are "
+          f"{sum(walls) / a_s:.5f} of run A [{card}]", flush=True)
+    print("soroban: results by kind "
+          + ", ".join(f"{k} {c} {n}" for (k, c), n in sorted(outcomes.items()))
+          + f"; dropped {len(a['dropped'])} (flipped); verify cache during "
+          f"the apply: {a['apply_cache'][0]} hits, {a['apply_cache'][1]} "
+          f"misses (0 native verifies by the host); {nonces[0]} nonce "
+          f"entries with {nonces[1]} TTLs; invariants on; runs A and B "
+          f"equal on verdicts, trim, results, the holders' XLM and ledger "
+          f"hash {a['ledger_hash'].hex()[:16]}; both batches equal the "
+          f"oracle; supervisor CLOSED, 0 failures, 0 skips [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1888,10 +2433,13 @@ def main():
     # --- 10. the classic operation families on the card's txset path ---
     classic = classic_phase(card)
 
+    # --- 11. contract auth-entry signatures batched on the card ---------
+    soroban = soroban_phase(card)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
-    # (the sharded and hybrid verifiers), run A of phase 9 (txset) and run
-    # A of phase 10 (classic)
+    # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
+    # of phase 10 (classic) and run A of phase 11 (soroban)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -1899,7 +2447,8 @@ def main():
             "verifier": verifier[kind], "live": live[kind],
             "sharded": mesh["sharded"].get(kind, 0),
             "hybrid": mesh["hybrid"].get(kind, 0),
-            "txset": txset[kind], "classic": classic[kind]}
+            "txset": txset[kind], "classic": classic[kind],
+            "soroban": soroban[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):

@@ -1,0 +1,235 @@
+"""Soroban network configuration.
+
+Reference: src/ledger/NetworkConfig.{h,cpp} — the live limits/fees read
+from CONFIG_SETTING ledger entries, created at protocol-20 upgrade with
+initial values (NetworkConfig.cpp initialSettings) and changed through
+CONFIG upgrades. Accessors mirror SorobanNetworkConfig.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..util.logging import get_logger
+from ..xdr.contract import (ConfigSettingContractBandwidthV0,
+                            ConfigSettingContractComputeV0,
+                            ConfigSettingContractEventsV0,
+                            ConfigSettingContractExecutionLanesV0,
+                            ConfigSettingContractHistoricalDataV0,
+                            ConfigSettingContractLedgerCostV0,
+                            ConfigSettingEntry, ConfigSettingID,
+                            StateArchivalSettings)
+from ..xdr.ledger_entries import LedgerEntry, LedgerEntryType, LedgerKey, \
+    _LedgerEntryData, _LedgerEntryExt
+
+log = get_logger("Ledger")
+
+# reference: NetworkConfig.cpp Initial* constants (testnet-scale defaults)
+INITIAL_MAX_CONTRACT_SIZE = 64 * 1024
+INITIAL_TX_MAX_INSTRUCTIONS = 100_000_000
+INITIAL_LEDGER_MAX_INSTRUCTIONS = 500_000_000
+INITIAL_FEE_RATE_PER_INSN_INCREMENT = 25
+INITIAL_TX_MEMORY_LIMIT = 40 * 1024 * 1024
+INITIAL_TX_MAX_READ_ENTRIES = 40
+INITIAL_TX_MAX_READ_BYTES = 200 * 1024
+INITIAL_TX_MAX_WRITE_ENTRIES = 20
+INITIAL_TX_MAX_WRITE_BYTES = 100 * 1024
+INITIAL_MAX_CONTRACT_DATA_KEY_SIZE = 300
+INITIAL_MAX_CONTRACT_DATA_ENTRY_SIZE = 64 * 1024
+MIN_PERSISTENT_TTL = 4096
+MIN_TEMPORARY_TTL = 16
+MAX_ENTRY_TTL = 3_110_400  # ~6 months of 5s ledgers
+
+
+def _entry(setting: ConfigSettingEntry) -> LedgerEntry:
+    return LedgerEntry(
+        lastModifiedLedgerSeq=0,
+        data=_LedgerEntryData(LedgerEntryType.CONFIG_SETTING, setting),
+        ext=_LedgerEntryExt(0))
+
+
+def initial_settings() -> List[ConfigSettingEntry]:
+    return [
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_MAX_SIZE_BYTES,
+            INITIAL_MAX_CONTRACT_SIZE),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_COMPUTE_V0,
+            ConfigSettingContractComputeV0(
+                ledgerMaxInstructions=INITIAL_LEDGER_MAX_INSTRUCTIONS,
+                txMaxInstructions=INITIAL_TX_MAX_INSTRUCTIONS,
+                feeRatePerInstructionsIncrement=
+                INITIAL_FEE_RATE_PER_INSN_INCREMENT,
+                txMemoryLimit=INITIAL_TX_MEMORY_LIMIT)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_LEDGER_COST_V0,
+            ConfigSettingContractLedgerCostV0(
+                ledgerMaxReadLedgerEntries=200,
+                ledgerMaxReadBytes=1024 * 1024,
+                ledgerMaxWriteLedgerEntries=100,
+                ledgerMaxWriteBytes=512 * 1024,
+                txMaxReadLedgerEntries=INITIAL_TX_MAX_READ_ENTRIES,
+                txMaxReadBytes=INITIAL_TX_MAX_READ_BYTES,
+                txMaxWriteLedgerEntries=INITIAL_TX_MAX_WRITE_ENTRIES,
+                txMaxWriteBytes=INITIAL_TX_MAX_WRITE_BYTES,
+                feeReadLedgerEntry=6250,
+                feeWriteLedgerEntry=10000,
+                feeRead1KB=1786,
+                bucketListTargetSizeBytes=14 * 1024**3,
+                writeFee1KBBucketListLow=1000,
+                writeFee1KBBucketListHigh=4_000_000,
+                bucketListWriteFeeGrowthFactor=1000)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_HISTORICAL_DATA_V0,
+            ConfigSettingContractHistoricalDataV0(feeHistorical1KB=16235)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_EVENTS_V0,
+            ConfigSettingContractEventsV0(
+                txMaxContractEventsSizeBytes=8198,
+                feeContractEvents1KB=10000)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_BANDWIDTH_V0,
+            ConfigSettingContractBandwidthV0(
+                ledgerMaxTxsSizeBytes=130 * 1024,
+                txMaxSizeBytes=70 * 1024,
+                feeTxSize1KB=1624)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_DATA_KEY_SIZE_BYTES,
+            INITIAL_MAX_CONTRACT_DATA_KEY_SIZE),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_DATA_ENTRY_SIZE_BYTES,
+            INITIAL_MAX_CONTRACT_DATA_ENTRY_SIZE),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_STATE_ARCHIVAL,
+            StateArchivalSettings(
+                maxEntryTTL=MAX_ENTRY_TTL,
+                minTemporaryTTL=MIN_TEMPORARY_TTL,
+                minPersistentTTL=MIN_PERSISTENT_TTL,
+                persistentRentRateDenominator=1402,
+                tempRentRateDenominator=2804,
+                maxEntriesToArchive=1000,
+                bucketListSizeWindowSampleSize=30,
+                bucketListWindowSamplePeriod=64,
+                evictionScanSize=100_000,
+                startingEvictionScanLevel=7)),
+        ConfigSettingEntry(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_EXECUTION_LANES,
+            ConfigSettingContractExecutionLanesV0(ledgerMaxTxCount=100)),
+    ]
+
+
+def create_initial_settings(ltx, archival_overrides=None,
+                            high_limits: bool = False) -> None:
+    """Write the protocol-20 initial config entries (reference:
+    createLedgerEntriesForV20). `archival_overrides` is the
+    OVERRIDE_EVICTION_PARAMS_FOR_TESTING field dict applied to the
+    StateArchivalSettings entry (reference: the TESTING_EVICTION_* /
+    TESTING_MINIMUM_PERSISTENT_ENTRY_LIFETIME Config fields);
+    `high_limits` scales the throughput-limiting settings for loadgen
+    (reference: TESTING_SOROBAN_HIGH_LIMIT_OVERRIDE)."""
+    for setting in initial_settings():
+        if archival_overrides and setting.disc == \
+                ConfigSettingID.CONFIG_SETTING_STATE_ARCHIVAL:
+            for field, value in archival_overrides.items():
+                setattr(setting.value, field, value)
+        if high_limits:
+            if setting.disc == \
+                    ConfigSettingID.CONFIG_SETTING_CONTRACT_COMPUTE_V0:
+                setting.value.ledgerMaxInstructions *= 1000
+                setting.value.txMaxInstructions *= 100
+            elif setting.disc == \
+                    ConfigSettingID.CONFIG_SETTING_CONTRACT_LEDGER_COST_V0:
+                v = setting.value
+                v.ledgerMaxReadLedgerEntries *= 1000
+                v.ledgerMaxReadBytes *= 1000
+                v.ledgerMaxWriteLedgerEntries *= 1000
+                v.ledgerMaxWriteBytes *= 1000
+            elif setting.disc == ConfigSettingID.\
+                    CONFIG_SETTING_CONTRACT_EXECUTION_LANES:
+                setting.value.ledgerMaxTxCount *= 1000
+        key = LedgerKey.config_setting(setting.disc)
+        if ltx.load_without_record(key) is None:
+            ltx.create(_entry(setting))
+
+
+class SorobanNetworkConfig:
+    """Cached accessor over the CONFIG_SETTING entries (reference:
+    SorobanNetworkConfig::loadFromLedger)."""
+
+    def __init__(self, ltx):
+        self._settings = {}
+        for sid in ConfigSettingID:
+            le = ltx.load_without_record(LedgerKey.config_setting(sid))
+            if le is not None:
+                self._settings[sid] = le.data.value
+
+    def _get(self, sid: ConfigSettingID):
+        s = self._settings.get(sid)
+        return s.value if s is not None else None
+
+    # ------------------------------------------------------------- compute --
+    @property
+    def tx_max_instructions(self) -> int:
+        c = self._get(ConfigSettingID.CONFIG_SETTING_CONTRACT_COMPUTE_V0)
+        return c.txMaxInstructions if c else INITIAL_TX_MAX_INSTRUCTIONS
+
+    @property
+    def fee_rate_per_instructions_increment(self) -> int:
+        c = self._get(ConfigSettingID.CONFIG_SETTING_CONTRACT_COMPUTE_V0)
+        return c.feeRatePerInstructionsIncrement if c \
+            else INITIAL_FEE_RATE_PER_INSN_INCREMENT
+
+    # --------------------------------------------------------------- costs --
+    @property
+    def ledger_cost(self):
+        return self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_LEDGER_COST_V0)
+
+    @property
+    def bandwidth(self):
+        return self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_BANDWIDTH_V0)
+
+    @property
+    def events_cfg(self):
+        return self._get(ConfigSettingID.CONFIG_SETTING_CONTRACT_EVENTS_V0)
+
+    @property
+    def historical(self):
+        return self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_HISTORICAL_DATA_V0)
+
+    @property
+    def state_archival(self) -> StateArchivalSettings:
+        s = self._get(ConfigSettingID.CONFIG_SETTING_STATE_ARCHIVAL)
+        if s is None:
+            s = StateArchivalSettings(
+                maxEntryTTL=MAX_ENTRY_TTL,
+                minTemporaryTTL=MIN_TEMPORARY_TTL,
+                minPersistentTTL=MIN_PERSISTENT_TTL,
+                persistentRentRateDenominator=1402,
+                tempRentRateDenominator=2804,
+                maxEntriesToArchive=1000,
+                bucketListSizeWindowSampleSize=30,
+                bucketListWindowSamplePeriod=64,
+                evictionScanSize=100_000,
+                startingEvictionScanLevel=7)
+        return s
+
+    @property
+    def max_contract_size(self) -> int:
+        v = self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_MAX_SIZE_BYTES)
+        return v if v is not None else INITIAL_MAX_CONTRACT_SIZE
+
+    @property
+    def max_data_key_size(self) -> int:
+        v = self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_DATA_KEY_SIZE_BYTES)
+        return v if v is not None else INITIAL_MAX_CONTRACT_DATA_KEY_SIZE
+
+    @property
+    def max_data_entry_size(self) -> int:
+        v = self._get(
+            ConfigSettingID.CONFIG_SETTING_CONTRACT_DATA_ENTRY_SIZE_BYTES)
+        return v if v is not None else INITIAL_MAX_CONTRACT_DATA_ENTRY_SIZE

@@ -1,0 +1,309 @@
+"""Soroban operation frames.
+
+Reference: transactions/InvokeHostFunctionOpFrame.cpp (:364 doApply),
+ExtendFootprintTTLOpFrame.cpp, RestoreFootprintOpFrame.cpp. The invoke
+frame builds the host (footprint-gated storage + budget from declared
+resources), runs the host function, enforces declared read/write byte
+limits, computes the refundable fee usage (events + rent) and refunds
+the unused remainder from the fee pool to the fee source.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..util.logging import get_logger
+from ..xdr.contract import (ExtendFootprintTTLResultCode,
+                            InvokeHostFunctionResultCode,
+                            RestoreFootprintResultCode, TTLEntry)
+from ..xdr.ledger_entries import LedgerEntryType, LedgerKey
+from ..xdr.transaction import OperationType
+from ..xdr.results import OperationResultCode
+from ..crypto.sha import sha256
+from ..tx.operation_frame import OperationFrame, register_op
+from ..tx.tx_utils import add_balance_account
+from .fees import compute_rent_fee
+from .host import (Budget, BudgetExceeded, HostError, SorobanHost,
+                   ttl_key_for)
+from .network_config import SorobanNetworkConfig
+
+log = get_logger("Tx")
+
+
+def _load_config(ltx) -> SorobanNetworkConfig:
+    return SorobanNetworkConfig(ltx)
+
+
+class SorobanOpFrame(OperationFrame):
+    """Shared plumbing: sorobanData access + refund accounting. The
+    enclosing TransactionFrame guarantees single-op + data presence."""
+
+    tx_frame = None  # set by TransactionFrame apply glue
+
+    def soroban_data(self, ctx):
+        return ctx.soroban_data if ctx is not None else None
+
+    def _refund(self, ltx, header, unused: int, ctx) -> None:
+        """Return unused refundable fee from the fee pool (reference:
+        refundSorobanFee in TransactionFrame post-apply)."""
+        if unused <= 0:
+            return
+        fee_source = ctx.fee_source_id if ctx is not None else \
+            self.source_id
+        src = ltx.load(LedgerKey.account(fee_source))
+        if src is None:
+            return
+        header.feePool -= unused
+        add_balance_account(header, src.data.value, unused)
+
+
+@register_op(OperationType.INVOKE_HOST_FUNCTION)
+class InvokeHostFunctionOpFrame(SorobanOpFrame):
+
+    def do_check_valid(self, header, ledger_version: int) -> bool:
+        if ledger_version < 20:
+            self.set_outer_result(OperationResultCode.opNOT_SUPPORTED)
+            return False
+        return True
+
+    def do_apply(self, ltx, header, ctx) -> bool:
+        sd = self.soroban_data(ctx)
+        if sd is None:
+            self.set_inner_result(
+                InvokeHostFunctionResultCode.INVOKE_HOST_FUNCTION_MALFORMED)
+            return False
+        config = _load_config(ltx)
+        budget = Budget(min(sd.resources.instructions,
+                            config.tx_max_instructions))
+        network_id = ctx.network_id if ctx is not None else b"\x00" * 32
+        from .host import host_for_protocol
+        host_cls = host_for_protocol(header.ledgerVersion)
+        host = host_cls(ltx, header, config, sd.resources.footprint,
+                        budget, network_id, self.source_id,
+                        verify=getattr(ctx, "verify", None))
+        try:
+            result_val = host.invoke_host_function(
+                self.body.hostFunction, list(self.body.auth))
+        except BudgetExceeded:
+            self.set_inner_result(
+                InvokeHostFunctionResultCode
+                .INVOKE_HOST_FUNCTION_RESOURCE_LIMIT_EXCEEDED)
+            self._capture_diagnostics(ltx, ctx, host, success=False)
+            return False
+        except HostError as e:
+            from ..xdr.contract import SCErrorType
+            if e.error_type == SCErrorType.SCE_STORAGE and \
+                    "archived" in str(e):
+                code = InvokeHostFunctionResultCode.\
+                    INVOKE_HOST_FUNCTION_ENTRY_ARCHIVED
+            else:
+                code = InvokeHostFunctionResultCode.\
+                    INVOKE_HOST_FUNCTION_TRAPPED
+            self.set_inner_result(code)
+            self._capture_diagnostics(ltx, ctx, host, success=False)
+            return False
+
+        # declared resource limits are hard caps (reference: the host
+        # enforces them via budget/limits, op fails on excess)
+        if host.read_bytes > sd.resources.readBytes or \
+                host.write_bytes > sd.resources.writeBytes:
+            self.set_inner_result(
+                InvokeHostFunctionResultCode
+                .INVOKE_HOST_FUNCTION_RESOURCE_LIMIT_EXCEEDED)
+            return False
+
+        # refundable accounting: events + rent must fit the refundable
+        # part of the declared resource fee
+        from .fees import compute_transaction_resource_fee
+        events_bytes = host.events_size_bytes()
+        non_refundable, _ = compute_transaction_resource_fee(
+            sd.resources, ctx.tx_size_bytes if ctx is not None else 0,
+            0, config)
+        rent_fee = compute_rent_fee(host.rent_changes, config, 0,
+                                    header.ledgerSeq)
+        ev_cfg = config.events_cfg
+        event_fee = 0
+        if ev_cfg is not None and events_bytes:
+            from .fees import DATA_SIZE_1KB_INCREMENT, _num_increments
+            event_fee = _num_increments(
+                events_bytes, DATA_SIZE_1KB_INCREMENT) * \
+                ev_cfg.feeContractEvents1KB
+        refundable_available = sd.resourceFee - non_refundable
+        consumed = rent_fee + event_fee
+        if consumed > max(0, refundable_available):
+            self.set_inner_result(
+                InvokeHostFunctionResultCode
+                .INVOKE_HOST_FUNCTION_INSUFFICIENT_REFUNDABLE_FEE)
+            return False
+        self._refund(ltx, header, refundable_available - consumed, ctx)
+
+        if ctx is not None:
+            ctx.soroban_events = list(host.events)
+            ctx.soroban_return_value = result_val
+            self._capture_diagnostics(ltx, ctx, host, success=True)
+        self.set_inner_result(
+            InvokeHostFunctionResultCode.INVOKE_HOST_FUNCTION_SUCCESS,
+            sha256(result_val.to_bytes()))
+        return True
+
+    @staticmethod
+    def _capture_diagnostics(ltx, ctx, host, success: bool) -> None:
+        """Off-consensus diagnostics (reference:
+        ENABLE_SOROBAN_DIAGNOSTIC_EVENTS): the host's log sink rendered
+        as DIAGNOSTIC contract events — captured for FAILED invocations
+        too, which is the flag's primary operational use."""
+        if ctx is None or not getattr(ltx.get_root(),
+                                      "soroban_diagnostics", False):
+            return
+        from ..xdr.contract import (ContractEvent, ContractEventType,
+                                    SCVal, SCValType, _ContractEventBody,
+                                    _ContractEventV0)
+        from ..xdr.types import ExtensionPoint
+        evs = []
+        for msg, vals in host.diagnostics:
+            evs.append(ContractEvent(
+                ext=ExtensionPoint(0), contractID=None,
+                type=ContractEventType.DIAGNOSTIC,
+                body=_ContractEventBody(0, _ContractEventV0(
+                    topics=[SCVal(SCValType.SCV_SYMBOL, b"log"),
+                            SCVal(SCValType.SCV_STRING, bytes(msg))],
+                    data=SCVal(SCValType.SCV_VEC, list(vals))))))
+        ctx.soroban_diagnostic_events = evs
+        ctx.soroban_diagnostics_in_success = success
+
+
+@register_op(OperationType.EXTEND_FOOTPRINT_TTL)
+class ExtendFootprintTTLOpFrame(SorobanOpFrame):
+
+    def do_check_valid(self, header, ledger_version: int) -> bool:
+        if ledger_version < 20:
+            self.set_outer_result(OperationResultCode.opNOT_SUPPORTED)
+            return False
+        return True
+
+    def do_apply(self, ltx, header, ctx) -> bool:
+        sd = self.soroban_data(ctx)
+        if sd is None or sd.resources.footprint.readWrite:
+            # extend uses the READ-ONLY footprint (reference:
+            # ExtendFootprintTTLOpFrame::doCheckValid)
+            self.set_inner_result(
+                ExtendFootprintTTLResultCode.EXTEND_FOOTPRINT_TTL_MALFORMED)
+            return False
+        config = _load_config(ltx)
+        sa = config.state_archival
+        extend_to = min(self.body.extendTo, sa.maxEntryTTL)
+        rent_changes = []
+        for key in sd.resources.footprint.readOnly:
+            if key.disc not in (LedgerEntryType.CONTRACT_DATA,
+                                LedgerEntryType.CONTRACT_CODE):
+                self.set_inner_result(
+                    ExtendFootprintTTLResultCode
+                    .EXTEND_FOOTPRINT_TTL_MALFORMED)
+                return False
+            le = ltx.load_without_record(key)
+            if le is None:
+                continue
+            ttlk = ttl_key_for(key)
+            ttl_le = ltx.load(ttlk)
+            if ttl_le is None or \
+                    ttl_le.data.value.liveUntilLedgerSeq < header.ledgerSeq:
+                continue  # archived entries need RestoreFootprint
+            new_until = header.ledgerSeq + extend_to
+            cur = ttl_le.data.value.liveUntilLedgerSeq
+            if new_until > cur:
+                from ..xdr.contract import ContractDataDurability
+                is_persistent = key.disc == LedgerEntryType.CONTRACT_CODE \
+                    or key.value.durability == \
+                    ContractDataDurability.PERSISTENT
+                ttl_le.data.value.liveUntilLedgerSeq = new_until
+                rent_changes.append({
+                    "is_persistent": is_persistent,
+                    "old_size_bytes": len(le.to_bytes()),
+                    "new_size_bytes": len(le.to_bytes()),
+                    "old_live_until": cur, "new_live_until": new_until})
+        rent = compute_rent_fee(rent_changes, config, 0, header.ledgerSeq)
+        refundable = sd.resourceFee
+        if rent > refundable:
+            self.set_inner_result(
+                ExtendFootprintTTLResultCode
+                .EXTEND_FOOTPRINT_TTL_INSUFFICIENT_REFUNDABLE_FEE)
+            return False
+        self.set_inner_result(
+            ExtendFootprintTTLResultCode.EXTEND_FOOTPRINT_TTL_SUCCESS)
+        return True
+
+
+@register_op(OperationType.RESTORE_FOOTPRINT)
+class RestoreFootprintOpFrame(SorobanOpFrame):
+
+    def do_check_valid(self, header, ledger_version: int) -> bool:
+        if ledger_version < 20:
+            self.set_outer_result(OperationResultCode.opNOT_SUPPORTED)
+            return False
+        return True
+
+    def do_apply(self, ltx, header, ctx) -> bool:
+        sd = self.soroban_data(ctx)
+        if sd is None or sd.resources.footprint.readOnly:
+            # restore uses the READ-WRITE footprint
+            self.set_inner_result(
+                RestoreFootprintResultCode.RESTORE_FOOTPRINT_MALFORMED)
+            return False
+        config = _load_config(ltx)
+        sa = config.state_archival
+        for key in sd.resources.footprint.readWrite:
+            if key.disc not in (LedgerEntryType.CONTRACT_DATA,
+                                LedgerEntryType.CONTRACT_CODE):
+                self.set_inner_result(
+                    RestoreFootprintResultCode.RESTORE_FOOTPRINT_MALFORMED)
+                return False
+            le = ltx.load_without_record(key)
+            if le is None:
+                # evicted? protocol 23+ keeps evicted persistent
+                # entries in the hot archive; restore recreates them in
+                # live state (the archive's LIVE tombstone is recorded
+                # at close when the recreated key is observed)
+                restored = self._restore_from_hot_archive(ltx, header,
+                                                          key, sa)
+                if not restored:
+                    continue
+            new_until = header.ledgerSeq + sa.minPersistentTTL - 1
+            ttlk = ttl_key_for(key)
+            ttl_le = ltx.load(ttlk)
+            if ttl_le is None:
+                from ..xdr.ledger_entries import (_LedgerEntryData,
+                                                  _LedgerEntryExt,
+                                                  LedgerEntry)
+                ltx.create(LedgerEntry(
+                    lastModifiedLedgerSeq=header.ledgerSeq,
+                    data=_LedgerEntryData(
+                        LedgerEntryType.TTL,
+                        TTLEntry(keyHash=sha256(key.to_bytes()),
+                                 liveUntilLedgerSeq=new_until)),
+                    ext=_LedgerEntryExt(0)))
+            elif ttl_le.data.value.liveUntilLedgerSeq < header.ledgerSeq:
+                ttl_le.data.value.liveUntilLedgerSeq = new_until
+            # live entries: no-op (reference: restore only touches
+            # archived entries)
+        self.set_inner_result(
+            RestoreFootprintResultCode.RESTORE_FOOTPRINT_SUCCESS)
+        return True
+
+    @staticmethod
+    def _restore_from_hot_archive(ltx, header, key, sa) -> bool:
+        """Recreate an evicted entry from the hot archive (protocol
+        23+; reference: the state-archival restore path reading the hot
+        archive bucket list). Returns True when an ARCHIVED record was
+        found and recreated."""
+        from ..xdr.next_types import HotArchiveBucketEntryType
+        hal = getattr(ltx.get_root(), "hot_archive", None)
+        if hal is None:
+            return False
+        be = hal.get_entry(key)
+        if be is None or be.disc != \
+                HotArchiveBucketEntryType.HOT_ARCHIVE_ARCHIVED:
+            return False
+        entry = be.value.clone()
+        entry.lastModifiedLedgerSeq = header.ledgerSeq
+        ltx.create(entry)
+        return True

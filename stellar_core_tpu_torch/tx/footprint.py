@@ -1,0 +1,131 @@
+"""Static touched-key footprints for conflict-staged parallel apply.
+
+Reference: the parallel apply phases of Lokhava et al. (SOSP 2019 §6)
+partition a ledger's transactions by the ledger entries they touch; the
+Soroban half of that design makes footprints explicit in the envelope
+(SorobanTransactionData.resources.footprint), while classic operations
+need them derived from the operation bodies.
+
+`extract_footprint` computes, per transaction frame, the set of ledger
+keys (canonical key bytes) the tx MAY touch during apply, plus a
+`precise` verdict:
+
+- ``precise=True``: the key set is a guaranteed superset of every entry
+  the apply path loads, creates or erases (including signature-check
+  reads of the op source accounts).  Only these txs are eligible for
+  concurrent application; anything else acts as a conflict barrier.
+- ``precise=False``: the op set contains something whose touched keys
+  cannot be named from the envelope alone — order-book walks (offers,
+  path payments), sponsorship releases whose sponsor lives in ledger
+  state, ID-pool allocation (header mutation), Soroban host calls.  The
+  keys collected so far are still returned: they remain useful for the
+  close-prepare prefetch, just not for conflict partitioning.
+
+The staged-apply engine (ledger/parallel_apply.py) re-verifies the
+claim at merge time — a worker whose recorded delta/read set escapes
+its declared footprint forces the stage back onto the sequential path —
+so a classification bug here degrades parallelism, never correctness.
+"""
+
+from __future__ import annotations
+
+from typing import List, Set
+
+from ..xdr.ledger_entries import AssetType, LedgerKey, TrustLineAsset
+from ..xdr.transaction import OperationType
+from . import tx_utils
+
+
+class TxFootprint:
+    """Touched-key claim of one transaction frame."""
+
+    __slots__ = ("keys", "precise")
+
+    def __init__(self, keys: Set[bytes], precise: bool):
+        self.keys = keys
+        self.precise = precise
+
+
+def _acct_kb(account_id) -> bytes:
+    return LedgerKey.account(account_id).to_bytes()
+
+
+def extract_footprint(tx) -> "TxFootprint":
+    """Footprint of one TransactionFrame / FeeBumpTransactionFrame."""
+    keys: Set[bytes] = set()
+    keys.add(_acct_kb(tx.source_id))
+    keys.add(_acct_kb(tx.fee_source_id))
+    precise = True
+
+    from .frame import FeeBumpTransactionFrame
+    if isinstance(tx, FeeBumpTransactionFrame):
+        # the outer frame's signature bookkeeping and the inner frame's
+        # result plumbing interleave; rare enough to stay sequential
+        precise = False
+
+    if tx.is_soroban():
+        # declared footprint keys still feed the prefetch, but host
+        # calls mutate the header (fee refunds) and TTL entries beyond
+        # the declaration, so Soroban txs apply inline
+        precise = False
+        sd = tx.soroban_data()
+        if sd is not None:
+            for key in list(sd.resources.footprint.readOnly) + \
+                    list(sd.resources.footprint.readWrite):
+                keys.add(key.to_bytes())
+
+    tx_source = tx.tx.sourceAccount
+    for op in tx.tx.operations:
+        src = (op.sourceAccount if op.sourceAccount is not None
+               else tx_source).account_id()
+        # signature threshold checks + one-time-signer removal read the
+        # op source account even when the op itself never loads it
+        keys.add(_acct_kb(src))
+        if not _op_keys(op, src, keys):
+            precise = False
+    return TxFootprint(keys, precise)
+
+
+def _op_keys(op, src, keys: Set[bytes]) -> bool:
+    """Add `op`'s touched keys to `keys`; True iff the set is a
+    guaranteed superset of what the op's do_apply touches."""
+    d = op.body.disc
+    b = op.body.value
+    if d == OperationType.PAYMENT:
+        dest = b.destination.account_id()
+        keys.add(_acct_kb(dest))
+        if b.asset.disc != AssetType.ASSET_TYPE_NATIVE:
+            issuer = tx_utils.asset_issuer(b.asset)
+            keys.add(_acct_kb(issuer))
+            tla = TrustLineAsset.from_asset(b.asset)
+            keys.add(LedgerKey.trust_line(src, tla).to_bytes())
+            keys.add(LedgerKey.trust_line(dest, tla).to_bytes())
+        return True
+    if d == OperationType.CREATE_ACCOUNT:
+        keys.add(_acct_kb(b.destination))
+        return True
+    if d == OperationType.MANAGE_DATA:
+        keys.add(LedgerKey.data(src, b.dataName).to_bytes())
+        # deleting a data entry may release a sponsorship whose sponsor
+        # is named only in the stored entry, not the envelope
+        return b.dataValue is not None
+    if d == OperationType.BUMP_SEQUENCE:
+        return True
+    if d == OperationType.SET_OPTIONS:
+        if b.inflationDest is not None:
+            keys.add(_acct_kb(b.inflationDest))
+        # signer removal may release a ledger-state sponsorship
+        return b.signer is None
+    if d == OperationType.ACCOUNT_MERGE:
+        # body IS the destination MuxedAccount; the source's signers may
+        # carry sponsorships held by accounts named only in ledger state
+        keys.add(_acct_kb(b.account_id()))
+        return False
+    # offers / path payments walk the order book and allocate from the
+    # header ID pool; sponsorship ops rewrite ctx-external state;
+    # everything unrecognized stays sequential by construction
+    return False
+
+
+def extract_footprints(txs) -> List[TxFootprint]:
+    return [extract_footprint(tx) for tx in txs]

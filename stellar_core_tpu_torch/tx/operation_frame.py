@@ -7,11 +7,6 @@ level (LOW/MEDIUM/HIGH, OperationFrame.cpp:167-169 default MEDIUM), and
 shared signature/account plumbing: the op's source (op override or tx
 source), opNO_ACCOUNT when the source vanished, opBAD_AUTH when the
 source account's signers don't reach the needed threshold.
-
-Counterpart of stellar_core_tpu/tx/operation_frame.py. The port's
-registry holds the families that `tx/operations` imports (payment,
-account, misc, trust, offer, path payment); any other op type raises
-NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -53,22 +48,11 @@ def register_op(op_type: OperationType):
     return deco
 
 
-# op types whose family comes with the Soroban slice (ROADMAP Queue 1
-# item 3); the other unported families are classic (item 2)
-_SOROBAN_OPS = (OperationType.INVOKE_HOST_FUNCTION,
-                OperationType.EXTEND_FOOTPRINT_TTL,
-                OperationType.RESTORE_FOOTPRINT)
-
-
 def make_operation_frame(op: Operation, tx_source: MuxedAccount,
                          op_index: int) -> "OperationFrame":
     cls = _REGISTRY.get(op.body.disc)
-    if cls is None:
-        item = 3 if op.body.disc in _SOROBAN_OPS else 2
-        raise NotImplementedError(
-            f"no operation frame registered for {op.body.disc!r}: the port "
-            f"copies its family in a later slice (ROADMAP Queue 1 item "
-            f"{item})")
+    releaseAssert(cls is not None,
+                  f"no operation frame registered for {op.body.disc!r}")
     return cls(op, tx_source, op_index)
 
 

@@ -11,10 +11,6 @@ The verify callable is the device seam: by default PubKeyUtils.verify_sig
 (cached libsodium-semantics path, crypto/SecretKey.cpp:427); the batch
 apply paths can inject a `PrevalidatedVerifier` built from one device batch
 verify over a whole txset/checkpoint (SURVEY.md §3.3).
-
-Counterpart of stellar_core_tpu/tx/signature_checker.py; the Soroban
-auth-entry tuples wait for the port's Soroban slice (see
-`_soroban_auth_tuples`).
 """
 
 from __future__ import annotations
@@ -188,13 +184,25 @@ def collect_signature_tuples(frames, network_id=None):
 def _soroban_auth_tuples(frame, network_id: bytes):
     """Address-credential auth signatures of a tx's InvokeHostFunction
     ops: the payload is deterministic from the envelope alone, so these
-    batch ahead of apply exactly like tx signatures. The port has no
-    Soroban host yet (soroban/host.py): a tx with such an op raises until
-    that slice lands; any other tx has none."""
+    batch ahead of apply exactly like tx signatures."""
+    from ..xdr.contract import (SCAddressType, SorobanCredentialsType)
     from ..xdr.transaction import OperationType
+    out = []
     for op in frame.tx.operations:      # fee bump shares the inner .tx
-        if op.body.disc == OperationType.INVOKE_HOST_FUNCTION:
-            raise NotImplementedError(
-                "Soroban auth-entry tuples need soroban/host.py, which the "
-                "port copies in a later slice (ROADMAP Queue 1 item 3)")
-    return []
+        if op.body.disc != OperationType.INVOKE_HOST_FUNCTION:
+            continue
+        for entry in op.body.value.auth:
+            cred = entry.credentials
+            if cred.disc != \
+                    SorobanCredentialsType.SOROBAN_CREDENTIALS_ADDRESS:
+                continue
+            ac = cred.value
+            if ac.address.disc != SCAddressType.SC_ADDRESS_TYPE_ACCOUNT:
+                continue
+            from ..soroban.host import SorobanHost, soroban_auth_payload
+            payload = soroban_auth_payload(
+                network_id, ac.nonce, ac.signatureExpirationLedger,
+                entry.rootInvocation)
+            for pub, sig in SorobanHost._extract_signatures(ac.signature):
+                out.append((pub, sig, payload))
+    return out

@@ -3,8 +3,9 @@
 blocks and partial four-lane groups), and CudaBatchVerifier and the live
 stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
 on a stand-in mesh of four positions, the v1 entry against the oracle, and
-the txset validation path (chip_smoke.py phase 9 at 64 transactions) and
-the classic operation families on it (phase 10 at 64 transactions).
+the txset validation path (chip_smoke.py phase 9 at 64 transactions),
+the classic operation families on it (phase 10 at 64 transactions) and
+the contract auth-entry batches of phase 11 at 200 transactions.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -277,3 +278,19 @@ def test_classic_txset_on_card(card):
     assert a["again_calls"] == 0 and a["again"].hits > 0
     assert st["state"] == CLOSED and not any(st["failures"].values())
     assert st["skips"] == 0 and st["transitions"] == []
+
+
+def test_soroban_txset_on_card(card):
+    """chip_smoke.py phase 11 at 200 transactions, with its checks: the
+    validation batch and catchup's apply-time batch (envelope and
+    auth-entry signatures) each one dispatch on the card equal to the
+    oracle, false exactly on the flipped signatures; every auth verify
+    of the host's a verify-cache hit; results by kind, nonces, and the
+    card run equal to the native run on results, balances and ledger
+    hash; the supervisor CLOSED with 0 failures and 0 skips."""
+    import chip_smoke as cs
+    try:
+        launches = cs.soroban_phase(str(card), n=200)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches == {"msg32": 2, "k": 0, "ladder": 2}

@@ -371,7 +371,13 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "tx.operations.misc_ops", "tx.pool_trust", "tx.offer_math",
              "tx.liabilities", "tx.operations.trust_ops",
              "tx.offer_exchange", "tx.operations.offer_ops",
-             "tx.operations.path_payment_ops"):
+             "tx.operations.path_payment_ops",
+             "tx.operations.claimable_balance_ops",
+             "tx.operations.clawback_ops", "tx.operations.sponsorship_ops",
+             "tx.operations.liquidity_pool_ops", "invariant",
+             "invariant.invariants", "tx.footprint",
+             "soroban.network_config", "soroban.fees", "soroban.host",
+             "soroban.scvm", "soroban.sac", "soroban.ops", "soroban"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.xdr import schema
 assert len(schema.identity()["curr"]) == 64
@@ -382,6 +388,10 @@ assert all(out["applied_ok"]) and len(out["results"]) == 6
 out = chip_smoke.txset_run(chip_smoke.classic_workload(40))
 assert out["verdict"] is False and len(out["dropped"]) == 1, out
 assert all(out["applied_ok"]) and out["offers"] == 16, out
+native = chip_smoke.NativeBatchVerifier()
+out = chip_smoke.txset_run(chip_smoke.soroban_workload(8), native,
+                           apply_batch=native, invariants=True)
+assert len(out["dropped"]) == 1 and out["apply_cache"][1] == 0, out
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

@@ -3,8 +3,7 @@
 Values are built with the JAX package (tests/txtest_utils.py and real
 applied operations), their bytes go through the port's `from_bytes` /
 `to_bytes` and must come back byte for byte, with equal contents and
-full hashes. Corrupted bytes must fail, or re-encode, alike in both. The
-pieces the port leaves to later slices raise NotImplementedError.
+full hashes. Corrupted bytes must fail, or re-encode, alike in both.
 tests/test_torch_xdr_leaves.py covers the rest of the XDR layer."""
 
 import hashlib
@@ -262,26 +261,29 @@ def env_invoke_host_function():
 
 
 def test_frame_for_unported_op_type_raises():
-    """The port registers the families tx/operations imports (payment,
-    account, misc, trust, offer, path payment); an op type of any other
-    family raises NotImplementedError naming the ROADMAP item that
-    brings it, rather than take another path. A Soroban envelope now
-    decodes and re-encodes equal (xdr/contract.py), but has no frame."""
+    """No op type is left unported: both registries hold a frame for
+    every OperationType, of the same class, and a claimable-balance and
+    a Soroban envelope build frames in the port as in the JAX package.
+    The one piece of the op layer still left out, the wasm VM, raises
+    NotImplementedError (tests/test_torch_soroban.py)."""
     from stellar_core_tpu.xdr.transaction import (CreateClaimableBalanceOp,
                                                   Operation, OperationType,
                                                   _OperationBody)
+    jreg, preg = J.op_frame._REGISTRY, P.op_frame._REGISTRY
+    assert len(preg) == len(P.transaction.OperationType) == len(jreg)
+    assert {int(k): c.__name__ for k, c in preg.items()} == \
+        {int(k): c.__name__ for k, c in jreg.items()}
     op = Operation(sourceAccount=None, body=_OperationBody(
         OperationType.CREATE_CLAIMABLE_BALANCE, CreateClaimableBalanceOp(
             asset=Asset(AssetType.ASSET_TYPE_NATIVE), amount=XLM,
             claimants=[])))
-    penv = _roundtrip(_v1(_key(1), [op]).envelope,
-                      P.transaction.TransactionEnvelope)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        P.frame.make_frame(penv, TEST_NETWORK_ID)
-    penv = _roundtrip(env_invoke_host_function(),
-                      P.transaction.TransactionEnvelope)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        P.frame.make_frame(penv, TEST_NETWORK_ID)
+    for jenv in (_v1(_key(1), [op]).envelope, env_invoke_host_function()):
+        penv = _roundtrip(jenv, P.transaction.TransactionEnvelope)
+        pframe = P.frame.make_frame(penv, TEST_NETWORK_ID)
+        jframe = J.frame.make_frame(jenv, TEST_NETWORK_ID)
+        assert [type(o).__name__ for o in pframe.op_frames] == \
+            [type(o).__name__ for o in jframe.op_frames]
+        assert pframe.full_hash() == jframe.full_hash()
 
 
 # ---------------------------------------------------------- ledger state --
@@ -546,9 +548,10 @@ def test_config_upgrade_waits_for_contract_xdr():
 
 
 def test_soroban_auth_tuples_wait_for_the_soroban_slice():
-    """With a network id, an INVOKE_HOST_FUNCTION op raises (no Soroban
-    host in the port) NotImplementedError, never XdrError; without one,
-    the envelope tuples are exact."""
+    """The Soroban slice has landed: with a network id the port collects
+    the auth-entry tuples of an INVOKE_HOST_FUNCTION op as the JAX
+    package does (a void signature map yields none), and without one the
+    envelope tuples alone, equal in both."""
     frame = P.frame.make_frame(P.transaction.TransactionEnvelope.from_bytes(
         env_plain().to_bytes()), TEST_NETWORK_ID)
     jframe = J.frame.make_frame(env_plain(), TEST_NETWORK_ID)
@@ -556,17 +559,11 @@ def test_soroban_auth_tuples_wait_for_the_soroban_slice():
         J.checker.collect_signature_tuples([jframe])
     assert P.checker.collect_signature_tuples([frame], NETWORK_ID) == \
         J.checker.collect_signature_tuples([jframe], NETWORK_ID)
-    invoke = SimpleNamespace(
-        source_id=frame.source_id, contents_hash=frame.contents_hash,
-        signatures=frame.signatures, tx=SimpleNamespace(operations=[
-            SimpleNamespace(body=SimpleNamespace(
-                disc=P.transaction.OperationType.INVOKE_HOST_FUNCTION))]))
-    assert P.checker.collect_signature_tuples([invoke]) == \
-        P.checker.collect_signature_tuples([frame])
-    with pytest.raises(NotImplementedError, match="soroban"):
-        P.checker.collect_signature_tuples([invoke], NETWORK_ID)
-    penv = P.transaction.TransactionEnvelope.from_bytes(
-        env_invoke_host_function().to_bytes())
-    invoke.tx = penv.value.tx
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        P.checker.collect_signature_tuples([invoke], NETWORK_ID)
+    jenv = env_invoke_host_function()
+    pinvoke = P.frame.make_frame(P.transaction.TransactionEnvelope.from_bytes(
+        jenv.to_bytes()), TEST_NETWORK_ID)
+    jinvoke = J.frame.make_frame(jenv, TEST_NETWORK_ID)
+    for nid in (None, NETWORK_ID):
+        got = P.checker.collect_signature_tuples([pinvoke], nid)
+        assert got == J.checker.collect_signature_tuples([jinvoke], nid)
+        assert got == P.checker.collect_signature_tuples([pinvoke])

@@ -1,5 +1,5 @@
-"""Shared by tests/test_torch_{xdr,tx,txset,ops,dex}.py: the JAX package's
-and the port's transaction layers side by side.
+"""Shared by tests/test_torch_{xdr,tx,txset,ops,dex,claims_pools,soroban}.py:
+the JAX package's and the port's transaction layers side by side.
 
 State crosses as XDR bytes only: the JAX package's ledger goes into the
 port through `InMemoryLedgerTxnRoot.from_xdr`, and envelopes through
@@ -38,6 +38,21 @@ _MODULES = {
     "liabilities": "tx.liabilities",
     "offer_exchange": "tx.offer_exchange",
     "pool_trust": "tx.pool_trust",
+    "claimable_balance_ops": "tx.operations.claimable_balance_ops",
+    "clawback_ops": "tx.operations.clawback_ops",
+    "sponsorship_ops": "tx.operations.sponsorship_ops",
+    "liquidity_pool_ops": "tx.operations.liquidity_pool_ops",
+    "invariant": "invariant",
+    "invariants": "invariant.invariants",
+    "inv_manager": "invariant.manager",
+    "footprint": "tx.footprint",
+    "network_config": "soroban.network_config",
+    "fees": "soroban.fees",
+    "host": "soroban.host",
+    "scvm": "soroban.scvm",
+    "sac": "soroban.sac",
+    "soroban_ops": "soroban.ops",
+    "contract": "xdr.contract",
     "tx_set": "herder.tx_set",
     "herder": "herder.herder",
     "runtime": "xdr.runtime",
@@ -72,6 +87,17 @@ def port_root(jroot):
     return P.ledger_txn.InMemoryLedgerTxnRoot.from_xdr(
         jroot.get_header().to_bytes(),
         [e.to_bytes() for e in jroot._entries.values()])
+
+
+def jax_root_from_xdr(header: bytes, entries) -> object:
+    """A JAX root holding a header and entries given as XDR bytes (the
+    counterpart of the port's `InMemoryLedgerTxnRoot.from_xdr`)."""
+    r = J.ledger_txn.InMemoryLedgerTxnRoot(
+        J.ledger.LedgerHeader.from_bytes(header))
+    for b in entries:
+        e = J.entries.LedgerEntry.from_bytes(b)
+        r._entries[J.ledger_txn.entry_key_bytes(e)] = e
+    return r
 
 
 def jax_root_copy(jroot):
@@ -246,12 +272,19 @@ class OracleVerifier:
 
 
 def run_set(pkg, root, envelopes, batch_verifier=None,
-            network_id: bytes = NETWORK_ID) -> dict:
+            network_id: bytes = NETWORK_ID, apply_batch=None,
+            invariants: bool = False) -> dict:
     """The herder's txset path in `pkg`: a set of the envelopes, its
     check_valid (through `_LazyBatchPrevalidator(batch_verifier)` when
     given, else `default_verify`), trim_invalid, a set of the valid
     ones, and its apply in apply order (every fee, then every tx) in one
-    LedgerTxn over the next ledger's header, which commits."""
+    LedgerTxn over the next ledger's header, which commits. With
+    `apply_batch`, the apply verifies as catchup's does: the valid
+    transactions' tuples with the network id in one `verify_tuples`
+    call, a `PrevalidatedVerifier` of its results as `verify`, each
+    result written through to the verify cache (the host's auth check
+    reads the cache), whose hits and misses during the apply are
+    returned. With `invariants`, every default invariant is enabled."""
     pkg.keys.clear_verify_cache()
     frames = [frame_of(pkg, e, network_id) for e in envelopes]
     _, applicable, excluded = pkg.tx_set.make_tx_set_from_transactions(
@@ -273,13 +306,30 @@ def run_set(pkg, root, envelopes, batch_verifier=None,
     _, valid_set, _ = pkg.tx_set.make_tx_set_from_transactions(
         kept, root.get_header(), network_id)
     order = valid_set.get_txs_in_apply_order()
+    manager = None
+    if invariants:
+        manager = pkg.invariant.InvariantManager()
+        pkg.invariant.register_default_invariants(manager)
+        manager.enable([".*"])
+    if apply_batch is not None:
+        tuples = pkg.checker.collect_signature_tuples(order, network_id)
+        out["apply_tuples"] = tuples
+        out["apply_verdicts"] = list(apply_batch.verify_tuples(tuples))
+        verify = pkg.checker.PrevalidatedVerifier(fallback=default)
+        verify.add_results(tuples, out["apply_verdicts"])
+        for (pub, sig, msg), ok in zip(tuples, out["apply_verdicts"]):
+            pkg.keys.seed_verify_cache(pub, sig, msg, ok)
+        pkg.keys.flush_verify_cache_counts()
     with pkg.ledger_txn.LedgerTxn(root) as ltx:
         ltx.load_header().ledgerSeq += 1
         for t in order:
             t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
         out["applied"] = [t.apply(ltx, valid_set.base_fee_for(t),
-                                  verify=verify) for t in order]
+                                  verify=verify, invariants=manager)
+                          for t in order]
         ltx.commit()
+    if apply_batch is not None:
+        out["apply_cache"] = pkg.keys.flush_verify_cache_counts()
     out["order"] = [t.full_hash() for t in order]
     out["results"] = [t.result.to_bytes() for t in order]
     out["state"] = state_of(root)
