@@ -119,20 +119,40 @@ Phases (any failure exits non-zero; nothing is caught):
    tuples in one dispatch, a PrevalidatedVerifier of its verdicts as the
    apply's verify, every verdict written through to the verify cache;
    run B the same with the native library as the batch verifier. Fails
-   unless A equals B on verdicts, trim, results, the holders' XLM and
-   the ledger hash; each batch holds exactly its collect_signature_tuples
-   pairs and equals the oracle, false exactly on the flipped envelopes
-   and the flipped auth signatures; prep msg32 2 + ladder 2; every auth
+   unless A equals B on verdicts, trim, results, contract events, the
+   holders' XLM and the ledger hash; each batch holds exactly its
+   collect_signature_tuples pairs and equals the oracle, false exactly
+   on the flipped envelopes and the flipped auth signatures; prep msg32
+   2 + ladder 2; every auth
    verify of the host's is a cache hit (0 native verifies); sac_addr,
    sac_source and scvm succeed, bad_auth and expired fail as TRAPPED
    with the fee charged and the sequence number used, flipped is
    dropped; one nonce entry and one TTL per verified address entry;
    the supervisor CLOSED with 0 failures and 0 skips.
+12. wasm contracts on the same path (BASELINE.json config #4 with
+   contracts in wasm, as SDK-built ones are), every default invariant
+   enabled: phase 11's ledger shape with three wasm contracts
+   uploaded and created by transactions (the env-ABI counter and
+   toolkit of soroban/env_contract.py, the load generator's scvm_wasm
+   counter); 5000 InvokeHostFunction transactions in a chosen mix
+   (about 84 % env-counter auth_bump with address credentials, 8 % the
+   load generator's counter increments, 3 % a contract-level
+   verify_sig_ed25519 of a valid signature, 1 % of a flipped one, 2 % a
+   flipped auth signature, 1 % an instructions resource one short of
+   what the call needs, 1 % a flipped envelope signature). Runs A and B
+   as phase 11's (`contract_runs`), with its checks; besides: contract
+   events and return values equal in A and B; results by kind
+   (WASM_RESULTS: the short budget ends RESOURCE_LIMIT_EXCEEDED when
+   the wasm meter runs out); the verify cache during A's apply hit
+   once per auth entry require_auth reached and missed exactly once per
+   contract-level verify (the host verifies those natively: nothing
+   batches them); nonces, the counter's value and the module cache
+   holding exactly the three contracts.
 The oracle verdicts of the live tuples and of phase 5's tuples are
 computed in worker processes while phase 2 builds, those of phases 9,
-10 and 11 while their runs go. It prints one `kernels` JSON line
+10, 11 and 12 while their runs go. It prints one `kernels` JSON line
 (launches by path: verifier, live, sharded, hybrid, txset, classic,
-soroban), the card line, and last {"ok": true, "device": {...}}.
+soroban, wasm), the card line, and last {"ok": true, "device": {...}}.
 """
 
 import atexit
@@ -192,6 +212,15 @@ SOROBAN_SEED = 7         # phase 11's ledger, keys and mix
 SOROBAN_MIX = (("sac_source", 0.05), ("scvm", 0.03), ("bad_auth", 0.02),
                ("expired", 0.01), ("flipped", 0.01))
 SOROBAN_RESOURCE_FEE = 10_000_000   # the load generator's _soroban_ext
+WASM_N = 5000            # phase 12: the BASELINE.json txset size
+WASM_SEED = 8            # phase 12's ledger, keys and mix
+# phase 12's chosen mix of wasm-contract calls; the rest, about 84 %, are
+# env_auth (an env-ABI contract's require_auth with address credentials)
+WASM_MIX = (("wasm_counter", 0.08), ("sig_ok", 0.03), ("sig_bad", 0.01),
+            ("bad_auth", 0.02), ("fuel", 0.01), ("flipped", 0.01))
+# the instructions resource of phase 12's fuel kind: one short of what an
+# env counter auth_bump with address credentials needs
+WASM_FUEL_INSTRUCTIONS = 426_254
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -1142,7 +1171,17 @@ class RecordingVerifier:
         return out
 
 
-def txset_run(wl, batch_verifier=None, apply_batch=None, invariants=False):
+def contract_meta(meta):
+    """The contract events and return value an apply wrote into `meta`,
+    as bytes."""
+    sm = meta.get("soroban") or {}
+    rv = sm.get("return_value")
+    return ([e.to_bytes() for e in sm.get("events", [])],
+            None if rv is None else rv.to_bytes())
+
+
+def txset_run(wl, batch_verifier=None, apply_batch=None, invariants=False,
+              events=False):
     """The node's txset validation and apply on a fresh root from the
     workload's bytes. With `batch_verifier`, signatures go through
     `_LazyBatchPrevalidator(batch_verifier, ...)`, the herder's per-txset
@@ -1163,7 +1202,9 @@ def txset_run(wl, batch_verifier=None, apply_batch=None, invariants=False):
     cache, as the herder's prevalidator does, since the host's auth
     check verifies through that cache and not through `verify`; the
     cache's hits and misses during the apply are returned. With
-    `invariants`, the apply runs under every default invariant."""
+    `invariants`, the apply runs under every default invariant; with
+    `events`, each applied transaction's contract events and return
+    value are kept, as bytes."""
     from stellar_core_tpu_torch.crypto.keys import (clear_verify_cache,
                                                     flush_verify_cache_counts,
                                                     seed_verify_cache)
@@ -1234,16 +1275,20 @@ def txset_run(wl, batch_verifier=None, apply_batch=None, invariants=False):
             seed_verify_cache(pub, sig, msg, ok)
         out["apply_batch_s"] = time.perf_counter() - t0
         flush_verify_cache_counts()
+    metas = [{} if events else None for _ in order]
     t0 = time.perf_counter()
     with LedgerTxn(root) as ltx:
         ltx.load_header().ledgerSeq += 1
         for t in order:
             t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
         out["applied_ok"] = [t.apply(ltx, valid_set.base_fee_for(t),
-                                     verify=verify, invariants=manager)
-                             for t in order]
+                                     verify=verify, invariants=manager,
+                                     meta=meta)
+                             for t, meta in zip(order, metas)]
         ltx.commit()
     out["apply_s"] = time.perf_counter() - t0
+    if events:
+        out["events"] = [contract_meta(meta) for meta in metas]
     if apply_batch is not None:
         out["apply_cache"] = flush_verify_cache_counts()
         out["apply_pv"] = (verify.hits, verify.misses)
@@ -1617,78 +1662,36 @@ def classic_phase(card):
     return launches
 
 
-def soroban_workload(n, seed=SOROBAN_SEED):
-    """Phase 11's ledger and txset as XDR bytes, built with the port only
-    (BASELINE.json config #4, contract-heavy ledgers). A protocol-21
-    ledger with the CONFIG_SETTING entries of `create_initial_settings`
-    (its default limits: this path enforces no per-ledger limit), a
-    deployer, n relayers and n holders of 1,000 XLM each. The deployer's
-    three setup transactions are applied to it, each required to
-    succeed: the native-asset SAC created by a CREATE_CONTRACT
-    transaction (the load generator's `setup_sac`), then an SCVM
-    contract uploaded and created whose `auth_bump(addr)` calls
-    require_auth(addr) and emits an event (tests/test_soroban.py).
-    Then n transactions, one InvokeHostFunction each, the load
-    generator's `generate_sac_transfers` with address credentials; a
-    chosen mix (not measured traffic), SOROBAN_MIX marking max(1,
-    round(share * n)) of each kind by a seeded permutation:
-    - sac_addr (the rest): relayer i submits native-SAC transfer(holder
-      i, holder i + 1, 100 stroops); holder i authorizes it with an
-      address-credential entry (a fresh nonce, signatureExpirationLedger
-      ledgerSeq + 100, a {public_key, signature} map over
-      `soroban_auth_payload`): one auth tuple;
-    - sac_source: holder i submits the transfer with source-account
-      credentials, the load generator's form: no auth tuple;
-    - scvm: relayer i submits auth_bump(holder i) with holder i's
-      address credentials: one auth tuple;
-    - bad_auth: a sac_addr with one bit of the auth signature flipped;
-    - expired: a sac_addr whose signatureExpirationLedger is below the
-      ledger it applies in; its signature is valid;
-    - flipped: a sac_source with one bit of its envelope signature
-      flipped (txBAD_AUTH)."""
-    from stellar_core_tpu_torch.crypto.keys import SecretKey
-    from stellar_core_tpu_torch.crypto.sha import sha256
-    from stellar_core_tpu_torch.ledger.ledger_txn import (
-        InMemoryLedgerTxnRoot, LedgerTxn)
-    from stellar_core_tpu_torch.soroban import scvm
-    from stellar_core_tpu_torch.soroban.host import (
-        contract_id_from_preimage, instance_key, soroban_auth_payload)
-    from stellar_core_tpu_torch.soroban.network_config import \
-        create_initial_settings
-    from stellar_core_tpu_torch.soroban.sac import _addr_scval, sc_i128
-    from stellar_core_tpu_torch.tx.frame import make_frame
-    from stellar_core_tpu_torch.tx.tx_utils import (
-        make_account_ledger_entry, starting_sequence_number)
-    from stellar_core_tpu_torch.xdr import contract as cx
-    from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
-    from stellar_core_tpu_torch.xdr.ledger_entries import (Asset, AssetType,
-                                                           LedgerKey)
-    from stellar_core_tpu_torch.xdr.transaction import (
-        DecoratedSignature, Memo, MemoType, MuxedAccount, Operation,
-        OperationType, Preconditions, PreconditionType, Transaction,
-        TransactionEnvelope, TransactionV1Envelope, _OperationBody, _TxExt)
-    from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
-
-    rng = np.random.default_rng(seed)
-    kinds = ["sac_addr"] * n
+def mixed_kinds(rng, n, mix, rest, tag):
+    """The kind of each of n transactions: `mix` marks max(1, round(share
+    * n)) of each of its kinds by a seeded permutation, the rest are
+    `rest`."""
+    kinds = [rest] * n
     order = rng.permutation(n)
     at = 0
-    for kind, share in SOROBAN_MIX:
+    for kind, share in mix:
         k = max(1, round(share * n))
         for i in order[at:at + k]:
             kinds[i] = kind
         at += k
     if at > n:
-        raise ValueError(f"soroban_workload: {n} transactions hold no mix")
-    network_id = sha256(b"chip smoke soroban network")
-    header = LedgerHeader(
-        ledgerVersion=21, ledgerSeq=2, baseFee=100, baseReserve=5_000_000,
-        totalCoins=10 ** 18, maxTxSetSize=2 * n,
-        scpValue=StellarValue(closeTime=1_700_000_000))
-    seq0 = starting_sequence_number(1)
+        raise ValueError(f"{tag}: {n} transactions hold no mix")
+    return kinds
 
-    def key():
-        return SecretKey.from_seed(rng.bytes(32))
+
+def contract_kit(rng, network_id):
+    """Builders of signed InvokeHostFunction transactions on one network
+    (phases 11 and 12); nonces and flipped bits come from `rng`."""
+    from types import SimpleNamespace
+
+    from stellar_core_tpu_torch.soroban.host import soroban_auth_payload
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr import contract as cx
+    from stellar_core_tpu_torch.xdr.transaction import (
+        DecoratedSignature, Memo, MemoType, MuxedAccount, Operation,
+        OperationType, Preconditions, PreconditionType, Transaction,
+        TransactionEnvelope, TransactionV1Envelope, _OperationBody, _TxExt)
+    from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
 
     def account_id(sk):
         return PublicKey.ed25519(sk.public_key().raw)
@@ -1697,11 +1700,13 @@ def soroban_workload(n, seed=SOROBAN_SEED):
         return cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_ACCOUNT,
                             account_id(sk))
 
-    def envelope(source, seq, body, ro, rw, flip=False):
+    def envelope(source, seq, body, ro, rw, flip=False,
+                 instructions=4_000_000):
         sd = cx.SorobanTransactionData(
             resources=cx.SorobanResources(
                 footprint=cx.LedgerFootprint(readOnly=ro, readWrite=rw),
-                instructions=4_000_000, readBytes=50_000, writeBytes=50_000),
+                instructions=instructions, readBytes=50_000,
+                writeBytes=50_000),
             resourceFee=SOROBAN_RESOURCE_FEE)
         tx = Transaction(
             sourceAccount=MuxedAccount.from_ed25519(source.public_key().raw),
@@ -1766,6 +1771,40 @@ def soroban_workload(n, seed=SOROBAN_SEED):
                     signature=cx.SCVal(cx.SCValType.SCV_VEC, [sig_map]))),
             rootInvocation=root_inv)
 
+    def host_fn(kind, value):
+        return cx.InvokeHostFunctionOp(
+            hostFunction=cx.HostFunction(kind, value), auth=[])
+
+    return SimpleNamespace(account_id=account_id, sc_account=sc_account,
+                           envelope=envelope, invoke=invoke,
+                           invocation=invocation, source_auth=source_auth,
+                           address_auth=address_auth, host_fn=host_fn)
+
+
+def contract_ledger(rng, kit, n):
+    """A protocol-21 ledger (ledgerSeq 2) with the CONFIG_SETTING entries
+    of `create_initial_settings` (its default limits: this path enforces
+    no per-ledger limit), a deployer, n relayers and n holders of 1,000
+    XLM each, keys drawn from `rng` in that order. Returns the root, the
+    header, the accounts' sequence number and the three kinds of keys."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.ledger.ledger_txn import (
+        InMemoryLedgerTxnRoot, LedgerTxn)
+    from stellar_core_tpu_torch.soroban.network_config import \
+        create_initial_settings
+    from stellar_core_tpu_torch.tx.tx_utils import (
+        make_account_ledger_entry, starting_sequence_number)
+    from stellar_core_tpu_torch.xdr.ledger import LedgerHeader, StellarValue
+
+    header = LedgerHeader(
+        ledgerVersion=21, ledgerSeq=2, baseFee=100, baseReserve=5_000_000,
+        totalCoins=10 ** 18, maxTxSetSize=2 * n,
+        scpValue=StellarValue(closeTime=1_700_000_000))
+    seq0 = starting_sequence_number(1)
+
+    def key():
+        return SecretKey.from_seed(rng.bytes(32))
+
     deployer = key()
     relayers = [key() for _ in range(n)]
     holders = [key() for _ in range(n)]
@@ -1773,10 +1812,108 @@ def soroban_workload(n, seed=SOROBAN_SEED):
     with LedgerTxn(root) as ltx:
         create_initial_settings(ltx)
         for sk in [deployer] + relayers + holders:
-            le = make_account_ledger_entry(account_id(sk), 1000 * XLM, seq0)
+            le = make_account_ledger_entry(kit.account_id(sk), 1000 * XLM,
+                                           seq0)
             le.lastModifiedLedgerSeq = 1
             ltx.create(le)
         ltx.commit()
+    return root, header, seq0, deployer, relayers, holders
+
+
+def apply_setup(root, kit, network_id, deployer, seq0, setup, tag):
+    """Apply the deployer's setup transactions ((body, read-only,
+    read-write footprint) each, sequence numbers from seq0 + 1) to
+    `root`, each required to succeed."""
+    from stellar_core_tpu_torch.ledger.ledger_txn import LedgerTxn
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    for j, (body, ro, rw) in enumerate(setup):
+        frame = make_frame(kit.envelope(deployer, seq0 + 1 + j, body, ro,
+                                        rw), network_id)
+        with LedgerTxn(root) as ltx:
+            frame.process_fee_seq_num(ltx, 100)
+            ok = frame.apply(ltx, 100)
+            ltx.commit()
+        if not ok:
+            raise SystemExit(f"{tag} setup transaction {j} failed: "
+                             f"{frame.result.result.disc!r}")
+
+
+def deploy_wasm_args(kit, network_id, deployer, code, salt):
+    """The setup of one contract: its upload and its create from the
+    deployer's address with `salt`, as (body, ro, rw) pairs; and the
+    contract's address and code key."""
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.soroban.host import (
+        contract_id_from_preimage, instance_key)
+    from stellar_core_tpu_torch.xdr import contract as cx
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
+
+    code_key = LedgerKey.contract_code(sha256(code))
+    preimage = cx.ContractIDPreimage(
+        cx.ContractIDPreimageType.CONTRACT_ID_PREIMAGE_FROM_ADDRESS,
+        cx._ContractIDPreimageFromAddress(
+            address=kit.sc_account(deployer), salt=salt))
+    addr = cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_CONTRACT,
+                        contract_id_from_preimage(network_id, preimage))
+    create = cx.CreateContractArgs(
+        contractIDPreimage=preimage, executable=cx.ContractExecutable(
+            cx.ContractExecutableType.CONTRACT_EXECUTABLE_WASM,
+            sha256(code)))
+    HF = cx.HostFunctionType
+    create_body = kit.host_fn(HF.HOST_FUNCTION_TYPE_CREATE_CONTRACT, create)
+    create_body.auth = [kit.source_auth(cx.SorobanAuthorizedInvocation(
+        function=cx.SorobanAuthorizedFunction(
+            cx.SorobanAuthorizedFunctionType
+            .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CREATE_CONTRACT_HOST_FN,
+            create), subInvocations=[]))]
+    setup = [(kit.host_fn(HF.HOST_FUNCTION_TYPE_UPLOAD_CONTRACT_WASM, code),
+              [], [code_key]),
+             (create_body, [code_key], [instance_key(addr)])]
+    return setup, addr, code_key
+
+
+def soroban_workload(n, seed=SOROBAN_SEED):
+    """Phase 11's ledger and txset as XDR bytes, built with the port only
+    (BASELINE.json config #4, contract-heavy ledgers). The ledger of
+    `contract_ledger`; the deployer's three setup transactions are
+    applied to it, each required to succeed: the native-asset SAC
+    created by a CREATE_CONTRACT transaction (the load generator's
+    `setup_sac`), then an SCVM contract uploaded and created whose
+    `auth_bump(addr)` calls require_auth(addr) and emits an event
+    (tests/test_soroban.py).
+    Then n transactions, one InvokeHostFunction each, the load
+    generator's `generate_sac_transfers` with address credentials; a
+    chosen mix (not measured traffic), SOROBAN_MIX marking max(1,
+    round(share * n)) of each kind by a seeded permutation:
+    - sac_addr (the rest): relayer i submits native-SAC transfer(holder
+      i, holder i + 1, 100 stroops); holder i authorizes it with an
+      address-credential entry (a fresh nonce, signatureExpirationLedger
+      ledgerSeq + 100, a {public_key, signature} map over
+      `soroban_auth_payload`): one auth tuple;
+    - sac_source: holder i submits the transfer with source-account
+      credentials, the load generator's form: no auth tuple;
+    - scvm: relayer i submits auth_bump(holder i) with holder i's
+      address credentials: one auth tuple;
+    - bad_auth: a sac_addr with one bit of the auth signature flipped;
+    - expired: a sac_addr whose signatureExpirationLedger is below the
+      ledger it applies in; its signature is valid;
+    - flipped: a sac_source with one bit of its envelope signature
+      flipped (txBAD_AUTH)."""
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.soroban import scvm
+    from stellar_core_tpu_torch.soroban.host import (
+        contract_id_from_preimage, instance_key)
+    from stellar_core_tpu_torch.soroban.sac import _addr_scval, sc_i128
+    from stellar_core_tpu_torch.xdr import contract as cx
+    from stellar_core_tpu_torch.xdr.ledger_entries import (Asset, AssetType,
+                                                           LedgerKey)
+
+    rng = np.random.default_rng(seed)
+    kinds = mixed_kinds(rng, n, SOROBAN_MIX, "sac_addr", "soroban_workload")
+    network_id = sha256(b"chip smoke soroban network")
+    kit = contract_kit(rng, network_id)
+    root, header, seq0, deployer, relayers, holders = \
+        contract_ledger(rng, kit, n)
 
     # setup: the native SAC, then the SCVM contract's upload and create
     preimage = cx.ContractIDPreimage(
@@ -1791,85 +1928,206 @@ def soroban_workload(n, seed=SOROBAN_SEED):
         scvm.op(scvm.sym("event"),
                 scvm.op(scvm.sym("lit"), scvm.sym("bumped")),
                 scvm.u64(1)))})
-    code_key = LedgerKey.contract_code(sha256(code))
-    wasm = cx.ContractExecutable(
-        cx.ContractExecutableType.CONTRACT_EXECUTABLE_WASM, sha256(code))
-    from_deployer = cx.ContractIDPreimage(
-        cx.ContractIDPreimageType.CONTRACT_ID_PREIMAGE_FROM_ADDRESS,
-        cx._ContractIDPreimageFromAddress(address=sc_account(deployer),
-                                          salt=b"\x01" * 32))
-    bump = cx.SCAddress(cx.SCAddressType.SC_ADDRESS_TYPE_CONTRACT,
-                        contract_id_from_preimage(network_id, from_deployer))
-    create_bump = cx.CreateContractArgs(contractIDPreimage=from_deployer,
-                                        executable=wasm)
-
-    def host_fn(kind, value):
-        return cx.InvokeHostFunctionOp(
-            hostFunction=cx.HostFunction(kind, value), auth=[])
-
-    HF = cx.HostFunctionType
-    setup = [
-        (host_fn(HF.HOST_FUNCTION_TYPE_CREATE_CONTRACT, cx.CreateContractArgs(
+    bump_setup, bump, code_key = deploy_wasm_args(kit, network_id, deployer,
+                                                  code, b"\x01" * 32)
+    setup = [(kit.host_fn(
+        cx.HostFunctionType.HOST_FUNCTION_TYPE_CREATE_CONTRACT,
+        cx.CreateContractArgs(
             contractIDPreimage=preimage, executable=cx.ContractExecutable(
                 cx.ContractExecutableType.CONTRACT_EXECUTABLE_STELLAR_ASSET))),
-         [], [instance_key(sac)]),
-        (host_fn(HF.HOST_FUNCTION_TYPE_UPLOAD_CONTRACT_WASM, code), [],
-         [code_key]),
-        (host_fn(HF.HOST_FUNCTION_TYPE_CREATE_CONTRACT, create_bump),
-         [code_key], [instance_key(bump)])]
-    setup[2][0].auth = [source_auth(cx.SorobanAuthorizedInvocation(
-        function=cx.SorobanAuthorizedFunction(
-            cx.SorobanAuthorizedFunctionType
-            .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CREATE_CONTRACT_HOST_FN,
-            create_bump), subInvocations=[]))]
-    for j, (body, ro, rw) in enumerate(setup):
-        frame = make_frame(envelope(deployer, seq0 + 1 + j, body, ro, rw),
-                           network_id)
-        with LedgerTxn(root) as ltx:
-            frame.process_fee_seq_num(ltx, 100)
-            ok = frame.apply(ltx, 100)
-            ltx.commit()
-        if not ok:
-            raise SystemExit(f"soroban setup transaction {j} failed: "
-                             f"{frame.result.result.disc!r}")
+        [], [instance_key(sac)])] + bump_setup
+    apply_setup(root, kit, network_id, deployer, seq0, setup, "soroban")
 
     envelopes = []
     expire_ok, expire_past = header.ledgerSeq + 100, header.ledgerSeq - 1
     for i, kind in enumerate(kinds):
         holder, nxt = holders[i], holders[(i + 1) % n]
         if kind == "scvm":
-            args = [_addr_scval(sc_account(holder))]
-            auth = address_auth(holder, invocation(bump, b"auth_bump", args),
-                                expire_ok)
-            env = envelope(relayers[i], seq0 + 1,
-                           invoke(bump, b"auth_bump", args, [auth]),
-                           [code_key, instance_key(bump)], [])
+            args = [_addr_scval(kit.sc_account(holder))]
+            auth = kit.address_auth(
+                holder, kit.invocation(bump, b"auth_bump", args), expire_ok)
+            env = kit.envelope(relayers[i], seq0 + 1,
+                               kit.invoke(bump, b"auth_bump", args, [auth]),
+                               [code_key, instance_key(bump)], [])
         else:
-            args = [_addr_scval(sc_account(holder)),
-                    _addr_scval(sc_account(nxt)), sc_i128(100)]
-            root_inv = invocation(sac, b"transfer", args)
-            rw = [LedgerKey.account(account_id(holder)),
-                  LedgerKey.account(account_id(nxt))]
+            args = [_addr_scval(kit.sc_account(holder)),
+                    _addr_scval(kit.sc_account(nxt)), sc_i128(100)]
+            root_inv = kit.invocation(sac, b"transfer", args)
+            rw = [LedgerKey.account(kit.account_id(holder)),
+                  LedgerKey.account(kit.account_id(nxt))]
             if kind in ("sac_source", "flipped"):
-                env = envelope(holder, seq0 + 1,
-                               invoke(sac, b"transfer", args,
-                                      [source_auth(root_inv)]),
-                               [instance_key(sac)], rw,
-                               flip=kind == "flipped")
+                env = kit.envelope(holder, seq0 + 1,
+                                   kit.invoke(sac, b"transfer", args,
+                                              [kit.source_auth(root_inv)]),
+                                   [instance_key(sac)], rw,
+                                   flip=kind == "flipped")
             else:
-                auth = address_auth(
+                auth = kit.address_auth(
                     holder, root_inv,
                     expire_past if kind == "expired" else expire_ok,
                     flip=kind == "bad_auth")
-                env = envelope(relayers[i], seq0 + 1,
-                               invoke(sac, b"transfer", args, [auth]),
-                               [instance_key(sac)], rw)
+                env = kit.envelope(relayers[i], seq0 + 1,
+                                   kit.invoke(sac, b"transfer", args, [auth]),
+                                   [instance_key(sac)], rw)
         envelopes.append(env.to_bytes())
     return {"header": root.get_header().to_bytes(),
             "entries": [e.to_bytes() for e in root._entries.values()],
             "envelopes": envelopes, "network_id": network_id,
             "kinds": kinds,
-            "holders": [account_id(sk).to_bytes() for sk in holders]}
+            "holders": [kit.account_id(sk).to_bytes() for sk in holders]}
+
+
+def loadgen_counter_code():
+    """The wasm build of the load generator's counter contract, the one
+    `setup_counter_contract` deploys and `generate_counter_invokes` calls
+    (stellar_core_tpu/simulation/load_generator.py:386-407): the scvm_wasm
+    compiler's "x" host ABI."""
+    from stellar_core_tpu_torch.soroban import scvm
+    from stellar_core_tpu_torch.soroban.scvm_wasm import make_wasm_code
+    from stellar_core_tpu_torch.xdr import contract as cx
+
+    def count():
+        return scvm.op(scvm.sym("get"), scvm.op(scvm.sym("lit"),
+                                                scvm.sym("count")))
+
+    return make_wasm_code({"increment": scvm.op(
+        scvm.sym("put"), scvm.op(scvm.sym("lit"), scvm.sym("count")),
+        scvm.op(scvm.sym("add"),
+                scvm.op(scvm.sym("if"),
+                        scvm.op(scvm.sym("eq"), count(),
+                                cx.SCVal(cx.SCValType.SCV_VOID)),
+                        scvm.u64(0), count()),
+                scvm.u64(1)))})
+
+
+def wasm_workload(n, seed=WASM_SEED):
+    """Phase 12's ledger and txset as XDR bytes, built with the port only
+    (BASELINE.json config #4 with wasm contracts). The ledger of
+    `contract_ledger`; the deployer uploads and creates three wasm
+    contracts by transactions, each required to succeed: the env-ABI
+    counter (`build_env_counter`: `auth_bump(addr)` calls require_auth
+    and emits an event), the env-ABI toolkit (`build_env_toolkit`:
+    `sig_demo(pub, msg, sig)` calls verify_sig_ed25519) and the load
+    generator's counter (`loadgen_counter_code`, the "x" ABI).
+    Then n transactions, one InvokeHostFunction each, from relayer i; a
+    chosen mix (not measured traffic), WASM_MIX marking max(1,
+    round(share * n)) of each kind by a seeded permutation:
+    - env_auth (the rest): env counter auth_bump(holder i), authorized
+      by holder i's address-credential entry (a fresh nonce,
+      signatureExpirationLedger ledgerSeq + 100): one auth tuple;
+    - wasm_counter: the load generator's `generate_counter_invokes`
+      form, `increment` on its counter with no auth entry;
+    - sig_ok: toolkit sig_demo(holder i's key, a 64-byte message, holder
+      i's signature of it): a contract-level verify, which the host
+      makes through its own verifier (not batched);
+    - sig_bad: a sig_ok with one bit of the signature flipped;
+    - bad_auth: an env_auth with one bit of the auth signature flipped;
+    - fuel: an env_auth whose `instructions` resource is
+      WASM_FUEL_INSTRUCTIONS, one short of what it needs;
+    - flipped: a wasm_counter with one bit of its envelope signature
+      flipped (txBAD_AUTH).
+    That budget is held on this ledger: one more instruction lets the
+    first fuel transaction's call (with a fresh nonce) succeed, on a
+    LedgerTxn that is rolled back; the run checks that the budget itself
+    is exhausted."""
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.ledger.ledger_txn import LedgerTxn
+    from stellar_core_tpu_torch.soroban.env_contract import (
+        build_env_counter, build_env_toolkit)
+    from stellar_core_tpu_torch.soroban.host import instance_key
+    from stellar_core_tpu_torch.soroban.sac import _addr_scval
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr import contract as cx
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
+
+    rng = np.random.default_rng(seed)
+    kinds = mixed_kinds(rng, n, WASM_MIX, "env_auth", "wasm_workload")
+    network_id = sha256(b"chip smoke wasm network")
+    kit = contract_kit(rng, network_id)
+    root, header, seq0, deployer, relayers, holders = \
+        contract_ledger(rng, kit, n)
+    codes = (build_env_counter(), build_env_toolkit(), loadgen_counter_code())
+    setup, contracts = [], []
+    for code, salt in zip(codes, (b"\x01" * 32, b"\x02" * 32,
+                                  sha256(b"loadgen-counter"))):
+        steps, addr, code_key = deploy_wasm_args(kit, network_id, deployer,
+                                                 code, salt)
+        setup += steps
+        contracts.append((addr, [code_key, instance_key(addr)]))
+    apply_setup(root, kit, network_id, deployer, seq0, setup, "wasm")
+    (env, env_ro), (toolkit, toolkit_ro), (counter, counter_ro) = contracts
+    count_key = LedgerKey.contract_data(
+        counter, cx.SCVal(cx.SCValType.SCV_SYMBOL, b"count"),
+        cx.ContractDataDurability.PERSISTENT)
+
+    def sc_bytes(b):
+        return cx.SCVal(cx.SCValType.SCV_BYTES, b)
+
+    envelopes = []
+    expiration = header.ledgerSeq + 100
+    for i, kind in enumerate(kinds):
+        holder, relayer = holders[i], relayers[i]
+        if kind in ("wasm_counter", "flipped"):
+            env_ = kit.envelope(relayer, seq0 + 1,
+                                kit.invoke(counter, b"increment", [], []),
+                                counter_ro, [count_key],
+                                flip=kind == "flipped")
+        elif kind in ("sig_ok", "sig_bad"):
+            msg = rng.bytes(64)
+            sig = bytearray(holder.sign(msg))
+            if kind == "sig_bad":
+                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+            args = [sc_bytes(holder.public_key().raw), sc_bytes(msg),
+                    sc_bytes(bytes(sig))]
+            env_ = kit.envelope(relayer, seq0 + 1,
+                                kit.invoke(toolkit, b"sig_demo", args, []),
+                                toolkit_ro, [])
+        else:
+            args = [_addr_scval(kit.sc_account(holder))]
+            auth = kit.address_auth(
+                holder, kit.invocation(env, b"auth_bump", args), expiration,
+                flip=kind == "bad_auth")
+            env_ = kit.envelope(
+                relayer, seq0 + 1, kit.invoke(env, b"auth_bump", args,
+                                              [auth]), env_ro, [],
+                instructions=WASM_FUEL_INSTRUCTIONS if kind == "fuel"
+                else 4_000_000)
+        envelopes.append(env_.to_bytes())
+    i = kinds.index("fuel")
+    args = [_addr_scval(kit.sc_account(holders[i]))]
+    auth = kit.address_auth(holders[i], kit.invocation(env, b"auth_bump",
+                                                       args), expiration)
+    probe = make_frame(kit.envelope(
+        relayers[i], seq0 + 1, kit.invoke(env, b"auth_bump", args, [auth]),
+        env_ro, [], instructions=WASM_FUEL_INSTRUCTIONS + 1), network_id)
+    with LedgerTxn(root) as ltx:
+        probe.process_fee_seq_num(ltx, 100)
+        enough = probe.apply(ltx, 100)
+        ltx.rollback()
+    if not enough:
+        raise SystemExit("wasm_workload: WASM_FUEL_INSTRUCTIONS + 1 is not "
+                         f"enough: {probe.result.result!r}")
+    return {"header": root.get_header().to_bytes(),
+            "entries": [e.to_bytes() for e in root._entries.values()],
+            "envelopes": envelopes, "network_id": network_id,
+            "kinds": kinds, "codes": [sha256(c) for c in codes],
+            "count_key": count_key.to_bytes(),
+            "holders": [kit.account_id(sk).to_bytes() for sk in holders]}
+
+
+# the result of each applied kind of phase 12 (flipped is dropped)
+WASM_RESULTS = {"env_auth": "INVOKE_HOST_FUNCTION_SUCCESS",
+                "wasm_counter": "INVOKE_HOST_FUNCTION_SUCCESS",
+                "sig_ok": "INVOKE_HOST_FUNCTION_SUCCESS",
+                "sig_bad": "INVOKE_HOST_FUNCTION_TRAPPED",
+                "bad_auth": "INVOKE_HOST_FUNCTION_TRAPPED",
+                "fuel": "INVOKE_HOST_FUNCTION_RESOURCE_LIMIT_EXCEEDED"}
+
+
+def wasm_expected_outcomes(kinds):
+    """{(kind, result): count} that phase 12's apply must give."""
+    return collections.Counter((k, WASM_RESULTS[k]) for k in kinds
+                               if k in WASM_RESULTS)
 
 
 class NativeBatchVerifier:
@@ -1928,17 +2186,29 @@ def nonce_entries(root):
     return len(nonces), ttls
 
 
-def soroban_phase(card, n=SOROBAN_N):
-    """Phase 11: contract auth-entry signatures batched on the card
-    (BASELINE.json config #4) at n transactions of soroban_workload,
-    with every default invariant enabled. Run A:
-    validation and trim through `_LazyBatchPrevalidator(
-    BackendSupervisor(CudaBatchVerifier()))`, then catchup's apply-time
-    batch over the kept transactions (envelope and auth-entry tuples,
-    one dispatch) written through to the verify cache, then the apply.
-    Run B: the same steps with the native library as the batch
-    verifier. The launch counters are set to 0 just before run A and
-    read just after. Returns the launches of run A by kernel."""
+def contract_runs(card, wl):
+    """Runs A and B of a contract phase (11, 12) on the workload `wl`,
+    every default invariant on. Run A: validation and trim through
+    `_LazyBatchPrevalidator(BackendSupervisor(CudaBatchVerifier()))`,
+    then catchup's apply-time batch over the kept transactions (envelope
+    and auth-entry tuples, one dispatch) written through to the verify
+    cache, then the apply. Run B: the same steps with the native library
+    as the batch verifier. The launch counters are set to 0 just before
+    run A and read just after; the oracle verdicts come from worker
+    processes meanwhile. Returns both runs with their walls, A's
+    recorded batches and launches, the kept frames and their kinds, and
+    the problems every contract phase checks: A == B on verdicts, trim,
+    results, contract events and return values, the apply-time batch
+    and the cache's counts during the apply and ledger hash; each batch
+    holds exactly its
+    collect_signature_tuples pairs, equals the oracle and is false
+    exactly on the flipped envelopes and the flipped auth signatures;
+    prep msg32 2 + ladder 2 and B launching nothing; no call in the
+    second validation; only the flipped dropped (txBAD_AUTH); every
+    applied transaction charged its fee and used its sequence number;
+    the supervisor CLOSED with 0 failures and 0 skips."""
+    from types import SimpleNamespace
+
     from stellar_core_tpu_torch.crypto import ed25519_ref as ref
     from stellar_core_tpu_torch.ops.backend_supervisor import (
         CLOSED, BackendSupervisor)
@@ -1946,14 +2216,9 @@ def soroban_phase(card, n=SOROBAN_N):
     from stellar_core_tpu_torch.tx.frame import make_frame
     from stellar_core_tpu_torch.tx.signature_checker import \
         collect_signature_tuples
-    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
     from stellar_core_tpu_torch.xdr.results import TransactionResultCode
     from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
-    from stellar_core_tpu_torch.xdr.types import PublicKey
 
-    t0 = time.perf_counter()
-    wl = soroban_workload(n)
-    build_s = time.perf_counter() - t0
     nid = wl["network_id"]
     frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
               for b in wl["envelopes"]]
@@ -1968,13 +2233,15 @@ def soroban_phase(card, n=SOROBAN_N):
         rec = RecordingVerifier(sup)
         zero_launches()
         t0 = time.perf_counter()
-        a = txset_run(wl, rec, apply_batch=rec, invariants=True)
+        a = txset_run(wl, rec, apply_batch=rec, invariants=True,
+                      events=True)
         a_s = time.perf_counter() - t0
         launches = launch_counts()
         zero_launches()
         native = RecordingVerifier(NativeBatchVerifier())
         t0 = time.perf_counter()
-        b = txset_run(wl, native, apply_batch=native, invariants=True)
+        b = txset_run(wl, native, apply_batch=native, invariants=True,
+                      events=True)
         b_s = time.perf_counter() - t0
         b_launches = launch_counts()
         want = dict(zip(uniq, oracle.get(timeout=900)))
@@ -1984,19 +2251,12 @@ def soroban_phase(card, n=SOROBAN_N):
     st = sup.status()
     sup.shutdown()
 
-    def balances(run):
-        return [run["root"]._lookup(LedgerKey.account(
-            PublicKey.from_bytes(h)).to_bytes()).data.value.balance
-            for h in wl["holders"]]
-
     problems = []
     for key in ("contents_hash", "verdict", "kept", "dropped", "codes",
                 "order", "results", "applied_ok", "apply_verdicts",
-                "apply_cache", "ledger_hash"):
+                "apply_cache", "ledger_hash", "events"):
         if a[key] != b[key]:
             problems.append(f"run A and run B differ in {key}")
-    if balances(a) != balances(b):
-        problems.append("run A and run B differ in the holders' XLM")
     kept = [f for f in frames if f.full_hash() in set(a["kept"])]
     by_kind = collections.defaultdict(list)
     for f in frames:
@@ -2031,67 +2291,184 @@ def soroban_phase(card, n=SOROBAN_N):
     if a["again_calls"]:
         problems.append(f"the second validation made {a['again_calls']} "
                         "verify_tuples calls")
-    counts = collections.Counter(kind_of[f.full_hash()] for f in kept)
-    verified = counts["sac_addr"] + counts["scvm"] + counts["bad_auth"]
-    if a["apply_cache"] != (verified, 0) or a["apply_pv"][1]:
-        problems.append(f"the apply's verify cache (hits, misses) was "
-                        f"{a['apply_cache']}, not ({verified}, 0), and its "
-                        f"table missed {a['apply_pv'][1]} times")
     problems += dropped_problems(a, kind_of, {
         "flipped": TransactionResultCode.txBAD_AUTH})
     outcomes, unpaid = soroban_outcomes(a, wl)
-    code_of = {"sac_addr": "INVOKE_HOST_FUNCTION_SUCCESS",
-               "sac_source": "INVOKE_HOST_FUNCTION_SUCCESS",
-               "scvm": "INVOKE_HOST_FUNCTION_SUCCESS",
-               "bad_auth": "INVOKE_HOST_FUNCTION_TRAPPED",
-               "expired": "INVOKE_HOST_FUNCTION_TRAPPED"}
-    wrong = {k: c for k, c in outcomes.items() if code_of.get(k[0]) != k[1]}
-    if wrong:
-        problems.append(f"results off their kind: {wrong}")
     if unpaid:
         problems.append(f"transactions that charged no fee or kept their "
                         f"sequence number: {dict(unpaid)}")
-    nonces = nonce_entries(a["root"])
-    if nonces != (counts["sac_addr"] + counts["scvm"],) * 2:
-        problems.append(f"{nonces[0]} nonce entries ({nonces[1]} with a "
-                        f"TTL) for {counts['sac_addr'] + counts['scvm']} "
-                        "verified address entries")
     if st["state"] != CLOSED or any(st["failures"].values()) or \
             st["skips"] or st["transitions"]:
         problems.append(f"supervisor: {st['state']}, failures "
                         f"{st['failures']}, skips {st['skips']}, "
                         f"transitions {st['transitions']}")
-    if problems:
-        raise SystemExit("soroban: " + "; ".join(problems))
-    walls = [c[2] for c in rec.calls]
-    kinds = collections.Counter(wl["kinds"])
-    print(f"soroban: {n} InvokeHostFunction transactions "
-          f"({len(a['kept'])} valid) over {len(wl['entries'])} entries, "
-          f"chosen mix {dict(kinds)}; built in {build_s:.3f} s; dispatches "
-          f"{len(rec.calls[0][0])} signatures (validation) "
-          f"{walls[0] * 1e3:.2f} ms and {len(rec.calls[1][0])} (apply, "
-          f"{len(rec.calls[1][0]) - len(kept)} auth entries) "
-          f"{walls[1] * 1e3:.2f} ms, prep msg32 2 + ladder 2 [{card}]",
-          flush=True)
-    print(f"soroban: walls A (card) / B (host): validation "
+    return SimpleNamespace(
+        a=a, b=b, a_s=a_s, b_s=b_s, rec=rec, launches=launches, kept=kept,
+        counts=collections.Counter(kind_of[f.full_hash()] for f in kept),
+        outcomes=outcomes, problems=problems)
+
+
+def contract_walls(tag, r, card):
+    """Print the walls of runs A and B of a contract phase."""
+    a, b = r.a, r.b
+    walls = [c[2] for c in r.rec.calls]
+    print(f"{tag}: walls A (card) / B (host): validation "
           f"{a['validate_s'] * 1e3:.1f} / {b['validate_s'] * 1e3:.1f} ms, "
           f"trim {a['trim_s'] * 1e3:.1f} / {b['trim_s'] * 1e3:.1f} ms, "
           f"apply-time batch with its collect and write-through "
           f"{a['apply_batch_s'] * 1e3:.1f} / {b['apply_batch_s'] * 1e3:.1f} "
           f"ms, apply {a['apply_s'] * 1e3:.1f} / {b['apply_s'] * 1e3:.1f} "
-          f"ms, run {a_s:.3f} / {b_s:.3f} s; the card's dispatches are "
-          f"{sum(walls) / a_s:.5f} of run A [{card}]", flush=True)
+          f"ms, run {r.a_s:.3f} / {r.b_s:.3f} s; the card's dispatches are "
+          f"{sum(walls) / r.a_s:.5f} of run A [{card}]", flush=True)
+
+
+def soroban_phase(card, n=SOROBAN_N):
+    """Phase 11: contract auth-entry signatures batched on the card
+    (BASELINE.json config #4) at n transactions of soroban_workload,
+    runs A and B of `contract_runs` with their checks, and besides: the
+    holders' XLM equal in A and B, every auth verify of the host's a
+    verify-cache hit (0 native verifies), sac_addr, sac_source and scvm
+    SUCCESS, bad_auth and expired TRAPPED, one nonce entry and one TTL
+    per verified address entry. Returns the launches of run A by
+    kernel."""
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerKey
+    from stellar_core_tpu_torch.xdr.types import PublicKey
+
+    t0 = time.perf_counter()
+    wl = soroban_workload(n)
+    build_s = time.perf_counter() - t0
+    r = contract_runs(card, wl)
+    a, counts, problems = r.a, r.counts, r.problems
+
+    def balances(run):
+        return [run["root"]._lookup(LedgerKey.account(
+            PublicKey.from_bytes(h)).to_bytes()).data.value.balance
+            for h in wl["holders"]]
+
+    if balances(a) != balances(r.b):
+        problems.append("run A and run B differ in the holders' XLM")
+    verified = counts["sac_addr"] + counts["scvm"] + counts["bad_auth"]
+    if a["apply_cache"] != (verified, 0) or a["apply_pv"][1]:
+        problems.append(f"the apply's verify cache (hits, misses) was "
+                        f"{a['apply_cache']}, not ({verified}, 0), and its "
+                        f"table missed {a['apply_pv'][1]} times")
+    code_of = {"sac_addr": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "sac_source": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "scvm": "INVOKE_HOST_FUNCTION_SUCCESS",
+               "bad_auth": "INVOKE_HOST_FUNCTION_TRAPPED",
+               "expired": "INVOKE_HOST_FUNCTION_TRAPPED"}
+    wrong = {k: c for k, c in r.outcomes.items()
+             if code_of.get(k[0]) != k[1]}
+    if wrong:
+        problems.append(f"results off their kind: {wrong}")
+    nonces = nonce_entries(a["root"])
+    if nonces != (counts["sac_addr"] + counts["scvm"],) * 2:
+        problems.append(f"{nonces[0]} nonce entries ({nonces[1]} with a "
+                        f"TTL) for {counts['sac_addr'] + counts['scvm']} "
+                        "verified address entries")
+    if problems:
+        raise SystemExit("soroban: " + "; ".join(problems))
+    calls = r.rec.calls
+    kinds = collections.Counter(wl["kinds"])
+    print(f"soroban: {n} InvokeHostFunction transactions "
+          f"({len(a['kept'])} valid) over {len(wl['entries'])} entries, "
+          f"chosen mix {dict(kinds)}; built in {build_s:.3f} s; dispatches "
+          f"{len(calls[0][0])} signatures (validation) "
+          f"{calls[0][2] * 1e3:.2f} ms and {len(calls[1][0])} (apply, "
+          f"{len(calls[1][0]) - len(r.kept)} auth entries) "
+          f"{calls[1][2] * 1e3:.2f} ms, prep msg32 2 + ladder 2 [{card}]",
+          flush=True)
+    contract_walls("soroban", r, card)
     print("soroban: results by kind "
-          + ", ".join(f"{k} {c} {n}" for (k, c), n in sorted(outcomes.items()))
+          + ", ".join(f"{k} {c} {m}"
+                      for (k, c), m in sorted(r.outcomes.items()))
           + f"; dropped {len(a['dropped'])} (flipped); verify cache during "
           f"the apply: {a['apply_cache'][0]} hits, {a['apply_cache'][1]} "
           f"misses (0 native verifies by the host); {nonces[0]} nonce "
           f"entries with {nonces[1]} TTLs; invariants on; runs A and B "
-          f"equal on verdicts, trim, results, the holders' XLM and ledger "
-          f"hash {a['ledger_hash'].hex()[:16]}; both batches equal the "
-          f"oracle; supervisor CLOSED, 0 failures, 0 skips [{card}]",
+          f"equal on verdicts, trim, results, events, the holders' XLM "
+          f"and ledger hash {a['ledger_hash'].hex()[:16]}; both batches "
+          f"equal the oracle; supervisor CLOSED, 0 failures, 0 skips "
+          f"[{card}]",
           flush=True)
-    return launches
+    return r.launches
+
+
+def wasm_phase(card, n=WASM_N):
+    """Phase 12: wasm contracts on the card's txset path (BASELINE.json
+    config #4 with wasm contracts) at n transactions of wasm_workload,
+    runs A and B of `contract_runs` with their checks, and besides: the
+    contract events and return values equal in A and B; results by kind
+    as WASM_RESULTS says; during A's apply the verify cache hit once per
+    address-credential entry require_auth reached (env_auth, bad_auth
+    and fuel: the wasm meter runs out after the verify) and missed
+    exactly once per contract-level verify (sig_ok + sig_bad, which the
+    host verifies natively: nothing batches them); one nonce entry and
+    one TTL per env_auth; the load generator's counter read equal to its
+    wasm_counter calls; the module cache holding exactly the three
+    contracts. Returns the launches of run A by kernel."""
+    from stellar_core_tpu_torch.soroban.wasm_host import _MODULE_CACHE
+
+    t0 = time.perf_counter()
+    wl = wasm_workload(n)
+    build_s = time.perf_counter() - t0
+    r = contract_runs(card, wl)
+    a, counts, problems = r.a, r.counts, r.problems
+    want = wasm_expected_outcomes(wl["kinds"])
+    if r.outcomes != want:
+        problems.append(f"results by kind {dict(r.outcomes)}, not "
+                        f"{dict(want)}")
+    reached = counts["env_auth"] + counts["bad_auth"] + counts["fuel"]
+    native = counts["sig_ok"] + counts["sig_bad"]
+    if a["apply_cache"] != (reached, native) or a["apply_pv"][1]:
+        problems.append(f"the apply's verify cache (hits, misses) was "
+                        f"{a['apply_cache']}, not ({reached}, {native}), "
+                        f"and its table missed {a['apply_pv'][1]} times")
+    nonces = nonce_entries(a["root"])
+    if nonces != (counts["env_auth"],) * 2:
+        problems.append(f"{nonces[0]} nonce entries ({nonces[1]} with a "
+                        f"TTL) for {counts['env_auth']} env_auth calls")
+    count = a["root"]._lookup(wl["count_key"])
+    if count is None or count.data.value.val.value != counts["wasm_counter"]:
+        problems.append(f"the load generator's counter reads "
+                        f"{count and count.data.value.val.value}, not "
+                        f"{counts['wasm_counter']}")
+    events = sum(bool(ev) for ev, _ in a["events"])
+    if events != counts["env_auth"]:
+        problems.append(f"{events} transactions emitted contract events, "
+                        f"not the {counts['env_auth']} env_auth")
+    if sorted(_MODULE_CACHE) != sorted(wl["codes"]):
+        problems.append(f"the module cache holds {len(_MODULE_CACHE)} "
+                        "modules, not the three contracts")
+    if problems:
+        raise SystemExit("wasm: " + "; ".join(problems))
+    calls = r.rec.calls
+    kinds = collections.Counter(wl["kinds"])
+    print(f"wasm: {n} InvokeHostFunction transactions on wasm contracts "
+          f"({len(a['kept'])} valid) over {len(wl['entries'])} entries, "
+          f"chosen mix {dict(kinds)}; built in {build_s:.3f} s; dispatches "
+          f"{len(calls[0][0])} signatures (validation) "
+          f"{calls[0][2] * 1e3:.2f} ms and {len(calls[1][0])} (apply, "
+          f"{len(calls[1][0]) - len(r.kept)} auth entries) "
+          f"{calls[1][2] * 1e3:.2f} ms, prep msg32 2 + ladder 2 [{card}]",
+          flush=True)
+    contract_walls("wasm", r, card)
+    print("wasm: results by kind "
+          + ", ".join(f"{k} {c} {m}"
+                      for (k, c), m in sorted(r.outcomes.items()))
+          + f"; dropped {len(a['dropped'])} (flipped); verify cache during "
+          f"the apply: {a['apply_cache'][0]} hits (auth entries that "
+          f"require_auth reached), {a['apply_cache'][1]} misses (the "
+          f"host's native verifies of contract-level signatures); "
+          f"{nonces[0]} nonce entries with {nonces[1]} TTLs; the counter "
+          f"reads {counts['wasm_counter']}; {events} transactions with "
+          f"events; module cache {len(_MODULE_CACHE)} contracts "
+          f"({', '.join(h.hex()[:8] for h in sorted(_MODULE_CACHE))}); "
+          f"invariants on; runs A and B "
+          f"equal on verdicts, trim, results, events and ledger hash "
+          f"{a['ledger_hash'].hex()[:16]}; both batches equal the oracle; "
+          f"supervisor CLOSED, 0 failures, 0 skips [{card}]", flush=True)
+    return r.launches
 
 
 def main():
@@ -2436,10 +2813,14 @@ def main():
     # --- 11. contract auth-entry signatures batched on the card ---------
     soroban = soroban_phase(card)
 
+    # --- 12. wasm contracts on the card's txset path --------------------
+    wasm = wasm_phase(card)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
-    # of phase 10 (classic) and run A of phase 11 (soroban)
+    # of phase 10 (classic), run A of phase 11 (soroban) and run A of
+    # phase 12 (wasm)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -2448,7 +2829,7 @@ def main():
             "sharded": mesh["sharded"].get(kind, 0),
             "hybrid": mesh["hybrid"].get(kind, 0),
             "txset": txset[kind], "classic": classic[kind],
-            "soroban": soroban[kind]}
+            "soroban": soroban[kind], "wasm": wasm[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):

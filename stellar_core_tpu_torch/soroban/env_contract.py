@@ -1,0 +1,283 @@
+"""In-repo hand-assembled contract against the REAL soroban-env ABI.
+
+This is the deliverable VERDICT r02 #2 asks for: a contract that uses
+the actual host interface SDK-built binaries use (single-letter import
+modules, positional short names, tagged i64 Vals — see env_abi.py for
+the recovered ground truth) rather than the bespoke long-name module,
+assembled instruction-by-instruction with the in-repo ModuleBuilder.
+It mirrors the counter scenario matrix the scvm/wasm twins run
+(tests/test_soroban.py) — increment / get_count / auth_bump / boom —
+and adds bulk-memory coverage (passive data segment + memory.init /
+memory.fill / memory.copy / data.drop, the 0xFC opcodes real SDK
+output emits).
+
+Reference behavior anchors: example_add_i32.wasm's tag-check/trap
+idioms (decode = ``v & 15`` / ``v >> 4``; overflow → ``unreachable``)
+and example_contract_data.wasm's put/del flow returning ``i64.const 5``.
+"""
+
+from __future__ import annotations
+
+from .env_abi import TAG_MASK, TAG_U32, VAL_VOID, symbol_to_val
+from .wasm.module import (BLOCK_EMPTY, I32, I64, ModuleBuilder)
+
+# opcodes used below (spec byte values)
+I64_EQ, I64_NE, I64_EQZ = 0x51, 0x52, 0x50
+I64_ADD, I64_AND, I64_OR = 0x7C, 0x83, 0x84
+I64_SHL, I64_SHR_U = 0x86, 0x88
+I32_EQZ = 0x45
+
+KEY_COUNT = symbol_to_val(b"count")
+KEY_HASH = symbol_to_val(b"hash")
+SYM_BUMPED = symbol_to_val(b"bumped")
+
+
+def u32val(n: int) -> int:
+    return (n << 4) | TAG_U32
+
+
+def build_env_counter() -> bytes:
+    b = ModuleBuilder()
+    # imports — every one resolves in env_abi.env_host_table
+    put_ = b.import_func("l", "_", [I64, I64], [I64])
+    has_ = b.import_func("l", "0", [I64], [I64])
+    get_ = b.import_func("l", "1", [I64], [I64])
+    b.import_func("l", "2", [I64], [I64])            # del (unused, linked)
+    event_ = b.import_func("x", "0", [I64, I64], [I64])
+    fail_ = b.import_func("x", "3", [I64], [I64])
+    vec_new_ = b.import_func("v", "_", [], [I64])
+    vec_push_ = b.import_func("v", "0", [I64, I64], [I64])
+    auth_ = b.import_func("a", "_", [I64], [I64])
+    bytes_new_ = b.import_func("b", "_", [I64, I64], [I64])
+    sha256_ = b.import_func("c", "_", [I64], [I64])
+
+    b.add_memory(1)
+    seg = b.add_passive_data(b"hello-soroban")       # 13 bytes
+
+    from .env_abi import VAL_TRUE
+
+    # increment() -> U32Val — same semantics as the twins' counter
+    fi, f = b.add_func([], [I64], locals_=[I64])
+    (f.i64_const(KEY_COUNT).call(has_)
+      .i64_const(VAL_TRUE).op(I64_EQ)
+      .if_(I64)
+      .i64_const(KEY_COUNT).call(get_)
+      .else_()
+      .i64_const(u32val(0))
+      .end()
+      .local_set(0)
+      # tag must be U32 (the reference contracts' `v & 15` idiom)
+      .local_get(0).i64_const(TAG_MASK).op(I64_AND)
+      .i64_const(TAG_U32).op(I64_NE)
+      .if_(BLOCK_EMPTY).unreachable().end()
+      # new = payload + 1; overflow past u32 traps (add_i32 idiom)
+      .local_get(0).i64_const(4).op(I64_SHR_U)
+      .i64_const(1).op(I64_ADD).local_set(0)
+      .local_get(0).i64_const(32).op(I64_SHR_U).op(I64_EQZ)
+      .op(I32_EQZ).if_(BLOCK_EMPTY).unreachable().end()
+      # re-tag, store, return
+      .local_get(0).i64_const(4).op(I64_SHL)
+      .i64_const(TAG_U32).op(I64_OR).local_set(0)
+      .i64_const(KEY_COUNT).local_get(0).call(put_).drop()
+      .local_get(0))
+    b.export_func("increment", fi)
+
+    # get_count() -> stored Val (host errors if missing)
+    fi, f = b.add_func([], [I64])
+    f.i64_const(KEY_COUNT).call(get_)
+    b.export_func("get_count", fi)
+
+    # auth_bump(addr) -> Void: require_auth + event (twins' scenario)
+    fi, f = b.add_func([I64], [I64])
+    (f.local_get(0).call(auth_).drop()
+      .call(vec_new_)
+      .i64_const(SYM_BUMPED).call(vec_push_)
+      .i64_const(u32val(1))
+      .call(event_).drop()
+      .i64_const(VAL_VOID))
+    b.export_func("auth_bump", fi)
+
+    # boom() -> trap through fail_with_error
+    fi, f = b.add_func([], [I64])
+    f.i64_const(u32val(0)).call(fail_)
+    b.export_func("boom", fi)
+
+    # copy_hash() -> Void: bulk-memory exercise. memory.init the
+    # passive segment, memory.fill 3 bytes of 'a', memory.copy to
+    # double the buffer, hash the 32 bytes, store under symbol "hash"
+    # (stored so the test can assert through the ledger).
+    fi, f = b.add_func([], [I64])
+    (f.i32_const(0).i32_const(0).i32_const(13).memory_init(seg)
+      .i32_const(13).i32_const(0x61).i32_const(3).memory_fill()
+      .i32_const(16).i32_const(0).i32_const(16).memory_copy()
+      .i64_const(KEY_HASH)
+      .i64_const(u32val(0)).i64_const(u32val(32)).call(bytes_new_)
+      .call(sha256_)
+      .call(put_).drop()
+      .i64_const(VAL_VOID))
+    b.export_func("copy_hash", fi)
+
+    # drop_then_init() — data.drop empties the segment; the following
+    # memory.init must trap out-of-bounds
+    fi, f = b.add_func([], [I64])
+    (f.data_drop(seg)
+      .i32_const(0).i32_const(0).i32_const(1).memory_init(seg)
+      .i64_const(VAL_VOID))
+    b.export_func("drop_then_init", fi)
+
+    # SDK-style interface marker
+    fi, f = b.add_func([], [])
+    f.nop()
+    b.export_func("_", fi)
+
+    return b.encode()
+
+
+# what copy_hash() hashes: segment + 3×'a', duplicated
+COPY_HASH_PREIMAGE = (b"hello-soroban" + b"aaa") * 2
+
+
+def build_env_toolkit() -> bytes:
+    """Second env-ABI contract: exercises the extended host surface —
+    maps (sorted, immutable), i128 pieces, strings from linear memory,
+    and verify_sig_ed25519 — end-to-end through hand-assembled wasm.
+    Every assertion the contract makes uses the reference binaries'
+    trap idiom (condition → unreachable)."""
+    b = ModuleBuilder()
+    map_new_ = b.import_func("m", "_", [], [I64])
+    map_put_ = b.import_func("m", "0", [I64, I64, I64], [I64])
+    map_get_ = b.import_func("m", "1", [I64, I64], [I64])
+    map_has_ = b.import_func("m", "2", [I64, I64], [I64])
+    map_del_ = b.import_func("m", "3", [I64, I64], [I64])
+    map_len_ = b.import_func("m", "4", [I64], [I64])
+    from_i128_ = b.import_func("i", "3", [I64, I64], [I64])
+    i128_lo_ = b.import_func("i", "4", [I64], [I64])
+    i128_hi_ = b.import_func("i", "5", [I64], [I64])
+    str_new_ = b.import_func("s", "_", [I64, I64], [I64])
+    str_len_ = b.import_func("s", "0", [I64], [I64])
+    verify_ = b.import_func("c", "0", [I64, I64, I64], [I64])
+
+    b.add_memory(1)
+    seg = b.add_passive_data(b"toolkit")             # 7 bytes
+
+    from .env_abi import VAL_TRUE, VAL_VOID as _VOID
+
+    sym_a = symbol_to_val(b"a")
+    sym_b = symbol_to_val(b"b")
+
+    # map_demo() -> U32Val: put a=1, b=2, a=9 (replace), check has(b),
+    # del b, check get(a)==9, return len (==1)
+    fi, f = b.add_func([], [I64], locals_=[I64])
+    (f.call(map_new_)
+      .i64_const(sym_a).i64_const(u32val(1)).call(map_put_)
+      .i64_const(sym_b).i64_const(u32val(2)).call(map_put_)
+      .i64_const(sym_a).i64_const(u32val(9)).call(map_put_)
+      .local_set(0)
+      .local_get(0).i64_const(sym_b).call(map_has_)
+      .i64_const(VAL_TRUE).op(I64_NE)
+      .if_(BLOCK_EMPTY).unreachable().end()
+      .local_get(0).i64_const(sym_b).call(map_del_).local_set(0)
+      .local_get(0).i64_const(sym_a).call(map_get_)
+      .i64_const(u32val(9)).op(I64_NE)
+      .if_(BLOCK_EMPTY).unreachable().end()
+      .local_get(0).call(map_len_))
+    b.export_func("map_demo", fi)
+
+    # i128_demo() -> U32Val(42): pieces (hi=1, lo=42) roundtrip
+    fi, f = b.add_func([], [I64], locals_=[I64])
+    (f.i64_const(1).i64_const(42).call(from_i128_).local_set(0)
+      .local_get(0).call(i128_hi_)
+      .i64_const(1).op(I64_NE)
+      .if_(BLOCK_EMPTY).unreachable().end()
+      .local_get(0).call(i128_lo_)
+      .i64_const(4).op(I64_SHL).i64_const(TAG_U32).op(I64_OR))
+    b.export_func("i128_demo", fi)
+
+    # str_demo() -> U32Val(7): string from linear memory, length
+    fi, f = b.add_func([], [I64])
+    (f.i32_const(0).i32_const(0).i32_const(7).memory_init(seg)
+      .i64_const(u32val(0)).i64_const(u32val(7)).call(str_new_)
+      .call(str_len_))
+    b.export_func("str_demo", fi)
+
+    # sig_demo(pub, msg, sig) -> Void; host traps on a bad signature
+    fi, f = b.add_func([I64, I64, I64], [I64])
+    (f.local_get(0).local_get(1).local_get(2).call(verify_).drop()
+      .i64_const(_VOID))
+    b.export_func("sig_demo", fi)
+
+    # SDK-style interface marker
+    fi, f = b.add_func([], [])
+    f.nop()
+    b.export_func("_", fi)
+
+    return b.encode()
+
+
+def build_env_u256() -> bytes:
+    """Third env-ABI contract: computes with the 256-bit host families
+    end-to-end (VERDICT r04 #5). `u256_demo` returns a Vec of
+    [((1,2,3,4)+(0,0,0,5)) << 7  as U256,  (-2^255) >> 3  as I256];
+    `div_zero` must trap through the host's checked division."""
+    b = ModuleBuilder()
+    from_u256_ = b.import_func("i", "B", [I64] * 4, [I64])
+    u256_add_ = b.import_func("i", "P", [I64, I64], [I64])
+    u256_div_ = b.import_func("i", "S", [I64, I64], [I64])
+    u256_shl_ = b.import_func("i", "V", [I64, I64], [I64])
+    from_i256_ = b.import_func("i", "I", [I64] * 4, [I64])
+    i256_shr_ = b.import_func("i", "e", [I64, I64], [I64])
+    vec_new_ = b.import_func("v", "_", [], [I64])
+    vec_push_ = b.import_func("v", "0", [I64, I64], [I64])
+
+    fi, f = b.add_func([], [I64], locals_=[I64])
+    (f.i64_const(1).i64_const(2).i64_const(3).i64_const(4)
+      .call(from_u256_)
+      .i64_const(0).i64_const(0).i64_const(0).i64_const(5)
+      .call(from_u256_)
+      .call(u256_add_)
+      .i64_const(u32val(7)).call(u256_shl_)
+      .local_set(0)
+      .call(vec_new_)
+      .local_get(0).call(vec_push_)
+      .i64_const(-(1 << 63)).i64_const(0).i64_const(0).i64_const(0)
+      .call(from_i256_)
+      .i64_const(u32val(3)).call(i256_shr_)
+      .call(vec_push_))
+    b.export_func("u256_demo", fi)
+
+    fi, f = b.add_func([], [I64])
+    (f.i64_const(0).i64_const(0).i64_const(0).i64_const(9)
+      .call(from_u256_)
+      .i64_const(0).i64_const(0).i64_const(0).i64_const(0)
+      .call(from_u256_)
+      .call(u256_div_))
+    b.export_func("div_zero", fi)
+
+    fi, f = b.add_func([], [])
+    f.nop()
+    b.export_func("_", fi)
+    return b.encode()
+
+
+def build_write_bytes() -> bytes:
+    """The settings-upgrade helper contract (reference:
+    scripts/soroban-settings' write_upgrade_bytes contract): `write(b)`
+    stores b as a TEMPORARY contract-data entry keyed by
+    Bytes(sha256(b)) — exactly the shape ConfigUpgradeSetFrame looks up
+    when a LEDGER_UPGRADE_CONFIG key is voted."""
+    b = ModuleBuilder()
+    put_t_ = b.import_func("l", "5", [I64, I64, I64], [I64])
+    sha256_ = b.import_func("c", "_", [I64], [I64])
+
+    fi, f = b.add_func([I64], [I64])
+    (f.local_get(0).call(sha256_)       # key = Bytes(sha256(v))
+      .local_get(0)                     # value = v
+      .i64_const(u32val(0))             # StorageType 0 = TEMPORARY
+      .call(put_t_).drop()
+      .i64_const(VAL_VOID))
+    b.export_func("write", fi)
+
+    fi, f = b.add_func([], [])
+    f.nop()
+    b.export_func("_", fi)
+    return b.encode()

@@ -16,10 +16,6 @@ is one metered expression tree) — it exists so every protocol mechanism
 around execution (footprints, rent, TTL, auth, events, budget, fees) is
 fully exercised end-to-end; swapping in a wasm engine touches only this
 seam.
-
-Counterpart of stellar_core_tpu/soroban/host.py. The port registers no
-wasm engine yet (ROADMAP Queue 1 item 3b): code that starts with the
-wasm magic raises NotImplementedError instead of the reference's result.
 """
 
 from __future__ import annotations
@@ -116,9 +112,6 @@ def ttl_key_for(key: LedgerKey) -> LedgerKey:
 
 # code-prefix -> callable(host, contract_addr, code, fn_name, args) -> SCVal
 VM_REGISTRY: Dict[bytes, Callable] = {}
-
-# wasm's module magic (stellar_core_tpu/soroban/wasm_host.py WASM_MAGIC)
-WASM_MAGIC = b"\x00asm"
 
 
 def register_vm(prefix: bytes):
@@ -609,13 +602,6 @@ class SorobanHost:
             for prefix, vm in VM_REGISTRY.items():
                 if code.startswith(prefix):
                     return vm(self, contract, code, fn, args)
-            if code.startswith(WASM_MAGIC):
-                # the reference runs it on its wasm VM; a TRAPPED result
-                # here would be another answer for a valid contract
-                raise NotImplementedError(
-                    "wasm contract code needs the wasm VM (soroban/wasm/, "
-                    "wasm_host.py), which the port copies in a later slice "
-                    "(ROADMAP Queue 1 item 3b)")
             raise HostError(SCErrorType.SCE_WASM_VM,
                             "no VM for code format")
         finally:

@@ -588,9 +588,7 @@ class TransactionFrame:
                             invariants.check_on_operation_apply(
                                 op, op.result,
                                 OperationDelta.from_ledger_txn(ltx_op))
-                    except (InvariantDoesNotHold, NotImplementedError):
-                        # a piece the port leaves out (the wasm VM) is
-                        # never turned into a result
+                    except InvariantDoesNotHold:
                         raise
                     except Exception:
                         self.set_error(

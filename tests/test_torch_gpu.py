@@ -4,8 +4,9 @@ blocks and partial four-lane groups), and CudaBatchVerifier and the live
 stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
 on a stand-in mesh of four positions, the v1 entry against the oracle, and
 the txset validation path (chip_smoke.py phase 9 at 64 transactions),
-the classic operation families on it (phase 10 at 64 transactions) and
-the contract auth-entry batches of phase 11 at 200 transactions.
+the classic operation families on it (phase 10 at 64 transactions), the
+contract auth-entry batches of phase 11 at 200 transactions and the wasm
+contracts of phase 12 at 200 transactions.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -291,6 +292,23 @@ def test_soroban_txset_on_card(card):
     import chip_smoke as cs
     try:
         launches = cs.soroban_phase(str(card), n=200)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches == {"msg32": 2, "k": 0, "ladder": 2}
+
+
+def test_wasm_txset_on_card(card):
+    """chip_smoke.py phase 12 at 200 transactions, with its checks: the
+    validation batch and catchup's apply-time batch each one dispatch on
+    the card equal to the oracle, false exactly on the flipped
+    signatures; the host's auth verifies verify-cache hits and its
+    contract-level verifies the only misses; results by kind, events,
+    nonces, the counter and the module cache; the card run equal to the
+    native run on results, events and ledger hash; the supervisor CLOSED
+    with 0 failures and 0 skips."""
+    import chip_smoke as cs
+    try:
+        launches = cs.wasm_phase(str(card), n=200)
     except SystemExit as e:
         pytest.fail(str(e))
     assert launches == {"msg32": 2, "k": 0, "ladder": 2}

@@ -1,6 +1,6 @@
 """The port's Soroban host, its op frames, fees, network config and
-footprints, and its auth-entry tuples against the JAX package's, on the
-CPU.
+footprints, its wasm VM and its auth-entry tuples against the JAX
+package's, on the CPU.
 
 The JAX package's Soroban tests run through its `Application`, which the
 port does not have yet, so the ledger is built with the JAX package: an
@@ -8,11 +8,17 @@ in-memory root with `create_initial_settings` (whose entries must be the
 same bytes in both packages) is carried into the port as bytes, and the
 same envelopes are applied in both. After every transaction the result
 bytes, the contract events, the return value and the whole ledger must
-be equal. The scenarios follow tests/test_soroban.py and tests/test_sac.py
-(their SCVM build; the port has no wasm VM, and a wasm contract raises
-NotImplementedError out of the port's apply). The phase-11 mix of
-chip_smoke.py runs at 40 transactions through both packages' txset path
-with every default invariant on, the port's on the plain kernels."""
+be equal. The scenarios follow tests/test_soroban.py (its SCVM and wasm
+builds of the counter), tests/test_env_abi.py (the three env-ABI
+contracts) and tests/test_sac.py; the budget a wasm call needs is
+bisected in the JAX package and held exactly in both. The phase-11 and
+phase-12 mixes of chip_smoke.py run at 40 transactions through both
+packages' txset path with every default invariant on, the port's on the
+plain kernels."""
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,12 +39,13 @@ from stellar_core_tpu.xdr.types import EnvelopeType, PublicKey
 import chip_smoke
 from test_soroban import COUNTER_FUNCTIONS
 from torch_tx_parity import (J, P, NETWORK_ID, OracleVerifier, clear_caches,
-                             frame_of, jax_root_from_xdr, port_root, run_set,
-                             state_of)
+                             contract_meta, frame_of, jax_root_from_xdr,
+                             port_root, run_set, state_of)
 from txtest_utils import (TestAccount, TestLedger, make_asset,
                           op_change_trust, op_create_account, op_payment,
                           op_set_options, sign_frame)
 
+ROOT = Path(__file__).resolve().parents[1]
 XLM = 10_000_000
 RESOURCE_FEE = 10_000_000
 SUCCESS = "INVOKE_HOST_FUNCTION_SUCCESS"
@@ -108,6 +115,8 @@ class Pair:
         self.proot = port_root(self.led.root)
 
     def step(self, frame):
+        """Apply `frame` in both packages and compare; the port's
+        outcome (ok, result, events, return value) is kept in `last`."""
         env = frame.envelope.to_bytes()
         outs, jframe = [], None
         for pkg, root in ((J, self.led.root), (P, self.proot)):
@@ -118,15 +127,12 @@ class Pair:
                 f.process_fee_seq_num(ltx, bf)
                 ok = f.apply(ltx, bf, meta=meta)
                 ltx.commit()
-            sm = meta.get("soroban") or {}
-            rv = sm.get("return_value")
-            outs.append((ok, f.result.to_bytes(),
-                         [e.to_bytes() for e in sm.get("events", [])],
-                         None if rv is None else rv.to_bytes(),
+            outs.append((ok, f.result.to_bytes(), *contract_meta(meta),
                          state_of(root)))
             jframe = jframe or f
         assert outs[0][:4] == outs[1][:4]
         assert outs[0][4] == outs[1][4]
+        self.last = outs[1][:4]
         return jframe
 
     def classic(self, acct, ops):
@@ -134,10 +140,10 @@ class Pair:
         assert f.result.result.disc.name == "txSUCCESS", f.result
         return f
 
-    def soroban(self, acct, body, ro=(), rw=(), instructions=2_000_000,
-                read=10_000, write=10_000):
-        """Apply one InvokeHostFunction / TTL op of `acct`; returns the
-        result code of the op (or of the transaction)."""
+    def frame(self, acct, body, ro=(), rw=(), instructions=2_000_000,
+              read=10_000, write=10_000, seq=None):
+        """A signed JAX frame of one InvokeHostFunction / TTL op of
+        `acct` (at `seq`, by default its next sequence number)."""
         sd = cx.SorobanTransactionData(
             resources=cx.SorobanResources(
                 footprint=cx.LedgerFootprint(readOnly=list(ro),
@@ -146,7 +152,7 @@ class Pair:
             resourceFee=RESOURCE_FEE)
         tx = Transaction(
             sourceAccount=acct.muxed, fee=100 + RESOURCE_FEE,
-            seqNum=acct.next_seq(),
+            seqNum=acct.next_seq() if seq is None else seq,
             cond=Preconditions(PreconditionType.PRECOND_NONE),
             memo=Memo(MemoType.MEMO_NONE),
             operations=[Operation(sourceAccount=None, body=body)],
@@ -155,7 +161,14 @@ class Pair:
                                   TransactionV1Envelope(tx=tx, signatures=[]))
         frame = J.frame.make_frame(env, NETWORK_ID)
         sign_frame(frame, acct.key)
-        f = self.step(frame)
+        return frame
+
+    def soroban(self, acct, body, ro=(), rw=(), instructions=2_000_000,
+                read=10_000, write=10_000):
+        """Apply one InvokeHostFunction / TTL op of `acct`; returns the
+        result code of the op (or of the transaction)."""
+        f = self.step(self.frame(acct, body, ro, rw, instructions, read,
+                                 write))
         ops = f.result.result.value
         if isinstance(ops, list) and ops and ops[0].disc.name == "opINNER":
             return ops[0].value.value.disc.name
@@ -241,15 +254,23 @@ def _counter_key(cid):
         cx.ContractDataDurability.PERSISTENT)
 
 
-@pytest.fixture
-def counter():
-    """A Pair with the SCVM build of tests/test_soroban.py's counter
-    contract deployed: (pair, contract id, read-only and read-write
-    footprints of its storage)."""
-    pair = Pair()
-    cid, code_key = _deploy(pair, J.scvm.make_code(COUNTER_FUNCTIONS))
+def deploy_counter(code, version: int = 21):
+    """A Pair with a build of tests/test_soroban.py's counter contract
+    deployed: (pair, contract id, read-only and read-write footprints of
+    its storage)."""
+    pair = Pair(version)
+    cid, code_key = _deploy(pair, code)
     ro = [code_key, J.host.instance_key(_contract_addr(cid))]
     return pair, cid, ro, [_counter_key(cid)]
+
+
+@pytest.fixture(params=["scvm", "wasm"])
+def counter(request):
+    """The counter, deployed (`deploy_counter`): its SCVM build and its
+    wasm build, as tests/test_soroban.py's `app` parameter has them."""
+    make = J.scvm.make_code if request.param == "scvm" \
+        else J.scvm_wasm.make_wasm_code
+    return deploy_counter(make(COUNTER_FUNCTIONS))
 
 
 def _address_auth(signer, cid, fn, args, nonce, expiration, sign=True):
@@ -470,28 +491,196 @@ def test_native_sac_transfer():
         [inst], rw) == TRAPPED
 
 
-# ----------------------------------------------------- the left-out VM --
+# -------------------------------------------------------- the wasm VM --
 
 def test_wasm_contract_raises_not_implemented():
-    """A contract whose code is wasm (the reference's own wasm build of
-    the counter) runs in the JAX package; in the port, uploading and
-    creating it work (they need no VM), and invoking it raises
-    NotImplementedError naming ROADMAP Queue 1 item 3b out of the
-    frame's apply, never a TRAPPED or txINTERNAL_ERROR result."""
-    from stellar_core_tpu.soroban.scvm_wasm import make_wasm_code
-    code = make_wasm_code(COUNTER_FUNCTIONS)
-    assert code.startswith(P.host.WASM_MAGIC)
-    pair = Pair()
-    cid, code_key = _deploy(pair, code)
-    ro = [code_key, J.host.instance_key(_contract_addr(cid))]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        pair.soroban(pair.master, _invoke(cid, "increment"), ro,
-                     [_counter_key(cid)])
-    # the JAX package ran it: its counter is 1; the port's apply raised
-    # and committed nothing
-    assert pair.led.root._lookup(
-        _counter_key(cid).to_bytes()).data.value.val.value == 1
-    assert pair.proot._lookup(_counter_key(cid).to_bytes()) is None
+    """The reference's own wasm build of the counter (scvm_wasm) runs in
+    both packages alike: uploading, creating and invoking it give the
+    same results, events, return values and ledger, and the counter
+    reads 1 in both. (The port once raised NotImplementedError here;
+    its wasm VM is the reference's now.)"""
+    code = P.scvm_wasm.make_wasm_code(COUNTER_FUNCTIONS)
+    assert code == J.scvm_wasm.make_wasm_code(COUNTER_FUNCTIONS)
+    assert code.startswith(P.wasm_host.WASM_MAGIC)
+    pair, cid, ro, rw = deploy_counter(code)
+    assert pair.soroban(pair.master, _invoke(cid, "increment"), ro,
+                        rw) == SUCCESS
+    for root in (pair.led.root, pair.proot):
+        assert root._lookup(
+            _counter_key(cid).to_bytes()).data.value.val.value == 1
+
+
+def _budget_needed(pair, acct, body, ro, rw):
+    """The fewest `instructions` with which `body` succeeds, bisected in
+    the JAX package alone on a LedgerTxn that is rolled back."""
+    def succeeds(instructions):
+        frame = pair.frame(acct, body, ro, rw, instructions,
+                           seq=acct.seq + 1)
+        with J.ledger_txn.LedgerTxn(pair.led.root) as ltx:
+            frame.process_fee_seq_num(ltx, 100)
+            ok = frame.apply(ltx, 100)
+            ltx.rollback()
+        return ok
+
+    lo, hi = 0, 4_000_000
+    assert succeeds(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if succeeds(mid) else (mid, hi)
+    return hi
+
+
+@pytest.mark.parametrize("build", ["wasm", "env"])
+def test_wasm_budget_exactly_enough_and_one_short(build):
+    """The fewest instructions a wasm call needs, bisected in the JAX
+    package: one short is RESOURCE_LIMIT_EXCEEDED and exactly enough is
+    SUCCESS in both packages, so the port's fuel (wasm_host's meter,
+    COST_WASM_INSTRUCTION, the host-call charge, bulk-memory bytes)
+    matches instruction for instruction. The env-ABI counter's auth_bump
+    with address credentials needs one more than chip_smoke.py's
+    WASM_FUEL_INSTRUCTIONS, which phase 12's fuel kind declares."""
+    code = J.scvm_wasm.make_wasm_code(COUNTER_FUNCTIONS) if build == "wasm" \
+        else J.env_contract.build_env_counter()
+    pair, cid, ro, rw = deploy_counter(code)
+    if build == "wasm":
+        def body(nonce):
+            return _invoke(cid, "increment")
+    else:
+        holder = pair.fresh()
+        arg = cx.SCVal(cx.SCValType.SCV_ADDRESS, _account_addr(holder))
+        seq = pair.led.header().ledgerSeq
+        rw = []
+
+        def body(nonce):
+            return _invoke(cid, "auth_bump", [arg], auth=[_address_auth(
+                holder.key, cid, "auth_bump", [arg], nonce, seq + 100)])
+    need = _budget_needed(pair, pair.master, body(1), ro, rw)
+    if build == "env":
+        assert need == chip_smoke.WASM_FUEL_INSTRUCTIONS + 1
+    assert pair.soroban(pair.master, body(2), ro, rw,
+                        instructions=need - 1) == \
+        "INVOKE_HOST_FUNCTION_RESOURCE_LIMIT_EXCEEDED"
+    assert pair.soroban(pair.master, body(3), ro, rw,
+                        instructions=need) == SUCCESS
+
+
+@pytest.mark.parametrize("build", ["scvm", "wasm"])
+def test_contract_moves_classic_asset(usd_sac, build):
+    """tests/test_sac.py::test_wasm_contract_moves_classic_asset in both
+    packages, on the SCVM build of its treasury contract (as there) and
+    on its wasm build: the treasury, minted 100 USD, pays bob 60 through
+    the USD SAC under invoker auth, and bob's trustline moves."""
+    pair, issuer, alice, bob, usd, cid = usd_sac
+    sac_addr = _contract_addr(cid)
+    scvm = J.scvm
+    fns = {"pay": scvm.op(
+        scvm.sym("call"),
+        scvm.op(scvm.sym("lit"), cx.SCVal(cx.SCValType.SCV_ADDRESS,
+                                          sac_addr)),
+        scvm.op(scvm.sym("lit"), scvm.sym("transfer")),
+        scvm.op(scvm.sym("self")),
+        scvm.op(scvm.sym("arg"), scvm.u64(0)),
+        scvm.op(scvm.sym("arg"), scvm.u64(1)))}
+    code = scvm.make_code(fns) if build == "scvm" \
+        else J.scvm_wasm.make_wasm_code(fns)
+    tcid, code_key = _deploy(pair, code)
+    taddr = _contract_addr(tcid)
+    bkey = J.sac.balance_key(sac_addr, taddr)
+    issuer_key = LedgerKey.account(issuer.account_id)
+    inst = J.host.instance_key
+    assert pair.soroban(issuer, _invoke(cid, "mint", [
+        J.sac._addr_scval(taddr), J.sac.sc_i128(100)]),
+        [inst(sac_addr), issuer_key], [bkey]) == SUCCESS
+    before = pair.proot._lookup(_tl(bob, usd).to_bytes()).data.value.balance
+    assert pair.soroban(pair.master, _invoke(tcid, "pay", [
+        J.sac._addr_scval(_account_addr(bob)), J.sac.sc_i128(60)]),
+        [code_key, inst(taddr), inst(sac_addr), issuer_key],
+        [bkey, _tl(bob, usd)]) == SUCCESS
+    assert pair.proot._lookup(
+        _tl(bob, usd).to_bytes()).data.value.balance == before + 60
+
+
+def _data_key(cid, sym):
+    return LedgerKey.contract_data(_contract_addr(cid),
+                                   cx.SCVal(cx.SCValType.SCV_SYMBOL, sym),
+                                   cx.ContractDataDurability.PERSISTENT)
+
+
+def _env_calls(pair, build):
+    """(function, args, expected code) of tests/test_env_abi.py's
+    end-to-end scenarios for one of the env-ABI contracts."""
+    sk = J.keys.SecretKey.pseudo_random_for_testing(7)
+    msg = b"toolkit message"
+    sig = sk.sign(msg)
+
+    def b(x):
+        return cx.SCVal(cx.SCValType.SCV_BYTES, x)
+
+    if build == "counter":
+        me = cx.SCVal(cx.SCValType.SCV_ADDRESS, _account_addr(pair.master))
+        return [("increment", [], SUCCESS), ("increment", [], SUCCESS),
+                ("get_count", [], SUCCESS), ("boom", [], TRAPPED),
+                ("copy_hash", [], SUCCESS), ("drop_then_init", [], TRAPPED),
+                ("auth_bump", [me], SUCCESS)]
+    if build == "toolkit":
+        bad = sig[:32] + bytes([sig[32] ^ 1]) + sig[33:]
+        return [("map_demo", [], SUCCESS), ("i128_demo", [], SUCCESS),
+                ("str_demo", [], SUCCESS),
+                ("sig_demo", [b(sk.public_key().raw), b(msg), b(sig)],
+                 SUCCESS),
+                ("sig_demo", [b(sk.public_key().raw), b(msg), b(bad)],
+                 TRAPPED)]
+    return [("u256_demo", [], SUCCESS), ("div_zero", [], TRAPPED)]
+
+
+@pytest.mark.parametrize("build", ["counter", "toolkit", "u256"])
+def test_env_abi_contracts_upload_create_invoke(build):
+    """The three hand-assembled env-ABI contracts of soroban/env_contract.py
+    (the real soroban-env import ABI: tagged i64 Vals, single-letter
+    modules) uploaded, created and invoked in both packages, every call
+    of tests/test_env_abi.py's end-to-end scenarios; storage, events,
+    return values and traps equal."""
+    code = getattr(J.env_contract, f"build_env_{build}")()
+    assert code == getattr(P.env_contract, f"build_env_{build}")()
+    pair, cid, ro, _ = deploy_counter(code)
+    rw = [_data_key(cid, b"count"), _data_key(cid, b"hash")]
+    returns = {}
+    for fn, args, want in _env_calls(pair, build):
+        assert pair.soroban(pair.master, _invoke(cid, fn, args), ro,
+                            rw) == want, fn
+        returns[fn] = pair.last[3]
+    if build == "counter":
+        assert cx.SCVal.from_bytes(returns["get_count"]) == \
+            cx.SCVal(cx.SCValType.SCV_U32, 2)
+        assert pair.proot._lookup(_data_key(cid, b"hash").to_bytes()) \
+            .data.value.val.value == sha256(J.env_contract.COPY_HASH_PREIMAGE)
+    elif build == "u256":
+        uv, iv = cx.SCVal.from_bytes(returns["u256_demo"]).value
+        p = uv.value
+        assert (p.hi_hi << 192 | p.hi_lo << 128 | p.lo_hi << 64
+                | p.lo_lo) == ((1 << 192) + (2 << 128) + (3 << 64) + 9) << 7
+        assert iv.disc == cx.SCValType.SCV_I256
+
+
+@pytest.mark.parametrize("entry", ["soroban", "tx"])
+def test_vm_registry_alike(entry):
+    """In a fresh interpreter, importing the Soroban layer (or the
+    transaction layer, which imports it) registers the same VMs, prefixes
+    in the same order, in both packages: the wasm VM registers by import
+    side effect, and without it wasm code would fail as 'no VM'."""
+    got = []
+    for root in ("stellar_core_tpu", "stellar_core_tpu_torch"):
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import {root}.{entry}; "
+                f"from {root}.soroban.host import VM_REGISTRY; "
+                "print([(p.hex(), f.__module__.split('.', 1)[1]) "
+                "for p, f in VM_REGISTRY.items()])")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        got.append(r.stdout.strip())
+    assert got[0] == got[1] == str([("5343564d", "soroban.scvm"),
+                                    ("0061736d", "soroban.wasm_host")])
 
 
 # ------------------------------------------------ fees and footprints --

@@ -377,8 +377,14 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "tx.operations.liquidity_pool_ops", "invariant",
              "invariant.invariants", "tx.footprint",
              "soroban.network_config", "soroban.fees", "soroban.host",
-             "soroban.scvm", "soroban.sac", "soroban.ops", "soroban"):
+             "soroban.scvm", "soroban.sac", "soroban.ops", "soroban",
+             "soroban.wasm", "soroban.wasm.module", "soroban.wasm.decode",
+             "soroban.wasm.validate", "soroban.wasm.interp",
+             "soroban.wasm_host", "soroban.env_abi", "soroban.env_contract",
+             "soroban.scvm_wasm", "tx", "herder.tx_set", "invariant"):
     __import__("stellar_core_tpu_torch." + name)
+from stellar_core_tpu_torch.soroban import host, wasm_host
+assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
 from stellar_core_tpu_torch.xdr import schema
 assert len(schema.identity()["curr"]) == 64
 import chip_smoke
@@ -392,6 +398,10 @@ native = chip_smoke.NativeBatchVerifier()
 out = chip_smoke.txset_run(chip_smoke.soroban_workload(8), native,
                            apply_batch=native, invariants=True)
 assert len(out["dropped"]) == 1 and out["apply_cache"][1] == 0, out
+out = chip_smoke.txset_run(chip_smoke.wasm_workload(8), native,
+                           apply_batch=native, invariants=True)
+assert len(out["dropped"]) == 1 and out["apply_cache"] == (4, 2), out
+assert len(wasm_host._MODULE_CACHE) == 3
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

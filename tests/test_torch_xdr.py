@@ -263,9 +263,8 @@ def env_invoke_host_function():
 def test_frame_for_unported_op_type_raises():
     """No op type is left unported: both registries hold a frame for
     every OperationType, of the same class, and a claimable-balance and
-    a Soroban envelope build frames in the port as in the JAX package.
-    The one piece of the op layer still left out, the wasm VM, raises
-    NotImplementedError (tests/test_torch_soroban.py)."""
+    a Soroban envelope build frames in the port as in the JAX package
+    (the name is from when op types were still left out)."""
     from stellar_core_tpu.xdr.transaction import (CreateClaimableBalanceOp,
                                                   Operation, OperationType,
                                                   _OperationBody)

@@ -18,13 +18,11 @@ package's, on the CPU, with exact bytes.
   agree between the packages.
 """
 
-import builtins
 import importlib
 import io
 import random
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -32,9 +30,10 @@ import pytest
 
 import test_xdr as ref_xdr
 import test_xdr_schema as ref_schema
+from torch_rebind import (JAX_ROOT, PORT_ROOT, jax_case, port_case,
+                          port_import, rebound, reference_cases)
 
 ROOT = Path(__file__).resolve().parents[1]
-JAX_ROOT, PORT_ROOT = "stellar_core_tpu", "stellar_core_tpu_torch"
 
 
 def _mod(pkg, path):
@@ -49,66 +48,6 @@ XDR_MODULES = ("types", "ledger_entries", "ledger", "transaction", "results",
 
 
 # ------------------------------------------- the reference tests, rebound --
-
-def _port_name(name: str) -> str:
-    if name == JAX_ROOT or name.startswith(JAX_ROOT + "."):
-        return PORT_ROOT + name[len(JAX_ROOT):]
-    return name
-
-
-def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    if level == 0:
-        name = _port_name(name)
-    return builtins.__import__(name, globals, locals, fromlist, level)
-
-
-def _port_value(name, v):
-    """The port's object for a name a reference test module imported from
-    the JAX package; anything else unchanged."""
-    if isinstance(v, types.ModuleType):
-        return importlib.import_module(_port_name(v.__name__)) \
-            if v.__name__.startswith(JAX_ROOT + ".") else v
-    mod = getattr(v, "__module__", None)
-    if isinstance(mod, str) and mod.startswith(JAX_ROOT + "."):
-        return getattr(importlib.import_module(_port_name(mod)),
-                       getattr(v, "__name__", name))
-    return v
-
-
-def _rebound(module):
-    """The module's globals with every JAX-package name replaced by the
-    port's, and imports inside function bodies redirected to the port."""
-    g = {k: _port_value(k, v) for k, v in vars(module).items()}
-    g["__builtins__"] = dict(vars(builtins), __import__=_port_import)
-    for k, v in vars(module).items():        # the module's own helpers
-        if isinstance(v, types.FunctionType) and \
-                v.__module__ == module.__name__:
-            g[k] = _port_function(v, g)
-    return g
-
-
-def _port_function(fn, g):
-    return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
-                              fn.__closure__)
-
-
-def _port_case(module, owner, name):
-    """The reference test `owner.name` (or the module function `name`) as
-    a callable running on the port."""
-    g = _rebound(module)
-    if owner is None:
-        return _port_function(getattr(module, name), g)
-    cls = getattr(module, owner)
-    ported = type(owner, (), {
-        k: _port_function(f, g) for k, f in vars(cls).items()
-        if isinstance(f, types.FunctionType)})
-    return getattr(ported(), name)
-
-
-def _jax_case(module, owner, name):
-    return getattr(module, name) if owner is None \
-        else getattr(getattr(module, owner)(), name)
-
 
 def _recording(rt, sink):
     """Patch `rt`'s Struct and Union so every top-level encode appends
@@ -131,39 +70,25 @@ def _recording(rt, sink):
     return undo
 
 
-def _cases(module, skip):
-    out = []
-    for owner, cls in vars(module).items():
-        if owner.startswith("Test") and isinstance(cls, type):
-            out += [(module, owner, n) for n in vars(cls)
-                    if n.startswith("test_")]
-    out += [(module, None, n) for n, f in vars(module).items()
-            if n.startswith("test_") and isinstance(f, types.FunctionType)]
-    return [c for c in out if c[2] not in skip]
-
-
 # test_clone_is_deep_and_equal draws values from the JAX package's fuzzer
 # (main/fuzzer.py, not in the port): the seeded generator below covers
 # it. The schema file's cross-process test and its Application test run
 # the JAX package by name in a subprocess or boot a node; the port's
 # cross-process identity is tested below.
-REFERENCE_CASES = _cases(ref_xdr, {"test_clone_is_deep_and_equal"}) + \
-    _cases(ref_schema, {"test_identity_stable_across_processes",
-                        "test_info_reports_xdr_identity"})
+REFERENCE_CASES = reference_cases(ref_xdr, {"test_clone_is_deep_and_equal"}) \
+    + reference_cases(ref_schema, {"test_identity_stable_across_processes",
+                                   "test_info_reports_xdr_identity"})
 
 
-@pytest.mark.parametrize(
-    "case", REFERENCE_CASES,
-    ids=[f"{m.__name__}.{o + '.' if o else ''}{n}"
-         for m, o, n in REFERENCE_CASES])
+@pytest.mark.parametrize("case", REFERENCE_CASES)
 def test_reference_xdr_tests_pass_on_both_with_equal_bytes(case):
-    module, owner, name = case
+    module, owner, name, kw = case
     runs = []
-    for rt, make in ((J_RT, _jax_case), (P_RT, _port_case)):
+    for rt, make in ((J_RT, jax_case), (P_RT, port_case)):
         sink = []
         undo = _recording(rt, sink)
         try:
-            make(module, owner, name)()
+            make(module, owner, name)(**kw)
         finally:
             undo()
         runs.append(sink)
@@ -172,13 +97,13 @@ def test_reference_xdr_tests_pass_on_both_with_equal_bytes(case):
 
 def test_rebinding_reaches_the_port():
     """The rebound reference tests really run on the port's classes."""
-    g = _rebound(ref_xdr)
+    g = rebound(ref_xdr)
     assert g["TransactionEnvelope"] is \
         _mod(PORT_ROOT, "xdr.transaction").TransactionEnvelope
     assert g["XdrError"] is P_RT.XdrError
     assert g["Int32"] is P_RT.Int32
-    assert _rebound(ref_schema)["schema"] is P_SCHEMA
-    assert _port_import("stellar_core_tpu.xdr.runtime",
+    assert rebound(ref_schema)["schema"] is P_SCHEMA
+    assert port_import("stellar_core_tpu.xdr.runtime",
                         fromlist=("Bool",)).Bool is P_RT.Bool
 
 

@@ -1,4 +1,5 @@
-"""Shared by tests/test_torch_{xdr,tx,txset,ops,dex,claims_pools,soroban}.py:
+"""Shared by tests/test_torch_{xdr,tx,txset,ops,dex,claims_pools,soroban,
+wasm}.py:
 the JAX package's and the port's transaction layers side by side.
 
 State crosses as XDR bytes only: the JAX package's ledger goes into the
@@ -52,6 +53,11 @@ _MODULES = {
     "scvm": "soroban.scvm",
     "sac": "soroban.sac",
     "soroban_ops": "soroban.ops",
+    "wasm": "soroban.wasm",
+    "wasm_host": "soroban.wasm_host",
+    "env_abi": "soroban.env_abi",
+    "env_contract": "soroban.env_contract",
+    "scvm_wasm": "soroban.scvm_wasm",
     "contract": "xdr.contract",
     "tx_set": "herder.tx_set",
     "herder": "herder.herder",
@@ -78,6 +84,7 @@ P = Pkg("stellar_core_tpu_torch")
 def clear_caches() -> None:
     J.keys.clear_verify_cache()
     P.keys.clear_verify_cache()
+    P.wasm_host._MODULE_CACHE.clear()
 
 
 # ------------------------------------------------------------ state crossing --
@@ -253,6 +260,15 @@ def case_id(case) -> str:
     return f"{module.__name__}.{owner + '.' if owner else ''}{name}"
 
 
+def contract_meta(meta):
+    """The contract events and return value an apply wrote into `meta`,
+    as bytes."""
+    sm = meta.get("soroban") or {}
+    rv = sm.get("return_value")
+    return ([e.to_bytes() for e in sm.get("events", [])],
+            None if rv is None else rv.to_bytes())
+
+
 # ---------------------------------------------------------------- tx sets --
 
 class OracleVerifier:
@@ -273,7 +289,7 @@ class OracleVerifier:
 
 def run_set(pkg, root, envelopes, batch_verifier=None,
             network_id: bytes = NETWORK_ID, apply_batch=None,
-            invariants: bool = False) -> dict:
+            invariants: bool = False, events: bool = False) -> dict:
     """The herder's txset path in `pkg`: a set of the envelopes, its
     check_valid (through `_LazyBatchPrevalidator(batch_verifier)` when
     given, else `default_verify`), trim_invalid, a set of the valid
@@ -284,7 +300,9 @@ def run_set(pkg, root, envelopes, batch_verifier=None,
     call, a `PrevalidatedVerifier` of its results as `verify`, each
     result written through to the verify cache (the host's auth check
     reads the cache), whose hits and misses during the apply are
-    returned. With `invariants`, every default invariant is enabled."""
+    returned. With `invariants`, every default invariant is enabled; with
+    `events`, each applied transaction's contract events and return
+    value are returned, as bytes."""
     pkg.keys.clear_verify_cache()
     frames = [frame_of(pkg, e, network_id) for e in envelopes]
     _, applicable, excluded = pkg.tx_set.make_tx_set_from_transactions(
@@ -320,14 +338,18 @@ def run_set(pkg, root, envelopes, batch_verifier=None,
         for (pub, sig, msg), ok in zip(tuples, out["apply_verdicts"]):
             pkg.keys.seed_verify_cache(pub, sig, msg, ok)
         pkg.keys.flush_verify_cache_counts()
+    metas = [{} if events else None for _ in order]
     with pkg.ledger_txn.LedgerTxn(root) as ltx:
         ltx.load_header().ledgerSeq += 1
         for t in order:
             t.process_fee_seq_num(ltx, valid_set.base_fee_for(t))
         out["applied"] = [t.apply(ltx, valid_set.base_fee_for(t),
-                                  verify=verify, invariants=manager)
-                          for t in order]
+                                  verify=verify, invariants=manager,
+                                  meta=meta)
+                          for t, meta in zip(order, metas)]
         ltx.commit()
+    if events:
+        out["events"] = [contract_meta(meta) for meta in metas]
     if apply_batch is not None:
         out["apply_cache"] = pkg.keys.flush_verify_cache_counts()
     out["order"] = [t.full_hash() for t in order]
