@@ -148,11 +148,37 @@ Phases (any failure exits non-zero; nothing is caught):
    contract-level verify (the host verifies those natively: nothing
    batches them); nonces, the counter's value and the module cache
    holding exactly the three contracts.
+13. persistence and ledger close with the staged apply's per-stage
+   signature prewarm on the card (BASELINE.json config #1, standalone
+   loadgen, 1000 PaymentOp transactions per ledger close): two nodes,
+   each a LedgerManager over a sqlite Database and a BucketManager in a
+   fresh temporary directory, genesis at protocol 21 on the standalone
+   network, a close that votes maxTxSetSize 1000, closes that create
+   2000 accounts (100 CreateAccount ops per transaction from the
+   master, as the load generator does), then 10 measured closes of 1000
+   one-Payment transactions in a chosen mix (97 % on pairs disjoint
+   within the ledger, 2 % paying another transaction's destination, 1 %
+   with a flipped signature byte) and one close in the load generator's
+   PAY chain as the control. Run A has the node's wiring (staged apply,
+   4 workers from 8 transactions; VerifyService(BackendSupervisor(
+   CudaBatchVerifier())) as the manager's verify service at phase 7's
+   defaults), run B no verify service. Fails unless A equals B on every
+   header, result, meta and bucket level and on the final rows; a fresh
+   LedgerManager reloads A's LCL from its files; every prewarm verdict
+   equals the oracle; each close's stages, submits, flushes by reason,
+   device dispatches and the verify cache's hits and misses are those
+   its stage widths give; prep msg32 launches equal ladder launches
+   equal device dispatches; the supervisor stays CLOSED with 0
+   failures and 0 skips and the service with 0 fallbacks; the control
+   close prewarms and launches nothing. It prints each close's wall, its
+   ledger.close.* zones and the garbage collector's passes, the
+   prewarm's wall and the flushes' walls.
 The oracle verdicts of the live tuples and of phase 5's tuples are
-computed in worker processes while phase 2 builds, those of phases 9,
-10, 11 and 12 while their runs go. It prints one `kernels` JSON line
+computed in worker processes while phase 2 builds, those of phases 9
+to 12 while their runs go, those of phase 13 before its runs. It prints one `kernels` JSON line
 (launches by path: verifier, live, sharded, hybrid, txset, classic,
-soroban, wasm), the card line, and last {"ok": true, "device": {...}}.
+soroban, wasm, close), the card line, and last {"ok": true, "device":
+{...}}.
 """
 
 import atexit
@@ -221,6 +247,29 @@ WASM_MIX = (("wasm_counter", 0.08), ("sig_ok", 0.03), ("sig_bad", 0.01),
 # the instructions resource of phase 12's fuel kind: one short of what an
 # env counter auth_bump with address credentials needs
 WASM_FUEL_INSTRUCTIONS = 426_254
+CLOSE_ACCOUNTS = 2000    # phase 13: accounts of the load generator's CREATE
+CLOSE_TXS = 1000         # phase 13: one-Payment transactions per ledger
+CLOSE_LEDGERS = 10       # phase 13: measured ledgers (BASELINE.json config #1)
+CLOSE_SEED = 9           # phase 13's permutations, mix and flipped bytes
+CLOSE_MIX = (("conflict", 0.02), ("flipped", 0.01))   # the rest: "pair"
+CLOSE_MAX_TX_SET = 1000  # the maxTxSetSize the setup votes through a close
+# the standalone node's network and the load generator's amounts
+# (docs/stellar-core-tpu_standalone.cfg; simulation/load_generator.py
+# generate_accounts, generate_payments; main/config.py PEER_PORT)
+CLOSE_PASSPHRASE = "Standalone Network ; February 2017"
+CLOSE_PEER_PORT = 11625
+CLOSE_BALANCE = 10_000_0000000
+CLOSE_AMOUNT = 10_000
+# the node's staged apply (main/config.py:190,192: APPLY_PARALLEL,
+# APPLY_PARALLEL_MIN_TXS)
+APPLY_PARALLEL, APPLY_PARALLEL_MIN_TXS = 4, 8
+CLOSE_ZONES = ("prepare", "fees", "applyTx", "applyTx.stage", "seal",
+               "seal.fsync", "seal.sql")
+CLOSE_TABLES = ("accounts", "trustlines", "offers", "accountdata",
+                "claimablebalance", "liquiditypool", "contractdata",
+                "contractcode", "configsettings", "ttl", "storestate",
+                "ledgerheaders", "txhistory", "txfeehistory",
+                "txsethistory")
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -1156,8 +1205,9 @@ def txset_workload(n, seed=TXSET_SEED):
 
 
 class RecordingVerifier:
-    """Passes verify_tuples to `inner` and keeps each call's tuples, its
-    verdicts and its wall time."""
+    """Passes verify_tuples and verify_tuples_async to `inner` and keeps
+    each call's tuples, its verdicts and its wall time (for an async
+    call, from dispatch to collected)."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -1169,6 +1219,17 @@ class RecordingVerifier:
         self.calls.append((list(items), list(out),
                            time.perf_counter() - t0))
         return out
+
+    def verify_tuples_async(self, items):
+        t0 = time.perf_counter()
+        collect = self.inner.verify_tuples_async(items)
+
+        def done():
+            out = collect()
+            self.calls.append((list(items), list(out),
+                               time.perf_counter() - t0))
+            return out
+        return done
 
 
 def contract_meta(meta):
@@ -2471,6 +2532,557 @@ def wasm_phase(card, n=WASM_N):
     return r.launches
 
 
+def close_modules():
+    """The port's modules a close run drives, by the short names
+    tests/torch_tx_parity.py's `Pkg` gives them."""
+    import importlib
+    from types import SimpleNamespace
+    return SimpleNamespace(**{k: importlib.import_module(
+        f"stellar_core_tpu_torch.{m}") for k, m in (
+        ("keys", "crypto.keys"), ("frame", "tx.frame"),
+        ("transaction", "xdr.transaction"), ("ledger", "xdr.ledger"),
+        ("tx_set", "herder.tx_set"), ("perf", "util.perf"),
+        ("ledger_manager", "ledger.ledger_manager"),
+        ("database", "db.database"), ("bucket_manager", "bucket.manager"),
+        ("persistent_state", "main.persistent_state"))})
+
+
+def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
+                   ledgers=CLOSE_LEDGERS, seed=CLOSE_SEED):
+    """Phase 13's closes as XDR bytes, built with the port only, for a
+    node whose genesis is at protocol 21 on the standalone network:
+    - a close with no transaction that votes LEDGER_UPGRADE_MAX_TX_SET_SIZE
+      = CLOSE_MAX_TX_SET (genesis admits 100 operations per set);
+    - closes that create `accounts` accounts with CreateAccount ops, 100
+      per transaction from the master, as the load generator's
+      generate_accounts does (its keys and starting balance), at most
+      CLOSE_MAX_TX_SET operations per close;
+    - `ledgers` measured closes of `txs` one-Payment transactions each
+      (native, CLOSE_AMOUNT stroops, fee 100, as generate_payments makes
+      them), a chosen mix placed by a seeded permutation: a fresh seeded
+      permutation of the accounts pairs source 2j with destination
+      2j + 1; CLOSE_MIX's "conflict" transactions pay the destination of
+      another ("pair") transaction of the ledger instead of their own,
+      which puts one of the two in a second stage, and its "flipped"
+      ones carry one flipped signature byte (txBAD_AUTH at apply, the fee
+      charged);
+    - one close in the load generator's PAY chain, order[i] paying
+      order[i + 1] over a seeded permutation: one conflict component, so
+      every stage has width 1 and nothing is prewarmed.
+    Needs accounts >= 2 * txs."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.tx_utils import starting_sequence_number
+    from stellar_core_tpu_torch.xdr.ledger import (LedgerUpgrade,
+                                                   LedgerUpgradeType)
+    from stellar_core_tpu_torch.xdr.ledger_entries import Asset, AssetType
+    from stellar_core_tpu_torch.xdr.transaction import (
+        CreateAccountOp, DecoratedSignature, Memo, MemoType, MuxedAccount,
+        Operation, OperationType, PaymentOp, Preconditions,
+        PreconditionType, Transaction, TransactionEnvelope,
+        TransactionV1Envelope, _OperationBody, _TxExt)
+    from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
+
+    if accounts < 2 * txs:
+        raise ValueError(f"close_workload: {accounts} accounts hold no "
+                         f"{txs} disjoint pairs")
+    rng = np.random.default_rng(seed)
+    network_id = sha256(CLOSE_PASSPHRASE.encode())
+    master = SecretKey.from_seed(network_id)
+    keys = [SecretKey.from_seed(sha256(b"loadgen-%d-%d"
+                                       % (i, CLOSE_PEER_PORT)))
+            for i in range(accounts)]
+
+    def envelope(sk, seq, ops, flip=False):
+        tx = Transaction(
+            sourceAccount=MuxedAccount.from_ed25519(sk.public_key().raw),
+            fee=100 * len(ops), seqNum=seq,
+            cond=Preconditions(PreconditionType.PRECOND_NONE),
+            memo=Memo(MemoType.MEMO_NONE), operations=ops, ext=_TxExt(0))
+        v1 = TransactionV1Envelope(tx=tx, signatures=[])
+        env = TransactionEnvelope(EnvelopeType.ENVELOPE_TYPE_TX, v1)
+        sig = bytearray(sk.sign(make_frame(env, network_id).contents_hash()))
+        if flip:
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        v1.signatures.append(DecoratedSignature(
+            hint=sk.public_key().hint(), signature=bytes(sig)))
+        return env.to_bytes()
+
+    def pay(i, j):
+        seqs[i] += 1
+        return seqs[i], [Operation(sourceAccount=None, body=_OperationBody(
+            OperationType.PAYMENT, PaymentOp(
+                destination=MuxedAccount.from_ed25519(
+                    keys[j].public_key().raw),
+                asset=Asset(AssetType.ASSET_TYPE_NATIVE),
+                amount=CLOSE_AMOUNT)))]
+
+    up = LedgerUpgrade(LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE,
+                       CLOSE_MAX_TX_SET)
+    closes = [dict(tag="upgrade", envelopes=[], upgrades=[up.to_bytes()])]
+    seqs, master_seq, created = {}, starting_sequence_number(1), 0
+    while created < accounts:
+        envs, ops_in, seq = [], 0, len(closes) + 2
+        while created < accounts and \
+                ops_in + min(100, accounts - created) <= CLOSE_MAX_TX_SET:
+            batch = range(created, min(created + 100, accounts))
+            master_seq += 1
+            envs.append(envelope(master, master_seq, [Operation(
+                sourceAccount=None, body=_OperationBody(
+                    OperationType.CREATE_ACCOUNT, CreateAccountOp(
+                        destination=PublicKey.ed25519(
+                            keys[i].public_key().raw),
+                        startingBalance=CLOSE_BALANCE))) for i in batch]))
+            for i in batch:
+                seqs[i] = starting_sequence_number(seq)
+            ops_in += len(batch)
+            created += len(batch)
+        closes.append(dict(tag="create", envelopes=envs, upgrades=[]))
+    for _ in range(ledgers):
+        perm = [int(x) for x in rng.permutation(accounts)]
+        kinds = ["pair"] * txs
+        order = rng.permutation(txs)
+        at = 0
+        for kind, share in CLOSE_MIX:
+            k = max(1, round(share * txs))
+            for j in order[at:at + k]:
+                kinds[j] = kind
+            at += k
+        pairs = [j for j in range(txs) if kinds[j] == "pair"]
+        targets = iter(int(t) for t in rng.choice(
+            pairs, size=kinds.count("conflict"), replace=False))
+        envs = []
+        for j, kind in enumerate(kinds):
+            dst = perm[2 * next(targets) + 1] if kind == "conflict" \
+                else perm[2 * j + 1]
+            envs.append(envelope(keys[perm[2 * j]], *pay(perm[2 * j], dst),
+                                 flip=kind == "flipped"))
+        closes.append(dict(tag="measured", envelopes=envs, upgrades=[],
+                           kinds=kinds))
+    chain = [int(x) for x in rng.permutation(accounts)]
+    closes.append(dict(tag="control", upgrades=[], envelopes=[
+        envelope(keys[chain[i]], *pay(chain[i], chain[i + 1]))
+        for i in range(txs)]))
+    return {"network_id": network_id, "passphrase": CLOSE_PASSPHRASE,
+            "closes": closes}
+
+
+def counted_verify_cache(keys):
+    """Make the process verify cache's lookups count exactly from the
+    staged apply's worker threads (its counters are plain attribute
+    increments); returns the undo."""
+    import threading
+    cache, lock = keys._verify_cache, threading.Lock()
+    probe = type(cache).maybe_get.__get__(cache)
+
+    def maybe_get(key):
+        with lock:
+            return probe(key)
+    cache.maybe_get = maybe_get
+    return lambda: vars(cache).pop("maybe_get", None)
+
+
+def collector_pauses():
+    """Time every pass of Python's garbage collector from now on:
+    returns the list that collects (generation, seconds) per pass and
+    the undo."""
+    import gc
+    pauses, start = [], []
+
+    def timed(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            pauses.append((info["generation"],
+                           time.perf_counter() - start.pop()))
+    gc.callbacks.append(timed)
+    return pauses, lambda: gc.callbacks.remove(timed)
+
+
+def close_node(pkg, directory, passphrase, meta=None):
+    """A LedgerManager over a sqlite Database and a BucketManager in
+    `directory` (new ones, or those a run left there), with the
+    persistent state and network passphrase the Application gives it;
+    its own perf zone registry."""
+    db = pkg.database.Database(os.path.join(directory, "node.db"))
+    db.upgrade_to_current_schema()
+    bm = pkg.bucket_manager.BucketManager(os.path.join(directory, "buckets"))
+    lm = pkg.ledger_manager.LedgerManager(db=db, bucket_manager=bm,
+                                          meta_stream=meta)
+    lm.persistent_state = pkg.persistent_state.PersistentState(db)
+    lm.network_passphrase = passphrase
+    lm.perf = pkg.perf.ZoneRegistry()
+    return lm
+
+
+def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
+              on_close=None):
+    """Genesis at protocol 21 and every close of `wl` on `close_node` in
+    `directory`, each close from its envelope bytes through
+    make_tx_set_from_transactions and LedgerManager.close_ledger, then
+    join_completion, as the manual close does. `staged` sets the node's
+    staged apply (APPLY_PARALLEL workers from APPLY_PARALLEL_MIN_TXS
+    transactions); `verify_service` is the manager's, whose per-stage
+    prewarm it serves. Per close it records the header, its hash, the
+    result pairs and the LedgerCloseMeta as bytes, the bucket levels'
+    hashes, the stages' widths, the verify cache's (hits, misses) during
+    the close, the prewarm's wall, the close's wall, its
+    `ledger.close.*` zones and the garbage collector's passes during it
+    (their seconds, and how many were full, generation 2); then every
+    row of CLOSE_TABLES, sorted, and the
+    bucket files' names with the sha256 of their bytes. `on_close(i,
+    tag)` runs just before close i. `pkg` holds the modules of the
+    package to run, by `close_modules()`'s names (the port's by
+    default)."""
+    pkg = pkg or close_modules()
+    metas = []
+    lm = close_node(pkg, directory, wl["passphrase"], metas.append)
+    nid = wl["network_id"]
+    if staged:
+        lm.apply_parallel = APPLY_PARALLEL
+        lm.apply_parallel_min_txs = APPLY_PARALLEL_MIN_TXS
+    lm.verify_service = verify_service
+    prewarm = []
+    inner = lm._prewarm_stage_verify
+
+    def timed_prewarm(stage_txs):
+        t0 = time.perf_counter()
+        inner(stage_txs)
+        prewarm.append(time.perf_counter() - t0)
+    lm._prewarm_stage_verify = timed_prewarm
+    undo = counted_verify_cache(pkg.keys)
+    pauses, undo_gc = collector_pauses()
+    try:
+        lm.start_new_ledger(nid, protocol_version=21)
+        genesis = lm.get_last_closed_ledger_hash()
+        out = []
+        for i, c in enumerate(wl["closes"]):
+            if on_close is not None:
+                on_close(i, c["tag"])
+            lcl = lm.get_last_closed_ledger_header()
+            frames = [pkg.frame.make_frame(
+                pkg.transaction.TransactionEnvelope.from_bytes(b), nid)
+                for b in c["envelopes"]]
+            frame, _, excluded = pkg.tx_set.make_tx_set_from_transactions(
+                frames, lcl, nid)
+            if excluded:
+                raise SystemExit(f"close {i}: surge pricing left out "
+                                 f"{len(excluded)} transactions")
+            value = pkg.ledger.StellarValue(
+                txSetHash=frame.get_contents_hash(),
+                closeTime=1_700_000_000 + lcl.ledgerSeq,
+                upgrades=list(c["upgrades"]))
+            zones = lm.perf.report()
+            prewarm.clear()
+            pauses.clear()
+            pkg.keys.flush_verify_cache_counts()
+            t0 = time.perf_counter()
+            lm.close_ledger(pkg.ledger_manager.LedgerCloseData(
+                lcl.ledgerSeq + 1, frame, value))
+            lm.join_completion()
+            wall = time.perf_counter() - t0
+            cache = pkg.keys.flush_verify_cache_counts()
+            after = lm.perf.report()
+            header = lm.get_last_closed_ledger_header()
+            meta = metas[-1]
+            out.append(dict(
+                tag=c["tag"], header=header.to_bytes(),
+                hash=lm.get_last_closed_ledger_hash(),
+                results=[t.result.to_bytes()
+                         for t in meta.value.txProcessing],
+                meta=meta.to_bytes(),
+                buckets=[(lvl.curr.hash, lvl.snap.hash) for lvl in
+                         lm.bucket_manager.bucket_list.levels],
+                widths=list(lm.last_stage_widths), cache=cache,
+                prewarm_s=sum(prewarm), wall_s=wall,
+                gc_s=sum(t for _, t in pauses),
+                gc_full=sum(g == 2 for g, _ in pauses),
+                zones_ms={z: after.get(f"ledger.close.{z}", {}).get(
+                    "total_ms", 0.0) - zones.get(f"ledger.close.{z}",
+                                                 {}).get("total_ms", 0.0)
+                    for z in CLOSE_ZONES}))
+        rows = {t: sorted(lm.db.execute(f"SELECT * FROM {t}").fetchall())
+                for t in CLOSE_TABLES}
+    finally:
+        undo_gc()
+        undo()
+        lm.join_completion(reraise=False)
+        lm.bucket_manager.shutdown()
+        lm.db.close()
+    bdir = os.path.join(directory, "buckets")
+    files = {}
+    for f in sorted(os.listdir(bdir)):
+        with open(os.path.join(bdir, f), "rb") as fh:
+            files[f] = hashlib.sha256(fh.read()).hexdigest()
+    return {"genesis": genesis, "ledgers": out, "rows": rows,
+            "files": files, "lcl": out[-1]["hash"] if out else genesis}
+
+
+def close_reload(directory, passphrase, pkg=None):
+    """A fresh LedgerManager over the database and bucket directory a
+    close run left in `directory`: (load_last_known_ledger(), its LCL
+    hash, its LCL sequence)."""
+    pkg = pkg or close_modules()
+    lm = close_node(pkg, directory, passphrase)
+    try:
+        loaded = lm.load_last_known_ledger()
+        return (loaded, lm.get_last_closed_ledger_hash(),
+                lm.get_last_closed_ledger_num())
+    finally:
+        lm.bucket_manager.shutdown()
+        lm.db.close()
+
+
+def close_expected(widths, max_batch, min_batch):
+    """What the prewarm of one close must do, from its stages' widths:
+    one tuple per transaction of every stage of 2 or more, each stage
+    flushed as submit_many does at `max_batch` (floor(w / max_batch)
+    `batch_full` flushes, then one `demand` flush of the remainder when
+    the first future is awaited); a flush of at least `min_batch`
+    tuples is a device dispatch, a smaller one the verifier's native
+    bypass; every transaction of a width-1 stage verifies at apply
+    without a prewarm (a cache miss), every prewarmed tuple is a hit."""
+    staged = [w for w in widths if w > 1]
+    flushes = [max_batch] * sum(w // max_batch for w in staged) + \
+        [w % max_batch for w in staged if w % max_batch]
+    return {"tuples": sum(staged),
+            "batch_full": sum(w // max_batch for w in staged),
+            "demand": sum(1 for w in staged if w % max_batch),
+            "device": sum(n >= min_batch for n in flushes),
+            "bypass": sum(n < min_batch for n in flushes),
+            "cache": (sum(staged), len(widths) - len(staged))}
+
+def close_phase(card, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
+                ledgers=CLOSE_LEDGERS):
+    """Phase 13: persistence and ledger close (BASELINE.json config #1,
+    standalone) with the staged apply's per-stage signature prewarm on
+    the card. `close_workload(accounts, txs, ledgers)` runs twice from
+    the same bytes, each on a node of its own in a fresh directory: run
+    A with the node's wiring (APPLY_PARALLEL workers from
+    APPLY_PARALLEL_MIN_TXS transactions, the manager's verify service
+    VerifyService(BackendSupervisor(CudaBatchVerifier())) at the node's
+    LIVE defaults, as phase 7 builds it), run B the same with no verify
+    service (the native path). The verify cache is cleared before each
+    run and the launch counters are set to 0 just before run A and read
+    just after; the oracle verdicts of the measured closes' signatures
+    come from worker processes before the runs, so that no worker
+    shares the host's cores with them. Fails unless A equals B on
+    every close's header, hash, result pairs, LedgerCloseMeta and
+    bucket levels and on the final rows and bucket files; a fresh
+    LedgerManager over A's database and bucket directory loads A's LCL;
+    every prewarm verdict equals the oracle; each close's stages,
+    submits, flushes by reason, device dispatches and bypasses are
+    those `close_expected` gives from its stage widths; prep msg32
+    launches equal ladder launches equal the supervisor's device
+    dispatches, more than 0, with no k launch; the supervisor ends
+    CLOSED with 0 failures and 0 skips and the service with 0
+    fallbacks; during each close of A the verify cache misses once per
+    transaction of a width-1 stage and hits once per prewarmed tuple
+    more than in B's close; B misses once per transaction; the control
+    close submits nothing and launches nothing; the flipped transactions
+    end txBAD_AUTH and the rest txSUCCESS. Returns the launches of run A
+    by kernel."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.signature_checker import \
+        collect_signature_tuples
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.perf import ZoneRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.xdr.results import (TransactionResultCode,
+                                                    TransactionResultPair)
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+
+    t0 = time.perf_counter()
+    wl = close_workload(accounts, txs, ledgers)
+    build_s = time.perf_counter() - t0
+    nid = wl["network_id"]
+    tuples = [collect_signature_tuples([make_frame(
+        TransactionEnvelope.from_bytes(b), nid) for b in c["envelopes"]])
+        for c in wl["closes"]]
+    measured = sorted({t for c, ts in zip(wl["closes"], tuples)
+                       if c["tag"] == "measured" for t in ts})
+    reg, perf = MetricsRegistry(), ZoneRegistry()
+    clock = VirtualClock(ClockMode.REAL_TIME)
+    sup = BackendSupervisor(
+        CudaBatchVerifier(perf=perf, metrics=reg,
+                          device_min_batch=LIVE["device_min_batch"]),
+        clock=clock, metrics=reg, perf=perf,
+        dispatch_deadline_ms=LIVE["dispatch_deadline_ms"],
+        canary_batch=LIVE["canary_batch"])
+    rec = RecordingVerifier(sup)
+    svc = VerifyService(rec, clock=clock, metrics=reg, perf=perf,
+                        max_batch=LIVE["max_batch"],
+                        deadline_ms=LIVE["deadline_ms"])
+    snaps = []
+
+    def snapshot(*_):
+        st = svc.stats()
+        snaps.append(dict(
+            submitted=st["submitted"], reasons=dict(st["flush_reasons"]),
+            device=reg.to_json()["crypto.verify.dispatch.batch"]["count"],
+            native=perf.report().get("crypto.batchVerify.native",
+                                     {"count": 0})["count"],
+            calls=len(rec.calls), launches=launch_counts()))
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-close-")
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    try:
+        t0 = time.perf_counter()
+        want = dict(zip(measured, pool.starmap(ref.verify, measured,
+                                               chunksize=64)))
+        oracle_s = time.perf_counter() - t0
+        pool.close()
+        clear_verify_cache()
+        zero_launches()
+        t0 = time.perf_counter()
+        a = close_run(wl, os.path.join(work, "a"), verify_service=svc,
+                      on_close=snapshot)
+        a_s = time.perf_counter() - t0
+        snapshot()
+        launches = launch_counts()
+        clear_verify_cache()
+        zero_launches()
+        t0 = time.perf_counter()
+        b = close_run(wl, os.path.join(work, "b"))
+        b_s = time.perf_counter() - t0
+        b_launches = launch_counts()
+        reload = close_reload(os.path.join(work, "a"), wl["passphrase"])
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(work, ignore_errors=True)
+    st = sup.status()
+    stats = svc.stats()
+    sup.shutdown()
+
+    problems = []
+    for i, (la, lb) in enumerate(zip(a["ledgers"], b["ledgers"])):
+        for key in ("header", "hash", "results", "meta", "buckets"):
+            if la[key] != lb[key]:
+                problems.append(f"close {i}: runs A and B differ in {key}")
+    for key in ("rows", "files", "lcl"):
+        if a[key] != b[key]:
+            problems.append(f"runs A and B differ in {key}")
+    if reload[:2] != (True, a["lcl"]):
+        problems.append(f"a fresh LedgerManager over run A's files loaded "
+                        f"{reload[0]} at {reload[1].hex()[:16]}, not "
+                        f"{a['lcl'].hex()[:16]}")
+    off = sum(g != want.get(t) for items, got, _ in rec.calls
+              for t, g in zip(items, got))
+    if off:
+        problems.append(f"{off} prewarm verdicts differ from the oracle")
+    device = snaps[-1]["device"]
+    if not device or launches != {"msg32": device, "k": 0,
+                                  "ladder": device}:
+        problems.append(f"run A launched {launches} for {device} device "
+                        "dispatches")
+    if any(b_launches.values()):
+        problems.append(f"run B launched {b_launches}")
+    if st["state"] != CLOSED or any(st["failures"].values()) or \
+            st["skips"] or st["transitions"] or stats["fallbacks"]:
+        problems.append(f"supervisor: {st['state']}, failures "
+                        f"{st['failures']}, skips {st['skips']}, "
+                        f"transitions {st['transitions']}; service "
+                        f"fallbacks {stats['fallbacks']}")
+    if st["dispatches"] != device + snaps[-1]["native"]:
+        problems.append(f"supervisor dispatches {st['dispatches']} != "
+                        f"{device} device + {snaps[-1]['native']} bypassed")
+    rows = []
+    for i, (c, la, lb) in enumerate(zip(wl["closes"], a["ledgers"],
+                                        b["ledgers"])):
+        s0, s1 = snaps[i], snaps[i + 1]
+        exp = close_expected(la["widths"], LIVE["max_batch"],
+                             LIVE["device_min_batch"])
+        got = dict(tuples=s1["submitted"] - s0["submitted"],
+                   batch_full=s1["reasons"]["batch_full"]
+                   - s0["reasons"]["batch_full"],
+                   demand=s1["reasons"]["demand"] - s0["reasons"]["demand"],
+                   device=s1["device"] - s0["device"],
+                   bypass=s1["native"] - s0["native"],
+                   cache=(la["cache"][0] - lb["cache"][0], la["cache"][1]))
+        if got != exp or lb["widths"] != la["widths"] or \
+                lb["cache"][1] != len(c["envelopes"]):
+            problems.append(f"close {i} ({c['tag']}): prewarm {got} (the "
+                            f"cache: A's hits over B's, A's misses), "
+                            f"expected {exp} from stages {la['widths'][:4]}"
+                            f"...; B's cache {lb['cache']} for "
+                            f"{len(c['envelopes'])} transactions")
+        flushed = collections.Counter(
+            t for items, _, _ in rec.calls[s0["calls"]:s1["calls"]]
+            for t in items)
+        if flushed - collections.Counter(tuples[i]):
+            problems.append(f"close {i}: a prewarm flush holds a tuple "
+                            "that is not the close's")
+        if c["tag"] == "measured":
+            codes = collections.Counter(
+                TransactionResultPair.from_bytes(r).result.result.disc
+                for r in la["results"])
+            flipped = c["kinds"].count("flipped")
+            if codes != {TransactionResultCode.txSUCCESS:
+                         len(c["envelopes"]) - flipped,
+                         TransactionResultCode.txBAD_AUTH: flipped}:
+                problems.append(f"close {i}: results {dict(codes)}")
+        if c["tag"] == "control" and (got["tuples"] or got["device"] or
+                                      s1["launches"] != s0["launches"]):
+            problems.append(f"the control close prewarmed {got} and "
+                            f"launched {s1['launches']} after "
+                            f"{s0['launches']}")
+        rows.append((c, la, lb, got))
+    if problems:
+        raise SystemExit("close: " + "; ".join(problems))
+
+    walls = [w for _, _, w in rec.calls]
+    print(f"close: {accounts} accounts, {ledgers} closes of {txs} "
+          f"one-Payment transactions (chosen mix {dict(CLOSE_MIX)}, the "
+          f"rest disjoint pairs) and one PAY-chain control close; built in "
+          f"{build_s:.3f} s; the oracle of {len(measured)} signatures in "
+          f"{oracle_s:.3f} s before the runs; run A (staged apply, prewarm "
+          f"on the card) "
+          f"{a_s:.3f} s, run B (staged apply, no verify service) {b_s:.3f} "
+          f"s [{card}]", flush=True)
+    for i, (c, la, lb, got) in enumerate(rows):
+        widths = collections.Counter(la["widths"])
+        print(f"  close {i + 2} {c['tag']}: {len(c['envelopes'])} txs, "
+              f"stages {len(la['widths'])} widths "
+              f"{dict(sorted(widths.items(), reverse=True))}; prewarm "
+              f"{got['tuples']} tuples, flushes batch_full "
+              f"{got['batch_full']} demand {got['demand']}, device "
+              f"{got['device']} bypass {got['bypass']}; cache (hits, "
+              f"misses) A {la['cache']} B {lb['cache']}; wall A "
+              f"{la['wall_s'] * 1e3:.1f} ms (prewarm "
+              f"{la['prewarm_s'] * 1e3:.2f} ms) B {lb['wall_s'] * 1e3:.1f} "
+              f"ms (prewarm {lb['prewarm_s'] * 1e3:.2f} ms); collector A "
+              f"{la['gc_s'] * 1e3:.1f} ms ({la['gc_full']} full) B "
+              f"{lb['gc_s'] * 1e3:.1f} ms ({lb['gc_full']} full); zones A "
+              + " ".join(f"{z}={v:.1f}" for z, v in la["zones_ms"].items())
+              + " B " + " ".join(f"{z}={v:.1f}"
+                                 for z, v in lb["zones_ms"].items()),
+              flush=True)
+    print(f"close: {len(walls)} prewarm flushes, dispatch to collected "
+          f"min {min(walls) * 1e3:.2f} / median "
+          f"{statistics.median(walls) * 1e3:.2f} / max "
+          f"{max(walls) * 1e3:.2f} ms; run B made none; launches prep "
+          f"msg32 {launches['msg32']} = ladder {launches['ladder']} = "
+          f"device dispatches {device}; supervisor dispatches "
+          f"{st['dispatches']}, failures 0, skips 0, CLOSED; service "
+          f"submits {stats['submitted']}, flushes by reason "
+          f"{stats['flush_reasons']}, fallbacks 0; runs A and B equal on "
+          f"every header, result, meta and bucket level, LCL "
+          f"{a['lcl'].hex()[:16]} at ledger {reload[2]}, the final rows "
+          f"and {len(a['files'])} bucket files; reloaded from run A's "
+          f"files; every prewarm verdict equals the oracle [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2816,11 +3428,14 @@ def main():
     # --- 12. wasm contracts on the card's txset path --------------------
     wasm = wasm_phase(card)
 
+    # --- 13. persistence and ledger close, the stage prewarm on the card -
+    close = close_phase(card)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
-    # of phase 10 (classic), run A of phase 11 (soroban) and run A of
-    # phase 12 (wasm)
+    # of phase 10 (classic), run A of phase 11 (soroban), run A of
+    # phase 12 (wasm) and run A of phase 13 (close)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -2829,7 +3444,8 @@ def main():
             "sharded": mesh["sharded"].get(kind, 0),
             "hybrid": mesh["hybrid"].get(kind, 0),
             "txset": txset[kind], "classic": classic[kind],
-            "soroban": soroban[kind], "wasm": wasm[kind]}
+            "soroban": soroban[kind], "wasm": wasm[kind],
+            "close": close[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):

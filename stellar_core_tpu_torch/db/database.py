@@ -1,0 +1,386 @@
+"""Database facade over sqlite3.
+
+Reference shape: src/database/Database.{h,cpp} — a soci session wrapper
+with a prepared-statement cache, schema version table and stepwise
+`applySchemaUpgrade` (Database.cpp:208-265), plus table layout documented
+in docs/db-schema.md (XDR stored as base64/hex TEXT columns; here raw
+BLOBs — sqlite handles them natively and there is no wire-compat
+requirement on the DB file).
+
+Tables created at `initialize()`:
+  storestate      — PersistentState key/value (main/PersistentState.h)
+  ledgerheaders   — one row per closed ledger (header XDR + hash)
+  txhistory/txfeehistory — applied transactions + fee changes per ledger
+  scphistory/scpquorums  — externalized SCP messages / quorum sets
+  accounts/trustlines/offers/accountdata/claimablebalance/liquiditypool
+                  — one table per classic ledger-entry type, keyed by the
+                    XDR-serialized LedgerKey, entry stored as LedgerEntry
+                    XDR BLOB (written by LedgerTxnRoot on commit)
+  peers           — overlay peer records (PeerManager)
+  ban             — banned node ids (BanManager)
+  pubsub          — ExternalQueue cursors
+  quoruminfo      — survey/quorum tracking
+"""
+
+from __future__ import annotations
+
+import os
+import sqlite3
+import threading
+from typing import Any, Iterable, Optional
+
+from ..util import chaos
+from ..util.logging import get_logger
+from ..util.metrics import MetricsRegistry
+
+log = get_logger("Database")
+
+# reference: MIN_SCHEMA_VERSION..SCHEMA_VERSION stepwise upgrades
+# (Database.cpp:65-66, 208-265). Every version in
+# [MIN_SCHEMA_VERSION, SCHEMA_VERSION] has a stepwise
+# _apply_schema_upgrade so on-disk state survives software upgrades.
+MIN_SCHEMA_VERSION = 1
+SCHEMA_VERSION = 3
+
+# v2: transaction-hash lookup indexes. txhistory/txfeehistory key on
+# (ledgerseq, txindex); every by-txid read (HTTP tx-result lookups,
+# catchup acceptance checks) was a full scan on v1 databases.
+SCHEMA_V2_STATEMENTS = (
+    "CREATE INDEX IF NOT EXISTS histbytxid ON txhistory (txid)",
+    "CREATE INDEX IF NOT EXISTS feehistbytxid ON txfeehistory (txid)",
+    "CREATE INDEX IF NOT EXISTS scpenvsbyseq ON scphistory (ledgerseq)",
+)
+
+# v3: durable publish queue (reference: the publishqueue table,
+# HistoryManagerImpl::takeSnapshotAndQueue) — a checkpoint queued but
+# not yet published survives a crash, carrying its queue-time HAS
+SCHEMA_V3_STATEMENTS = (
+    "CREATE TABLE IF NOT EXISTS publishqueue ("
+    "ledgerseq INTEGER PRIMARY KEY, has TEXT)",
+)
+
+_ENTRY_TABLES = ("accounts", "trustlines", "offers", "accountdata",
+                 "claimablebalance", "liquiditypool", "contractdata",
+                 "contractcode", "configsettings", "ttl")
+
+
+def schema_statements() -> list:
+    """The full DDL, in sqlite dialect (the canonical form; the
+    postgres backend mechanically translates types — reference
+    analogue: Database::initialize + each manager's dropAll)."""
+    stmts = [
+        "CREATE TABLE IF NOT EXISTS storestate ("
+        "statename TEXT PRIMARY KEY, state TEXT)",
+        "CREATE TABLE IF NOT EXISTS ledgerheaders ("
+        "ledgerhash BLOB PRIMARY KEY, prevhash BLOB, "
+        "ledgerseq INTEGER UNIQUE, closetime INTEGER, data BLOB)",
+        "CREATE TABLE IF NOT EXISTS txhistory ("
+        "txid BLOB, ledgerseq INTEGER, txindex INTEGER, "
+        "txbody BLOB, txresult BLOB, txmeta BLOB, "
+        "PRIMARY KEY (ledgerseq, txindex))",
+        "CREATE TABLE IF NOT EXISTS txfeehistory ("
+        "txid BLOB, ledgerseq INTEGER, txindex INTEGER, "
+        "txchanges BLOB, PRIMARY KEY (ledgerseq, txindex))",
+        "CREATE TABLE IF NOT EXISTS txsethistory ("
+        "ledgerseq INTEGER PRIMARY KEY, isgeneralized INTEGER, "
+        "txset BLOB)",
+        "CREATE TABLE IF NOT EXISTS scphistory ("
+        "nodeid BLOB, ledgerseq INTEGER, envelope BLOB)",
+        "CREATE TABLE IF NOT EXISTS scpquorums ("
+        "qsethash BLOB PRIMARY KEY, lastledgerseq INTEGER, qset BLOB)",
+    ]
+    for t in _ENTRY_TABLES:
+        if t == "offers":
+            continue
+        stmts.append(f"CREATE TABLE IF NOT EXISTS {t} ("
+                     "key BLOB PRIMARY KEY, entry BLOB, "
+                     "lastmodified INTEGER)")
+    stmts += [
+        # offers carry order-book columns so best-offer queries run in
+        # SQL (reference: LedgerTxnOfferSQL.cpp loadBestOffers)
+        "CREATE TABLE IF NOT EXISTS offers ("
+        "key BLOB PRIMARY KEY, entry BLOB, lastmodified INTEGER, "
+        "sellerid BLOB, offerid INTEGER UNIQUE, "
+        "sellingasset BLOB, buyingasset BLOB, "
+        "pricen INTEGER, priced INTEGER, price REAL)",
+        "CREATE INDEX IF NOT EXISTS bestofferindex ON offers "
+        "(sellingasset, buyingasset, price, offerid)",
+        "CREATE INDEX IF NOT EXISTS offersbyseller ON offers "
+        "(sellerid)",
+        "CREATE TABLE IF NOT EXISTS peers ("
+        "ip TEXT, port INTEGER, nextattempt INTEGER, "
+        "numfailures INTEGER, type INTEGER, PRIMARY KEY (ip, port))",
+        "CREATE TABLE IF NOT EXISTS ban (nodeid BLOB PRIMARY KEY)",
+        "CREATE TABLE IF NOT EXISTS pubsub ("
+        "resid TEXT PRIMARY KEY, lastread INTEGER)",
+        "CREATE TABLE IF NOT EXISTS quoruminfo ("
+        "nodeid BLOB PRIMARY KEY, qsethash BLOB)",
+    ]
+    stmts.extend(SCHEMA_V2_STATEMENTS)   # fresh DBs start at the
+    stmts.extend(SCHEMA_V3_STATEMENTS)   # current schema version
+    return stmts
+
+
+# secondary UNIQUE constraints: sqlite's OR REPLACE silently deletes
+# rows conflicting on ANY unique index; the postgres translation must
+# pre-delete on these before its single-target ON CONFLICT upsert
+TABLE_SECONDARY_UNIQUES = {
+    "ledgerheaders": ("ledgerseq",),
+    "offers": ("offerid",),
+}
+
+# conflict targets for INSERT OR REPLACE translation (postgres upserts
+# need the explicit unique column set)
+TABLE_CONFLICT_KEYS = {
+    "storestate": ("statename",),
+    "ledgerheaders": ("ledgerhash",),
+    "txhistory": ("ledgerseq", "txindex"),
+    "txfeehistory": ("ledgerseq", "txindex"),
+    "txsethistory": ("ledgerseq",),
+    "scpquorums": ("qsethash",),
+    "peers": ("ip", "port"),
+    "ban": ("nodeid",),
+    "pubsub": ("resid",),
+    "quoruminfo": ("nodeid",),
+    "publishqueue": ("ledgerseq",),
+    **{t: ("key",) for t in _ENTRY_TABLES},
+}
+
+
+def create_database(config, metrics=None):
+    """Backend factory keyed on the DATABASE config URI (reference:
+    Database.cpp's soci backend selection, Database.h:87-195)."""
+    uri = config.DATABASE
+    if uri.startswith("sqlite3://"):
+        return Database(uri[len("sqlite3://"):], metrics=metrics)
+    if uri.startswith("postgresql://"):
+        from .postgres import PostgresDatabase
+        return PostgresDatabase(uri, metrics=metrics)
+    raise ValueError(f"unsupported DATABASE: {uri}")
+
+
+# tables written by the deferred ledger-close completion segment; any
+# statement touching them first joins the completion queue so readers
+# never observe a ledger whose history rows are still in flight
+_CLOSE_COMPLETION_TABLES = ("txhistory", "txsethistory", "txfeehistory")
+
+
+class SchemaMixin:
+    """Backend-independent schema machinery shared by the sqlite and
+    postgres backends (reference: Database::applySchemaUpgrade is
+    backend-neutral over the soci session the same way)."""
+
+    # exception types meaning "table does not exist yet"
+    _missing_table_errors: tuple = ()
+
+    # barrier callbacks joined before completion-owned-table statements
+    _close_barriers: list = None
+    _tx_owner = None
+
+    def add_close_barrier(self, fn) -> None:
+        """Register a ledger-close completion barrier (LedgerManager
+        wires its completion queue's `reader_barrier` here)."""
+        if self._close_barriers is None:
+            self._close_barriers = []
+        self._close_barriers.append(fn)
+
+    def _completion_barrier(self, sql: str) -> None:
+        barriers = self._close_barriers
+        if not barriers:
+            return
+        if not any(t in sql for t in _CLOSE_COMPLETION_TABLES):
+            return
+        # a thread already inside its own transaction must not block on
+        # the worker (which may need this connection's lock): callers
+        # that read completion tables transactionally join beforehand
+        if self._tx_owner is threading.current_thread():
+            return
+        for fn in barriers:
+            fn()
+
+    def query_one(self, sql: str, params: Iterable[Any] = ()):
+        return self.execute(sql, params).fetchone()
+
+    def query_all(self, sql: str, params: Iterable[Any] = ()):
+        return self.execute(sql, params).fetchall()
+
+    def initialize(self) -> None:
+        """Create all tables from scratch (reference: `new-db`,
+        Database::initialize + each manager's dropAll)."""
+        with self.transaction():
+            for stmt in schema_statements():
+                self.execute(stmt)
+            self.put_schema_version(SCHEMA_VERSION)
+        log.info("database initialized (schema v%d) at %s",
+                 SCHEMA_VERSION, self.path)
+
+    def get_schema_version(self) -> int:
+        try:
+            row = self.query_one(
+                "SELECT state FROM storestate WHERE statename='dbschema'")
+            return int(row[0]) if row else 0
+        except self._missing_table_errors:
+            return 0
+
+    def put_schema_version(self, v: int) -> None:
+        self.execute(
+            "INSERT OR REPLACE INTO storestate (statename, state) "
+            "VALUES ('dbschema', ?)", (str(v),))
+
+    def upgrade_to_current_schema(self) -> None:
+        """Stepwise schema upgrade (reference: Database.cpp:208-240).
+        v0 (no schema at all) takes the full initialize() path; every
+        later step is a pure delta so the ladder composes."""
+        v = self.get_schema_version()
+        if v > SCHEMA_VERSION:
+            raise RuntimeError(
+                f"DB schema v{v} is newer than supported v{SCHEMA_VERSION}")
+        if v == 0:
+            self.initialize()
+            return
+        if v < MIN_SCHEMA_VERSION:
+            raise RuntimeError(
+                f"DB schema v{v} is older than the minimum supported "
+                f"v{MIN_SCHEMA_VERSION}; re-create with new-db")
+        while v < SCHEMA_VERSION:
+            v += 1
+            self._apply_schema_upgrade(v)
+            self.put_schema_version(v)
+
+    def _apply_schema_upgrade(self, v: int) -> None:
+        """One pure-delta version step (reference:
+        Database::applySchemaUpgrade, Database.cpp:208-265)."""
+        log.info("applying schema upgrade to v%d", v)
+        if v == 2:
+            with self.transaction():
+                for stmt in SCHEMA_V2_STATEMENTS:
+                    self.execute(stmt)
+        elif v == 3:
+            with self.transaction():
+                for stmt in SCHEMA_V3_STATEMENTS:
+                    self.execute(stmt)
+        else:
+            raise RuntimeError(f"unknown schema version {v}")
+
+    def entry_tables(self) -> tuple:
+        return _ENTRY_TABLES
+
+
+class Database(SchemaMixin):
+    """One sqlite connection per Database instance.
+
+    check_same_thread=False with an explicit lock: the node is
+    single-main-threaded by design (docs/architecture.md:24-36), but
+    background work (bucket apply, tests) may touch the DB under the
+    session lock.
+    """
+
+    _missing_table_errors = (sqlite3.OperationalError,)
+
+    def __init__(self, path: str = ":memory:",
+                 metrics: Optional[MetricsRegistry] = None):
+        self.path = path
+        if path != ":memory:":
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._conn = sqlite3.connect(
+            path, check_same_thread=False, cached_statements=256)
+        self._conn.isolation_level = None   # explicit transaction control
+        self._lock = threading.RLock()
+        self._tx_depth = 0
+        self._metrics = metrics
+        self._query_meter = (metrics.meter("database", "query", "exec")
+                            if metrics else None)
+        self.execute("PRAGMA journal_mode=WAL")
+        self.execute("PRAGMA synchronous=NORMAL")
+
+    # ---------------------------------------------------------------- core --
+    def execute(self, sql: str, params: Iterable[Any] = ()) -> sqlite3.Cursor:
+        self._completion_barrier(sql)
+        with self._lock:
+            if self._query_meter:
+                self._query_meter.mark()
+            return self._conn.execute(sql, tuple(params))
+
+    def executemany(self, sql: str, rows: Iterable[Iterable[Any]]) -> None:
+        self._completion_barrier(sql)
+        rows = list(rows)
+        with self._lock:
+            if self._query_meter:
+                # meter per row so batched writes stay visible in the
+                # database.query metrics an operator watches
+                self._query_meter.mark(len(rows))
+            self._conn.executemany(sql, rows)
+
+    # -------------------------------------------------------- transactions --
+    class _TxScope:
+        """Nested transaction scope via SAVEPOINTs (reference:
+        soci::transaction held open across a ledger close,
+        ledger/LedgerManagerImpl.cpp:715-936).
+
+        The session lock is HELD for the whole scope: the ledger-close
+        completion worker and the main thread both write through this
+        connection, and interleaving statements inside an open
+        BEGIN/SAVEPOINT would corrupt the shared depth machinery.  The
+        lock is an RLock, so same-thread nesting still works."""
+
+        def __init__(self, db: "Database"):
+            self._db = db
+            self._done = False
+
+        def __enter__(self):
+            db = self._db
+            db._lock.acquire()
+            try:
+                if db._tx_depth == 0:
+                    db._conn.execute("BEGIN")
+                    db._tx_owner = threading.current_thread()
+                else:
+                    db._conn.execute(f"SAVEPOINT sp{db._tx_depth}")
+                db._tx_depth += 1
+                self._depth = db._tx_depth
+            except BaseException:
+                db._lock.release()
+                raise
+            return self
+
+        def __exit__(self, exc_type, exc, tb):
+            db = self._db
+            try:
+                db._tx_depth -= 1
+                if exc_type is None:
+                    if db._tx_depth == 0:
+                        if chaos.ENABLED:
+                            # a simulated commit failure must leave the
+                            # connection clean: roll back, then raise —
+                            # exactly what a real failed COMMIT leaves
+                            try:
+                                chaos.point("db.commit", db=db.path)
+                            except BaseException:
+                                db._conn.execute("ROLLBACK")
+                                raise
+                        db._conn.execute("COMMIT")
+                    else:
+                        db._conn.execute(f"RELEASE sp{db._tx_depth}")
+                else:
+                    if db._tx_depth == 0:
+                        db._conn.execute("ROLLBACK")
+                    else:
+                        db._conn.execute(
+                            f"ROLLBACK TO sp{db._tx_depth}")
+                        db._conn.execute(f"RELEASE sp{db._tx_depth}")
+            finally:
+                # even if COMMIT/ROLLBACK itself raised: an outermost
+                # scope is over either way, and a stale owner would let
+                # this thread bypass the completion barrier forever
+                if db._tx_depth == 0:
+                    db._tx_owner = None
+                db._lock.release()
+            return False
+
+    def transaction(self) -> "_TxScope":
+        return Database._TxScope(self)
+
+    # ---------------------------------------------------------------- misc --
+    def close(self) -> None:
+        with self._lock:
+            self._conn.close()

@@ -1,0 +1,357 @@
+"""Hermetic PostgreSQL wire-protocol stub server.
+
+Speaks enough of the v3 protocol for THIS repo's libpq binding
+(db/libpq.py: PQconnectdb, PQprepare, PQexecPrepared, PQexecParams —
+extended protocol with binary parameters and binary results), storing
+rows in an in-process sqlite database.  It exists so the binding's
+connect / prepared-statement / transaction paths run in CI on images
+with no postgres server (reference counterpart: the soci postgres
+session exercised by CI's provisioned postgres,
+database/Database.cpp:208-265, ci-build.sh:173-174).
+
+Protocol subset: SSL/GSS negotiation declined, StartupMessage →
+AuthenticationOk + ParameterStatus + BackendKeyData + ReadyForQuery;
+Parse/Bind/Describe/Execute/Sync/Close/Terminate; Query (simple) for
+completeness.  SQL arrives in the postgres dialect this repo's
+translate() emits; the stub maps it back onto sqlite ($n → :pn
+placeholders — sqlite natively handles the ON CONFLICT ... EXCLUDED
+upserts the translation produces).
+"""
+
+from __future__ import annotations
+
+import re
+import socket
+import socketserver
+import sqlite3
+import struct
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+OID_BYTEA, OID_INT8, OID_TEXT = 17, 20, 25
+OID_BOOL, OID_FLOAT8 = 16, 701
+
+_DOLLAR = re.compile(r"\$(\d+)")
+
+
+def _pg_to_sqlite_sql(sql: str) -> str:
+    s = _DOLLAR.sub(lambda m: f":p{m.group(1)}", sql)
+    # sqlite accepts the pg type names with usable affinities except
+    # BYTEA (no BLOB affinity match) — map the DDL names back
+    if s.upper().lstrip().startswith("CREATE "):
+        s = re.sub(r"\bBYTEA\b", "BLOB", s)
+        s = re.sub(r"\bDOUBLE PRECISION\b", "REAL", s)
+        s = re.sub(r"\bBIGINT\b", "INTEGER", s)
+    return s
+
+
+def _decode_binary_param(oid: int, raw: Optional[bytes]) -> Any:
+    if raw is None:
+        return None
+    if oid == OID_INT8:
+        return int.from_bytes(raw, "big", signed=True)
+    if oid == OID_BOOL:
+        return raw != b"\x00"
+    if oid == OID_FLOAT8:
+        return struct.unpack(">d", raw)[0]
+    if oid == OID_TEXT:
+        return raw.decode("utf-8")
+    return bytes(raw)          # BYTEA and anything unknown: raw bytes
+
+
+def _encode_binary_field(v: Any) -> Tuple[int, Optional[bytes]]:
+    """→ (column oid, wire bytes) matching libpq._decode_field."""
+    if v is None:
+        return OID_TEXT, None
+    if isinstance(v, bool):
+        return OID_BOOL, b"\x01" if v else b"\x00"
+    if isinstance(v, int):
+        return OID_INT8, v.to_bytes(8, "big", signed=True)
+    if isinstance(v, float):
+        return OID_FLOAT8, struct.pack(">d", v)
+    if isinstance(v, (bytes, memoryview, bytearray)):
+        return OID_BYTEA, bytes(v)
+    return OID_TEXT, str(v).encode("utf-8")
+
+
+class _Session:
+    """One client connection's protocol state machine."""
+
+    def __init__(self, sock: socket.socket, db: sqlite3.Connection,
+                 db_lock: threading.Lock):
+        self.sock = sock
+        self.db = db
+        self.db_lock = db_lock
+        self.prepared: Dict[str, Tuple[str, List[int]]] = {}
+        # portal state between Bind and Execute
+        self.portal_rows: Optional[List[tuple]] = None
+        self.portal_tag = "SELECT 0"
+        self.buf = b""
+
+    # ---------------------------------------------------------------- io --
+    def _recv_exact(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("client closed")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def _send(self, typ: bytes, payload: bytes = b"") -> None:
+        self.sock.sendall(typ + struct.pack(">I", len(payload) + 4)
+                          + payload)
+
+    def _ready(self) -> None:
+        self._send(b"Z", b"I")
+
+    def _error(self, msg: str) -> None:
+        fields = b"SERROR\x00" + b"C58000\x00" + \
+            b"M" + msg.encode("utf-8", "replace") + b"\x00" + b"\x00"
+        self._send(b"E", fields)
+
+    # ------------------------------------------------------------- startup --
+    def startup(self) -> bool:
+        while True:
+            raw = self._recv_exact(8)
+            length, code = struct.unpack(">II", raw)
+            if code in (80877103, 80877104):    # SSL / GSSENC request
+                self.sock.sendall(b"N")
+                continue
+            if code == 80877102:                # CancelRequest
+                return False
+            body = self._recv_exact(length - 8)
+            if code != 196608:
+                self._error(f"unsupported protocol {code}")
+                return False
+            break
+        self._send(b"R", struct.pack(">I", 0))          # AuthenticationOk
+        for k, v in (("server_version", "14.0 (stellar-core-tpu stub)"),
+                     ("client_encoding", "UTF8"),
+                     ("standard_conforming_strings", "on"),
+                     ("integer_datetimes", "on")):
+            self._send(b"S", k.encode() + b"\x00" + v.encode() + b"\x00")
+        self._send(b"K", struct.pack(">II", 1, 1))      # BackendKeyData
+        self._ready()
+        return True
+
+    # ----------------------------------------------------------- execution --
+    def _run_sql(self, sql: str, params: Dict[str, Any]
+                 ) -> Tuple[List[tuple], str]:
+        s = sql.strip().rstrip(";").strip()
+        up = s.upper()
+        with self.db_lock:
+            cur = self.db.cursor()
+            try:
+                if up in ("BEGIN", "START TRANSACTION"):
+                    if not self.db.in_transaction:
+                        cur.execute("BEGIN")
+                    return [], "BEGIN"
+                if up == "COMMIT":
+                    self.db.commit()
+                    return [], "COMMIT"
+                if up == "ROLLBACK":
+                    self.db.rollback()
+                    return [], "ROLLBACK"
+                if up.startswith("DEALLOCATE"):
+                    parts = s.split(None, 1)
+                    if len(parts) < 2 or not parts[1].strip():
+                        raise ValueError("syntax error at DEALLOCATE")
+                    name = parts[1].strip()
+                    if name.upper() == "ALL":
+                        self.prepared.clear()
+                    elif self.prepared.pop(name, None) is None:
+                        raise KeyError(
+                            f'prepared statement "{name}" does not exist')
+                    return [], "DEALLOCATE"
+                cur.execute(_pg_to_sqlite_sql(s), params)
+                if cur.description is not None:
+                    rows = cur.fetchall()
+                    return rows, f"SELECT {len(rows)}"
+                n = max(cur.rowcount, 0)
+                verb = up.split(None, 1)[0] if up else "OK"
+                if verb == "INSERT":
+                    return [], f"INSERT 0 {n}"
+                return [], f"{verb} {n}"
+            finally:
+                cur.close()
+
+    def _send_row_description(self, rows: List[tuple]) -> None:
+        if not rows:
+            self._send(b"T", struct.pack(">H", 0))
+            return
+        ncols = len(rows[0])
+        oids = []
+        for c in range(ncols):
+            oid = OID_TEXT
+            for r in rows:
+                if r[c] is not None:
+                    oid = _encode_binary_field(r[c])[0]
+                    break
+            oids.append(oid)
+        payload = struct.pack(">H", ncols)
+        for c, oid in enumerate(oids):
+            payload += (b"c%d\x00" % c
+                        + struct.pack(">IhIhih", 0, 0, oid, -1, -1, 1))
+        self._send(b"T", payload)
+
+    def _send_rows(self, rows: List[tuple]) -> None:
+        for r in rows:
+            payload = struct.pack(">H", len(r))
+            for v in r:
+                _oid, b = _encode_binary_field(v)
+                if b is None:
+                    payload += struct.pack(">i", -1)
+                else:
+                    payload += struct.pack(">i", len(b)) + b
+            self._send(b"D", payload)
+
+    # ---------------------------------------------------------- main loop --
+    def serve(self) -> None:
+        if not self.startup():
+            return
+        while True:
+            typ = self._recv_exact(1)
+            (length,) = struct.unpack(">I", self._recv_exact(4))
+            body = self._recv_exact(length - 4)
+            if typ == b"X":                         # Terminate
+                return
+            try:
+                if typ == b"P":                     # Parse
+                    name, rest = body.split(b"\x00", 1)
+                    sql, rest = rest.split(b"\x00", 1)
+                    (nty,) = struct.unpack(">H", rest[:2])
+                    oids = [struct.unpack(
+                        ">I", rest[2 + 4 * i:6 + 4 * i])[0]
+                        for i in range(nty)]
+                    self.prepared[name.decode()] = (sql.decode(), oids)
+                    self._send(b"1")                # ParseComplete
+                elif typ == b"B":                   # Bind
+                    self._bind(body)
+                elif typ == b"D":                   # Describe
+                    rows = self.portal_rows or []
+                    if rows:
+                        self._send_row_description(rows)
+                    else:
+                        self._send(b"n")            # NoData
+                elif typ == b"E":                   # Execute
+                    rows = self.portal_rows or []
+                    if rows:
+                        self._send_rows(rows)
+                    self._send(b"C", self.portal_tag.encode() + b"\x00")
+                elif typ == b"C":                   # Close stmt/portal
+                    self._send(b"3")                # CloseComplete
+                elif typ == b"S":                   # Sync
+                    self._ready()
+                elif typ == b"Q":                   # simple Query
+                    sql = body.rstrip(b"\x00").decode()
+                    rows, tag = self._run_sql(sql, {})
+                    if rows:
+                        self._send_row_description(rows)
+                        self._send_rows(rows)
+                    self._send(b"C", tag.encode() + b"\x00")
+                    self._ready()
+                elif typ in (b"H", b"F"):           # Flush / Function
+                    pass
+                else:
+                    self._error(f"unhandled message {typ!r}")
+                    self._ready()
+            except (sqlite3.Error, ValueError, KeyError) as e:
+                self.portal_rows = None
+                self._error(str(e))
+                if typ == b"Q":
+                    # simple-query clients never send Sync; they wait
+                    # for ReadyForQuery right after the ErrorResponse
+                    self._ready()
+                    continue
+                # extended protocol: swallow until Sync so the stream
+                # re-synchronizes
+                while typ != b"S":
+                    typ = self._recv_exact(1)
+                    (length,) = struct.unpack(">I", self._recv_exact(4))
+                    self._recv_exact(length - 4)
+                self._ready()
+
+    def _bind(self, body: bytes) -> None:
+        _portal, rest = body.split(b"\x00", 1)
+        stmt, rest = rest.split(b"\x00", 1)
+        (nfmt,) = struct.unpack(">H", rest[:2])
+        fmts = [struct.unpack(">H", rest[2 + 2 * i:4 + 2 * i])[0]
+                for i in range(nfmt)]
+        off = 2 + 2 * nfmt
+        (nparams,) = struct.unpack(">H", rest[off:off + 2])
+        off += 2
+        sql, oids = self.prepared[stmt.decode()]
+        params: Dict[str, Any] = {}
+        for i in range(nparams):
+            (ln,) = struct.unpack(">i", rest[off:off + 4])
+            off += 4
+            raw = None
+            if ln >= 0:
+                raw = rest[off:off + ln]
+                off += ln
+            fmt = fmts[i] if i < len(fmts) else (fmts[0] if fmts else 0)
+            oid = oids[i] if i < len(oids) else 0
+            if fmt == 1:
+                # oid 0 = undeclared. A real postgres infers the type
+                # from the statement context; this stub's binding
+                # declares OIDs for every position it ever binds a
+                # non-NULL value to (postgres.py _prepare_batch
+                # re-prepares when a sample improves), so an
+                # undeclared position should only ever carry NULL —
+                # anything else is guessed 8-byte-int8-vs-raw, the one
+                # genuinely ambiguous binary shape
+                if oid == 0 and raw is not None and len(raw) == 8:
+                    params[f"p{i + 1}"] = _decode_binary_param(
+                        OID_INT8, raw)
+                else:
+                    params[f"p{i + 1}"] = _decode_binary_param(oid, raw)
+            else:
+                params[f"p{i + 1}"] = (None if raw is None
+                                       else raw.decode("utf-8"))
+        self.portal_rows, self.portal_tag = self._run_sql(sql, params)
+        self._send(b"2")                            # BindComplete
+
+
+class PGStubServer:
+    """TCP server; one sqlite backing store shared by all sessions."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self.db = sqlite3.connect(":memory:", check_same_thread=False)
+        self.db.isolation_level = None      # explicit BEGIN/COMMIT only
+        self.db_lock = threading.Lock()
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                try:
+                    _Session(self.request, outer.db,
+                             outer.db_lock).serve()
+                except (ConnectionError, OSError):
+                    pass
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._server = Server((host, port), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True)
+
+    def start(self) -> "PGStubServer":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        self.db.close()
+
+    def conninfo(self) -> str:
+        return (f"host=127.0.0.1 port={self.port} dbname=stub "
+                f"user=stub sslmode=disable gssencmode=disable")
+
+    def url(self) -> str:
+        return (f"postgresql://stub@127.0.0.1:{self.port}/stub"
+                f"?sslmode=disable&gssencmode=disable")

@@ -1,0 +1,150 @@
+"""Ledger-close completion pipeline.
+
+The reference keeps `closeLedger` lean by pushing everything the next
+consensus round does NOT depend on off the calling thread: bucket merges
+ride FutureBucket (bucket/FutureBucket.h:22-77) and history publishing
+rides the work scheduler. This module is the analogous seam for the
+post-commit tail of our `_close_ledger`: tx-history SQL, meta emission
+and checkpoint publishing run on a single background worker, strictly in
+ledger order, behind a per-ledger barrier.
+
+Ordering + visibility contract:
+
+- jobs run FIFO on ONE worker thread, so ledger N's completion always
+  finishes before ledger N+1's starts;
+- `join()` blocks until every submitted job has completed (and re-raises
+  the first completion failure) — the next close, snapshot readers,
+  catchup verification and shutdown all join before consuming close
+  artifacts;
+- `reader_barrier` is the cheap form wired into the Database facade:
+  statements touching completion-owned tables first join the queue, so
+  a reader can never observe a ledger whose history rows are still in
+  flight. Calls from the worker thread itself are no-ops (jobs are FIFO,
+  so everything a job reads is already durable).
+
+The worker exits after a short idle period and is respawned on the next
+submit, so short-lived LedgerManagers (tests construct thousands) do not
+accumulate parked threads.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from ..util import chaos, threads
+from ..util.logging import get_logger
+
+log = get_logger("Ledger")
+
+# worker exits after this long with an empty queue (respawned lazily)
+IDLE_EXIT_SECONDS = 30.0
+
+
+class CloseCompletionQueue:
+    """Single-worker FIFO queue with a per-ledger barrier."""
+
+    def __init__(self, name: str = "close-completion"):
+        self._name = name
+        self._cond = threading.Condition()
+        self._jobs: deque = deque()          # (seq, callable)
+        self._pending = 0
+        self._worker: Optional[threading.Thread] = None
+        self._running = False                # worker is inside a job
+        self._last_completed = 0
+        self._error: Optional[tuple] = None  # (seq, exception)
+
+    # ------------------------------------------------------------ submit --
+    def submit(self, seq: int, fn: Callable[[], None]) -> None:
+        """Queue ledger `seq`'s completion segment."""
+        with self._cond:
+            self._jobs.append((seq, fn))
+            self._pending += 1
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._run, name=self._name, daemon=True)
+                self._worker.start()
+            self._cond.notify_all()
+
+    def _run(self) -> None:  # thread-domain: completion-worker
+        if threads.CHECK:
+            threads.bind("completion-worker")
+        while True:
+            with self._cond:
+                deadline = time.monotonic() + IDLE_EXIT_SECONDS
+                while not self._jobs:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        # idle exit decided under the lock, so a racing
+                        # submit either sees us alive (job picked up) or
+                        # sees None and spawns a fresh worker
+                        self._worker = None
+                        return
+                    self._cond.wait(remaining)
+                seq, fn = self._jobs[0]
+                self._running = True
+            try:
+                if chaos.ENABLED:
+                    # injected completion failure: surfaces as the same
+                    # sticky error a real tx-history write failure would
+                    chaos.point("ledger.completion.run", seq=seq)
+                fn()
+            except BaseException as exc:  # noqa: BLE001 — surfaced on join
+                log.exception(
+                    "deferred close completion for ledger %d failed", seq)
+                with self._cond:
+                    if self._error is None:
+                        self._error = (seq, exc)
+            finally:
+                with self._cond:
+                    self._running = False
+                    self._jobs.popleft()
+                    self._pending -= 1
+                    self._last_completed = max(self._last_completed, seq)
+                    self._cond.notify_all()
+
+    def discard_pending(self) -> None:
+        """Drop queued-but-unstarted jobs without running them (a
+        simulated process kill: the deferred tail is exactly what a
+        real crash loses). A job the worker is already inside is left
+        to finish — its cleanup pops the head it is holding."""
+        with self._cond:
+            drop = len(self._jobs) - (1 if self._running else 0)
+            for _ in range(max(0, drop)):
+                self._jobs.pop()            # newest first, head stays
+            self._pending -= max(0, drop)
+            self._cond.notify_all()
+
+    # -------------------------------------------------------------- join --
+    def pending(self) -> int:
+        return self._pending
+
+    def last_completed(self) -> int:
+        return self._last_completed
+
+    def join(self, reraise: bool = True) -> None:
+        """Block until every submitted completion has run. Re-raises the
+        first completion failure (a node must not keep closing ledgers
+        whose history it silently failed to persist). The error is
+        STICKY: every join re-raises it, so a reader thread (admin
+        route, publish timer) observing it first cannot swallow it away
+        from the consensus path — the next close's barrier still halts
+        the node."""
+        if threading.current_thread() is self._worker:
+            return              # a job reading its own artifacts: no-op
+        with self._cond:
+            while self._pending:
+                self._cond.wait()
+            if reraise and self._error is not None:
+                seq, exc = self._error
+                raise RuntimeError(
+                    f"deferred ledger-close completion for ledger {seq} "
+                    "failed") from exc
+
+    def reader_barrier(self) -> None:
+        """Database pre-statement hook: joins only when work is in
+        flight, so the common case costs one attribute read."""
+        if self._pending:
+            self.join()

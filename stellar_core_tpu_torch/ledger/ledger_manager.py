@@ -1,0 +1,1352 @@
+"""Ledger manager — the closeLedger orchestrator.
+
+Reference: src/ledger/LedgerManagerImpl.{h,cpp}; closeLedger at :707 drives
+the whole per-ledger pipeline: seqnum/fee pass, the apply loop, upgrades,
+BucketList addBatch, header hash chaining, and the single SQL commit. The
+genesis constants mirror GENESIS_LEDGER_* (LedgerManager.h) and the master
+account is keyed by the network passphrase seed, as in the reference's
+startNewLedger.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import nullcontext
+from typing import Callable, List, Optional
+
+from ..crypto.sha import sha256
+from ..invariant.manager import InvariantManager
+from ..tx.signature_checker import VerifyFn, default_verify
+from ..util import chaos, threads, tracing
+from ..util.logging import get_logger
+from ..xdr.ledger import (LedgerCloseMeta, LedgerCloseMetaV0, LedgerHeader,
+                          LedgerHeaderHistoryEntry, LedgerUpgrade,
+                          StellarValue, TransactionMeta, TransactionMetaV2,
+                          TransactionResultMeta, TransactionResultPair,
+                          TransactionResultSet, TransactionSet,
+                          UpgradeEntryMeta)
+from ..bucket.hot_archive import FIRST_PROTOCOL_STATE_ARCHIVAL
+from ..xdr.ledger_entries import (LedgerEntry, LedgerEntryType, LedgerKey,
+                                  ledger_entry_key)
+from ..xdr.results import TransactionResult
+from ..xdr.types import ExtensionPoint
+from .ledger_txn import LedgerTxn, LedgerTxnRoot, InMemoryLedgerTxnRoot
+
+log = get_logger("Ledger")
+
+# reference: LedgerManager.h GENESIS_LEDGER_*
+GENESIS_LEDGER_SEQ = 1
+GENESIS_LEDGER_VERSION = 0
+GENESIS_LEDGER_BASE_FEE = 100
+GENESIS_LEDGER_BASE_RESERVE = 100000000
+GENESIS_LEDGER_MAX_TX_SIZE = 100
+GENESIS_LEDGER_TOTAL_COINS = 1000000000000000000  # 100B XLM in stroops
+
+
+class LedgerCloseData:
+    """What SCP externalizes for one ledger (reference:
+    herder/LedgerCloseData.h): the sequence, the tx set, and the
+    StellarValue (close time + upgrades + txset hash)."""
+
+    def __init__(self, ledger_seq: int, tx_set, value: StellarValue):
+        self.ledger_seq = ledger_seq
+        self.tx_set = tx_set
+        self.value = value
+
+
+def ledger_header_hash(header: LedgerHeader) -> bytes:
+    return sha256(header.to_bytes())
+
+
+def genesis_ledger_header(protocol_version: int = GENESIS_LEDGER_VERSION
+                          ) -> LedgerHeader:
+    h = LedgerHeader()
+    h.ledgerVersion = protocol_version
+    h.ledgerSeq = GENESIS_LEDGER_SEQ
+    h.totalCoins = GENESIS_LEDGER_TOTAL_COINS
+    h.baseFee = GENESIS_LEDGER_BASE_FEE
+    h.baseReserve = GENESIS_LEDGER_BASE_RESERVE
+    h.maxTxSetSize = GENESIS_LEDGER_MAX_TX_SIZE
+    return h
+
+
+class LedgerManager:
+    """Owns the last-closed-ledger state and the close pipeline
+    (reference: LedgerManagerImpl)."""
+
+    def __init__(self, db=None, bucket_manager=None,
+                 invariants: Optional[InvariantManager] = None,
+                 metrics=None, meta_stream=None,
+                 entry_cache_size: int = 4096,
+                 in_memory_ledger: bool = False):
+        self.db = db
+        self.bucket_manager = bucket_manager
+        self.invariants = invariants
+        self.meta_stream = meta_stream  # callable(LedgerCloseMeta)
+        self.history_manager = None     # set by Application
+        self.persistent_state = None    # set by Application
+        self.network_passphrase = ""    # set by Application
+        # debug-meta rotation (reference: FlushAndRotateMetaDebugWork +
+        # metautils; META_DEBUG files under <bucket-dir>/meta-debug)
+        self.meta_debug_dir = None      # set by Application when enabled
+        self.meta_debug_ledgers = 0
+        # OVERRIDE_EVICTION_PARAMS_FOR_TESTING field dict, applied when
+        # the StateArchivalSettings entry is created (set by Application)
+        self.archival_overrides = None
+        # abort on txINTERNAL_ERROR instead of failing the tx
+        # (reference: HALT_ON_INTERNAL_TRANSACTION_ERROR), gated to
+        # protocols >= internal_error_min_protocol (reference:
+        # LEDGER_PROTOCOL_MIN_VERSION_INTERNAL_ERROR_REPORT)
+        self.halt_on_internal_error = False
+        self.internal_error_min_protocol = 0
+        # stream meta one ledger behind the LCL (reference:
+        # EXPERIMENTAL_PRECAUTION_DELAY_META)
+        self.delay_meta = False
+        self._delayed_meta = None
+        # guards the meta tail (_delayed_meta, debug segment file):
+        # written by the completion worker per close, and by the crank
+        # thread at shutdown (flush/close). Shutdown joins the worker
+        # first, but the lock keeps the invariant local instead of
+        # depending on every caller's ordering. RLock: _write_debug_meta
+        # rotates segments via _close_debug_meta while holding it.
+        self._meta_lock = threading.RLock()
+        # genesis soroban settings get loadgen-scale limits (reference:
+        # TESTING_SOROBAN_HIGH_LIMIT_OVERRIDE)
+        self.soroban_high_limits = False
+        # reference: MODE_STORES_HISTORY_MISC (Config.h:339) — set from
+        # config by Application; off in in-memory replay modes
+        self.stores_history_misc = True
+        # reference: MODE_STORES_HISTORY_LEDGERHEADERS — throwaway
+        # replay modes skip the header table too
+        self.stores_history_ledgerheaders = True
+        # (weights, durations_ms) simulated apply latency — set by the
+        # Application from OP_APPLY_SLEEP_TIME_*_FOR_TESTING (reference:
+        # ledger/LedgerManagerImpl.cpp:945-969)
+        self.apply_sleep = None
+        # conflict-staged parallel apply (parallel_apply.py): worker
+        # count (0/1 = sequential, the APPLY_PARALLEL=0 fallback) and
+        # the txset size below which staging isn't worth the setup —
+        # set from config by Application; raw constructions stay
+        # sequential so unit tests opt in explicitly
+        self.apply_parallel = 0
+        self.apply_parallel_min_txs = 8
+        # per-stage batched signature prewarm rides the device verify
+        # service when one exists (set by Application)
+        self.verify_service = None
+        self._apply_pool = None
+        # last close's staging shape (tests + APPLYPAR bench artifact)
+        self.last_apply_stages = 0
+        self.last_stage_widths: List[int] = []
+        # stages that failed the merge-time footprint/header audit and
+        # were re-applied sequentially (0 = every claim held)
+        self.apply_fallbacks = 0
+        # cumulative staged-apply accounting across closes (the
+        # CATCHUP artifact's `parallel_apply` section — proves the
+        # replay inner loop actually rode the conflict-staged engine)
+        self.parallel_ledgers = 0
+        self.parallel_stages_total = 0
+        self.parallel_width_max = 0
+        # probe count of the most recent bounded eviction scan
+        # (observability + the O(scan-size) test's hook)
+        self.last_eviction_probes = 0
+        from ..util.perf import default_registry
+        self.perf = default_registry    # per-app registry set by Application
+        # chaos-injection context label (node id hex, set by Application
+        # in multinode sims so fault schedules can target one node)
+        self.chaos_label = ""
+        self._meta_debug_file = None
+        self._meta_debug_segment = None
+        # read-tier taps (query/): closed_hooks fire on the crank
+        # thread right after the consensus-critical commit (snapshot
+        # capture — callable(closed_header, lcl_hash)); completion_hooks
+        # fire on the completion worker inside the deferred tail
+        # (tx-status feed — callable(seq, close_time, result_pairs))
+        self.closed_hooks: List = []
+        self.completion_hooks: List = []
+        # deferred close completion: the post-commit tail (tx-history
+        # SQL, meta emission, checkpoint publish) runs on a single
+        # background worker behind a per-ledger barrier; the next close,
+        # snapshot readers and shutdown join it before consuming close
+        # artifacts. defer_completion=False runs the tail inline (the
+        # synchronous reference schedule, used by determinism tests).
+        from .completion import CloseCompletionQueue
+        self.defer_completion = True
+        self._completion = CloseCompletionQueue()
+        if db is not None:
+            db.add_close_barrier(self._completion.reader_barrier)
+        if db is not None and not in_memory_ledger:
+            self.root = LedgerTxnRoot(db, cache_size=entry_cache_size)
+        else:
+            # reference: MODE_USES_IN_MEMORY_LEDGER — entries live in a
+            # dict root; headers/history still go to the database
+            self.root = InMemoryLedgerTxnRoot()
+        if bucket_manager is not None:
+            # RestoreFootprint reaches the hot archive through the
+            # LedgerTxn chain (protocol 23+ state archival)
+            self.root.hot_archive = bucket_manager.hot_archive
+        self._lcl_hash = b"\x00" * 32
+        self._metrics = metrics
+        if metrics is not None:
+            self.tx_apply_timer = metrics.timer("ledger", "transaction",
+                                                "apply")
+            self.ledger_close_timer = metrics.timer("ledger", "ledger",
+                                                    "close")
+            self.tx_count_meter = metrics.meter("ledger", "transaction",
+                                                "count")
+            self.apply_stages_hist = metrics.histogram(
+                "ledger", "apply", "stages")
+            self.apply_stage_width_hist = metrics.histogram(
+                "ledger", "apply", "stage_width")
+            self.apply_conflict_hist = metrics.histogram(
+                "ledger", "apply", "conflict_ratio")
+        else:
+            self.tx_apply_timer = None
+            self.ledger_close_timer = None
+            self.tx_count_meter = None
+            self.apply_stages_hist = None
+            self.apply_stage_width_hist = None
+            self.apply_conflict_hist = None
+
+    # ------------------------------------------------------------ LCL state --
+    def get_last_closed_ledger_header(self) -> LedgerHeader:
+        return self.root.get_header()
+
+    def get_last_closed_ledger_hash(self) -> bytes:
+        return self._lcl_hash
+
+    def get_last_closed_ledger_num(self) -> int:
+        return self.root.get_header().ledgerSeq
+
+    # -------------------------------------------------------------- genesis --
+    def start_new_ledger(self, network_id: bytes,
+                         protocol_version: int = GENESIS_LEDGER_VERSION
+                         ) -> None:
+        """Create the genesis ledger: one master account holding all
+        lumens, keyed by the network passphrase (reference:
+        LedgerManagerImpl::startNewLedger)."""
+        from ..crypto.keys import SecretKey
+        from ..tx.tx_utils import make_account_ledger_entry, \
+            starting_sequence_number
+        from ..xdr.types import PublicKey as XdrPublicKey
+        header = genesis_ledger_header(protocol_version)
+        master = SecretKey.from_seed(network_id)
+        master_le = make_account_ledger_entry(
+            XdrPublicKey.ed25519(master.public_key().raw),
+            GENESIS_LEDGER_TOTAL_COINS,
+            seq_num=starting_sequence_number(GENESIS_LEDGER_SEQ))
+        master_le.lastModifiedLedgerSeq = GENESIS_LEDGER_SEQ
+        self._set_root_header(header)
+        genesis_entries = [master_le]
+        with LedgerTxn(self.root) as ltx:
+            ltx.create(master_le)
+            if protocol_version >= 20:
+                # protocol-20 networks start with the Soroban config
+                # entries (reference: createLedgerEntriesForV20)
+                from ..soroban.network_config import create_initial_settings
+                delta_before = set(ltx._delta)
+                create_initial_settings(ltx, self.archival_overrides,
+                                        self.soroban_high_limits)
+                for kb, le in ltx._delta.items():
+                    if kb not in delta_before and le is not None:
+                        genesis_entries.append(le)
+            ltx.commit()
+        if self.bucket_manager is not None:
+            self.bucket_manager.add_batch(
+                GENESIS_LEDGER_SEQ, header.ledgerVersion,
+                genesis_entries, [], [])
+            header.bucketListHash = \
+                self.bucket_manager.snapshot_ledger_hash(
+                    header.ledgerVersion)
+            self._set_root_header(header)
+        self._lcl_hash = ledger_header_hash(self.root.get_header())
+        dbtx = self.db.transaction() if self.db is not None \
+            else nullcontext()
+        with dbtx:
+            self._store_header(self.root.get_header())
+            self._persist_local_has(self.root.get_header())
+            if self.persistent_state is not None:
+                from ..main.persistent_state import StateEntry
+                self.persistent_state.set(
+                    StateEntry.LAST_CLOSE_COMPLETED,
+                    str(GENESIS_LEDGER_SEQ))
+        log.info("genesis ledger %d created, hash %s",
+                 GENESIS_LEDGER_SEQ, self._lcl_hash.hex()[:16])
+
+    def _set_root_header(self, header: LedgerHeader) -> None:
+        if isinstance(self.root, InMemoryLedgerTxnRoot):
+            self.root._header = header
+        else:
+            self.root.set_header(header)
+
+    # ------------------------------------------------------------- loading --
+    def load_last_known_ledger(self) -> bool:
+        """Restore LCL from the DB on restart (reference:
+        loadLastKnownLedger, LedgerManagerImpl.cpp:276)."""
+        if self.db is None or \
+                not hasattr(self.root, "load_header_from_db"):
+            # in-memory roots never resume: state is rebuilt fresh
+            # (reference: MODE_USES_IN_MEMORY_LEDGER restarts from
+            # genesis or catchup)
+            return False
+        header = self.root.load_header_from_db()
+        if header is None:
+            return False
+        self._set_root_header(header)
+        self._lcl_hash = ledger_header_hash(header)
+        # the hot archive must be reloaded BEFORE assume-state: from the
+        # state-archival protocol on, header.bucketListHash commits to
+        # the combined (live ‖ hot) hash the assume check verifies
+        if self.persistent_state is not None and \
+                self.bucket_manager is not None:
+            from ..main.persistent_state import StateEntry
+            hot = self.persistent_state.get(StateEntry.HOT_ARCHIVE_STATE)
+            if hot:
+                self.bucket_manager.restore_hot_archive(hot)
+        self._assume_bucket_state(header)
+        self._recover_completion_tail(header)
+        log.info("loaded LCL %d hash %s", header.ledgerSeq,
+                 self._lcl_hash.hex()[:16])
+        return True
+
+    def _recover_completion_tail(self, header) -> None:
+        """Crash-mid-completion recovery (the DB analogue of
+        `_truncate_partial_tail`): the consensus-critical segment
+        commits entries + header + HAS atomically, so the node always
+        restarts from the last durable header — but the deferred
+        completion segment (tx-history rows, meta) for the final
+        ledger(s) may never have flushed.  Detect the gap via the
+        completion marker, record the truncated range, and heal the
+        marker so the node replays forward cleanly (the missing rows
+        are not regenerable — exactly like a partial debug-meta tail,
+        the incomplete artifacts are dropped, never half-trusted)."""
+        if self.persistent_state is None:
+            return
+        from ..main.persistent_state import StateEntry
+        raw = self.persistent_state.get(StateEntry.LAST_CLOSE_COMPLETED)
+        if raw is None:
+            # pre-pipeline database: everything was written inline
+            self.persistent_state.set(
+                StateEntry.LAST_CLOSE_COMPLETED, str(header.ledgerSeq))
+            return
+        completed = int(raw)
+        if completed >= header.ledgerSeq:
+            return
+        log.warning(
+            "crash mid-completion: ledgers %d..%d closed durably but "
+            "their tx-history/meta tail never flushed; dropping the "
+            "partial tail and resuming from the durable header",
+            completed + 1, header.ledgerSeq)
+        # drop any half-written rows of the gap range so the tables
+        # never mix complete and incomplete ledgers (the completion
+        # transaction is atomic per ledger, but be defensive)
+        if self.db is not None and self.stores_history_misc:
+            for table in ("txhistory", "txfeehistory", "txsethistory"):
+                self.db.execute(
+                    f"DELETE FROM {table} WHERE ledgerseq > ?",
+                    (completed,))
+        self.persistent_state.set(
+            StateEntry.LAST_CLOSE_COMPLETED, str(header.ledgerSeq))
+
+    def _persist_local_has(self, header) -> None:
+        """Record the bucket-list shape at this LCL (reference: the HAS
+        written into storestate during closeLedger's commit,
+        LedgerManagerImpl.cpp:914-943 — restart restores from it)."""
+        if self.persistent_state is None or self.bucket_manager is None:
+            return
+        from ..history.archive import HistoryArchiveState
+        from ..main.persistent_state import StateEntry
+        has = HistoryArchiveState.from_bucket_list(
+            header.ledgerSeq, self.bucket_manager.bucket_list,
+            self.network_passphrase)
+        self.persistent_state.set(
+            StateEntry.HISTORY_ARCHIVE_STATE, has.to_json())
+
+    def _assume_bucket_state(self, header) -> bool:
+        """Rebuild the bucket list from the persisted HAS + shared
+        bucket dir (reference: BucketManager::assumeState, SURVEY §3.4)."""
+        if self.persistent_state is None or self.bucket_manager is None:
+            return False
+        from ..bucket.bucket import Bucket
+        from ..history.archive import HistoryArchiveState
+        from ..main.persistent_state import StateEntry
+        raw = self.persistent_state.get(StateEntry.HISTORY_ARCHIVE_STATE)
+        if raw is None:
+            if bytes(header.bucketListHash) != bytes(32):
+                # the header commits to non-empty bucket state we can't
+                # reconstruct — continuing would fork on the next close
+                raise RuntimeError(
+                    "header has a bucketListHash but no local HAS is "
+                    "persisted; bucket state cannot be assumed")
+            return False
+        has = HistoryArchiveState.from_json(raw)
+        if has.current_ledger != header.ledgerSeq:
+            log.warning("persisted HAS is for ledger %d, LCL is %d",
+                        has.current_ledger, header.ledgerSeq)
+        bl = self.bucket_manager.bucket_list
+        for i, lvl in enumerate(has.current_buckets):
+            for attr in ("curr", "snap"):
+                h = bytes.fromhex(lvl[attr])
+                b = self.bucket_manager.get_bucket_by_hash(h)
+                if b is None:
+                    raise RuntimeError(
+                        f"missing bucket {lvl[attr]} while assuming "
+                        "ledger state — bucket dir incomplete")
+                setattr(bl.levels[i], attr, b)
+            bl.levels[i]._next = None
+        # protocol 23+: the header commits to (live ‖ hot archive)
+        blh = self.bucket_manager.snapshot_ledger_hash(
+            header.ledgerVersion)
+        if blh != bytes(header.bucketListHash):
+            raise RuntimeError(
+                "assumed bucket list hash mismatch: "
+                f"{blh.hex()[:16]} vs header "
+                f"{bytes(header.bucketListHash).hex()[:16]}")
+        return True
+
+    # --------------------------------------------------------------- close --
+    def close_ledger(self, lcd: LedgerCloseData,
+                     verify: VerifyFn = default_verify) -> None:
+        """Apply one externalized ledger (reference:
+        LedgerManagerImpl::closeLedger :707; zone + slow-log mirror
+        the Tracy ZoneScoped + LogSlowExecution there :709-711). On
+        overrun the slow log names the guilty phase, not one opaque
+        number."""
+        if threads.CHECK:
+            # consensus entry point: only the cranking thread may close
+            threads.assert_domain("crank")
+        phases: dict = {}
+        targs = None
+        if tracing.ENABLED:
+            # zone value = the ledger seq, like the reference's Tracy
+            # ZoneValue(ledgerSeq) annotations in closeLedger
+            ts = lcd.tx_set
+            n_txs = ts.size_tx() if hasattr(ts, "size_tx") else \
+                ts.size_tx_total() if hasattr(ts, "size_tx_total") else 0
+            targs = {"seq": lcd.ledger_seq, "txs": n_txs}
+        with self.perf.zone("ledger.closeLedger", targs=targs), \
+                self.perf.log_slow_execution(
+                    f"closeLedger {lcd.ledger_seq}", 2.0,
+                    detail=lambda: _phase_summary(phases)):
+            self._close_ledger(lcd, verify, phases)
+
+    def join_completion(self, reraise: bool = True) -> None:
+        """Barrier on the deferred completion segment: blocks until
+        every already-closed ledger's tx-history/meta/publish tail has
+        run (and surfaces the first completion failure)."""
+        self._completion.join(reraise=reraise)
+
+    def discard_pending_completion(self) -> None:
+        """Simulated process kill (Simulation.crash_node): drop the
+        not-yet-started deferred tails instead of draining them — a
+        real crash loses exactly that work."""
+        self._completion.discard_pending()
+
+    def _close_ledger(self, lcd: LedgerCloseData,
+                      verify: VerifyFn = default_verify,
+                      phases: Optional[dict] = None) -> None:
+        if phases is None:
+            phases = {}
+        # per-ledger barrier: ledger N's completion must be durable
+        # before ledger N+1's close consumes or replaces its artifacts
+        with self.perf.zone_into("ledger.close.completeWait", phases):
+            self._completion.join()
+        # the close-duration clock starts AFTER the barrier: the
+        # previous ledger's completion tail is its own phase zone and
+        # must not inflate ledger.ledger.close
+        t0 = time.monotonic()
+        lcl = self.root.get_header()
+        if lcd.ledger_seq != lcl.ledgerSeq + 1:
+            raise ValueError(
+                f"closeLedger for seq {lcd.ledger_seq}, LCL is "
+                f"{lcl.ledgerSeq}")
+        with self.perf.zone_into("ledger.close.prepare", phases):
+            applicable = lcd.tx_set
+            if hasattr(applicable, "prepare_for_apply"):
+                applicable = applicable.prepare_for_apply(lcl)
+                if applicable is None:
+                    raise ValueError("malformed tx set externalized")
+            if applicable.get_contents_hash() != lcd.value.txSetHash:
+                raise ValueError("tx set hash does not match StellarValue")
+            txs = applicable.get_txs_in_apply_order()
+            # warm the root cache with every key the footprint
+            # extractor can name — (fee-)source accounts plus
+            # operation-touched entries and declared Soroban footprints
+            # — in one batched query (reference: prefetchTxSourceIds
+            # :805 + the prefetchTransactionData entry prefetch). The
+            # same footprints feed the conflict partitioner below.
+            from ..tx.footprint import extract_footprints
+            footprints = extract_footprints(txs)
+            fp_keys = set()
+            for fp in footprints:
+                fp_keys |= fp.keys
+            self.root.prefetch(fp_keys)
+        if chaos.ENABLED:
+            self._chaos_crash_point("ledger.close.crash.prepare",
+                                    lcd.ledger_seq)
+
+        # ---- consensus-critical segment: everything ledger N+1 (and
+        # the next SCP round) actually depends on, committed atomically
+        # (entries + hot-archive state + header + local HAS in ONE SQL
+        # transaction — reference: the single commit spanning
+        # LedgerManagerImpl.cpp:715-936)
+        dbtx = self.db.transaction() if self.db is not None \
+            else nullcontext()
+        with dbtx:
+            with LedgerTxn(self.root) as ltx:
+                header = ltx.load_header()
+                header.ledgerSeq = lcd.ledger_seq
+                header.previousLedgerHash = self._lcl_hash
+                header.scpValue = lcd.value
+
+                # Phase 1: fees + seqnum bumps for every tx, in apply
+                # order (reference: processFeesSeqNums :1220)
+                with self.perf.zone_into("ledger.close.fees", phases):
+                    fee_metas = self._process_fees_seq_nums(
+                        ltx, applicable, txs)
+                if chaos.ENABLED:
+                    self._chaos_crash_point("ledger.close.crash.fees",
+                                            lcd.ledger_seq)
+                # Phase 2: the apply loop (reference: applyTransactions)
+                with self.perf.zone_into("ledger.close.applyTx", phases):
+                    result_pairs, tx_metas = self._apply_transactions(
+                        ltx, applicable, txs, verify, footprints)
+                if chaos.ENABLED:
+                    self._chaos_crash_point("ledger.close.crash.applyTx",
+                                            lcd.ledger_seq)
+                # txs were applied under this protocol; upgrades (phase
+                # 3) may bump it, but stored/streamed tx meta must keep
+                # the apply-time version
+                apply_version = ltx.load_header().ledgerVersion
+                # Phase 3: upgrades voted through SCP
+                with self.perf.zone_into("ledger.close.upgrades", phases):
+                    upgrade_metas = self._apply_upgrades(ltx, lcd.value)
+                if chaos.ENABLED:
+                    self._chaos_crash_point(
+                        "ledger.close.crash.upgrades", lcd.ledger_seq)
+                # txSetResultHash commits to the full result set
+                rset = TransactionResultSet(results=result_pairs)
+                header = ltx.load_header()
+                header.txSetResultHash = sha256(rset.to_bytes())
+
+                # Phase 4 (protocol 23+): the eviction scan — expired
+                # persistent soroban entries leave live state for the
+                # hot archive, expired temporary entries are deleted
+                with self.perf.zone_into("ledger.close.evictionScan",
+                                         phases):
+                    evicted = self._eviction_scan(ltx, header)
+                if chaos.ENABLED:
+                    self._chaos_crash_point(
+                        "ledger.close.crash.evictionScan", lcd.ledger_seq)
+                # Seal: fold the delta into the bucket list, then stamp
+                # the bucketListHash into the header before hashing it.
+                # Children: `seal.fsync` is the bucket-file persistence
+                # (adopt_bucket fsyncs + hot-archive files) — the next
+                # measured stall target — and `seal.sql` the entry/header
+                # /HAS SQL writes inside the close transaction.
+                with self.perf.zone_into("ledger.close.seal", phases):
+                    delta = ltx.get_delta()
+                    if self.bucket_manager is not None:
+                        self.bucket_manager.add_batch(
+                            lcd.ledger_seq, header.ledgerVersion,
+                            delta.init, delta.live, delta.dead)
+                        with self.perf.zone_into(
+                                "ledger.close.seal.fsync", phases):
+                            if header.ledgerVersion >= \
+                                    FIRST_PROTOCOL_STATE_ARCHIVAL:
+                                # restored = archived keys recreated this
+                                # ledger (RestoreFootprint/fresh create)
+                                restored = \
+                                    self._restored_archived_keys(delta)
+                                self.bucket_manager.hot_archive_add_batch(
+                                    lcd.ledger_seq, header.ledgerVersion,
+                                    evicted, restored)
+                                if self.persistent_state is not None:
+                                    hot = self.bucket_manager \
+                                        .persist_hot_archive()
+                                    if hot is not None:
+                                        from ..main.persistent_state \
+                                            import StateEntry
+                                        self.persistent_state.set(
+                                            StateEntry.HOT_ARCHIVE_STATE,
+                                            hot)
+                            header.bucketListHash = \
+                                self.bucket_manager.snapshot_ledger_hash(
+                                    header.ledgerVersion)
+                    with self.perf.zone_into("ledger.close.seal.sql",
+                                             phases):
+                        ltx.commit()
+                        closed = self.root.get_header()
+                        self._lcl_hash = ledger_header_hash(closed)
+                        self._store_header(closed)
+                        self._persist_local_has(closed)
+            # the checkpoint's durable publishqueue row rides the close
+            # transaction (HAS snapshotted at queue time, see
+            # HistoryManager.snapshot_checkpoint): a crash on either
+            # side of COMMIT leaves header and queue row consistent
+            pending_checkpoint = None
+            if self.history_manager is not None:
+                pending_checkpoint = \
+                    self.history_manager.snapshot_checkpoint(
+                        lcd.ledger_seq)
+            if chaos.ENABLED:
+                # still inside the close transaction: a crash here rolls
+                # the whole consensus-critical segment back
+                self._chaos_crash_point("ledger.close.crash.seal",
+                                        lcd.ledger_seq)
+        if chaos.ENABLED:
+            self._chaos_crash_point("ledger.close.crash.commit",
+                                    lcd.ledger_seq)
+        # read-tier snapshot capture: the commit is durable, the bucket
+        # list is exactly the state the sealed header names — readers
+        # may see seq N from here on
+        for hook in self.closed_hooks:
+            hook(closed, self._lcl_hash)
+
+        # ---- completion segment: tx-history SQL, meta emission and
+        # checkpoint publish do not gate the next SCP round; they run on
+        # the completion worker, in ledger order. The committed
+        # checkpoint is ADOPTED here so a delayed publish records this
+        # ledger's bucket levels, not a later one's.
+        publish_in_completion = False
+        if pending_checkpoint is not None:
+            self.history_manager.adopt_checkpoint(pending_checkpoint)
+            if self.history_manager.publish_delay() > 0:
+                # reference: PUBLISH_TO_ARCHIVE_DELAY — the timer is
+                # armed on the calling thread (VirtualTimer is not
+                # thread-safe against the clock crank)
+                self.history_manager.publish_after_delay()
+            else:
+                publish_in_completion = True
+        if chaos.ENABLED:
+            self._chaos_crash_point("ledger.close.crash.queued",
+                                    lcd.ledger_seq)
+
+        seq = lcd.ledger_seq
+
+        def complete(publish=publish_in_completion):  # thread-domain: completion-worker
+            self._complete_close(seq, closed, lcd, applicable, txs,
+                                 result_pairs, fee_metas, tx_metas,
+                                 upgrade_metas, apply_version, publish)
+
+        if self.defer_completion:
+            self._completion.submit(seq, complete)
+        else:
+            complete()
+        if self.tx_count_meter is not None:
+            self.tx_count_meter.mark(len(txs))
+        if self.ledger_close_timer is not None:
+            self.ledger_close_timer.update(time.monotonic() - t0)
+        log.info("closed ledger %d (%d txs) hash %s", lcd.ledger_seq,
+                 len(txs), self._lcl_hash.hex()[:16])
+
+    def _chaos_crash_point(self, name: str, seq: int) -> None:
+        """One crash-matrix boundary: may raise SimulatedCrash (or any
+        other scheduled fault) — see chaos.CLOSE_CRASH_POINTS."""
+        chaos.point(name, node=self.chaos_label, seq=seq)
+
+    def _complete_close(self, seq: int, closed, lcd, applicable, txs,
+                        result_pairs, fee_metas, tx_metas, upgrade_metas,
+                        apply_version: int, publish: bool) -> None:
+        """The deferred tail of one close (reference: the history/meta
+        writes of LedgerManagerImpl.cpp:914-943 + publishQueuedHistory
+        :939, here off the consensus critical path). Batched: header-
+        adjacent history rows land in ONE SQL transaction via
+        executemany, with the completion marker the restart gap-check
+        reads."""
+        if threads.CHECK:
+            # runs on the completion worker when deferred, inline on
+            # the crank thread when defer_completion is off
+            threads.assert_domain("crank", "completion-worker")
+        targs = {"seq": seq} if tracing.ENABLED else None
+        with self.perf.zone("ledger.close.complete", targs=targs), \
+                self.perf.log_slow_execution(
+                    f"closeLedger {seq} completion", 2.0):
+            # meta FIRST: the marker commits last, so a crash anywhere
+            # in this job leaves the marker behind the LCL and the
+            # restart gap-check reports the incomplete tail (meta
+            # emitted for a gap ledger is harmless; meta silently LOST
+            # for a marker-complete ledger would not be)
+            with self.perf.zone("ledger.close.meta"):
+                self._emit_meta(closed, lcd, applicable, txs,
+                                result_pairs, fee_metas, tx_metas,
+                                upgrade_metas, apply_version)
+            if chaos.ENABLED:
+                self._chaos_crash_point(
+                    "ledger.close.crash.complete.meta", seq)
+            # read-tier tx-status feed rides the deferred tail, never
+            # the consensus-critical segment
+            for hook in self.completion_hooks:
+                hook(seq, closed.scpValue.closeTime, result_pairs)
+            with self.perf.zone("ledger.close.txHistory"):
+                dbtx = self.db.transaction() if self.db is not None \
+                    else nullcontext()
+                with dbtx:
+                    self._store_tx_history(seq, applicable, txs,
+                                           result_pairs, fee_metas,
+                                           tx_metas, apply_version)
+                    if self.persistent_state is not None:
+                        from ..main.persistent_state import StateEntry
+                        self.persistent_state.set(
+                            StateEntry.LAST_CLOSE_COMPLETED, str(seq))
+            if chaos.ENABLED:
+                self._chaos_crash_point(
+                    "ledger.close.crash.complete.marker", seq)
+            if publish:
+                with self.perf.zone("ledger.close.publish"):
+                    self.history_manager.publish_queued_history()
+
+    # ----------------------------------------------------- close sub-steps --
+    def _process_fees_seq_nums(self, ltx, applicable, txs) -> List[list]:
+        fee_metas = []
+        with LedgerTxn(ltx) as ltx_fees:
+            for tx in txs:
+                # lean per-tx fee charge: one shared phase txn, per-tx
+                # (STATE, UPDATED) meta built directly — byte-identical
+                # to a nested-txn-per-tx phase at a fraction of the cost
+                fee_metas.append(tx.process_fee_seq_num_lean(
+                    ltx_fees, applicable.base_fee_for(tx)))
+            ltx_fees.commit()
+        return fee_metas
+
+    def _sleep_cum(self):
+        """Cumulative (weight, duration) table for the OP_APPLY_SLEEP
+        synthetic apply-latency model, or None when disabled."""
+        if not self.apply_sleep:
+            return None
+        weights, durations = self.apply_sleep
+        sleep_cum = []
+        acc = 0
+        for w, d in zip(weights, durations):
+            acc += w
+            sleep_cum.append((acc, d))
+        return sleep_cum
+
+    def _sleep_for_apply(self, i: int, sleep_cum) -> None:
+        # deterministic weighted rotation (the reference samples
+        # randomly; tests need reproducible close times)
+        r = i % sleep_cum[-1][0]
+        for bound, dur in sleep_cum:
+            if r < bound:
+                time.sleep(dur / 1000.0)
+                break
+
+    def _halt_check(self, ltx, tx) -> None:
+        from ..xdr.results import TransactionResultCode
+        if self.halt_on_internal_error and \
+                ltx.get_header().ledgerVersion >= \
+                self.internal_error_min_protocol and \
+                tx.result.result.disc == \
+                TransactionResultCode.txINTERNAL_ERROR:
+            # reference: HALT_ON_INTERNAL_TRANSACTION_ERROR —
+            # printErrorAndAbort instead of recording the failure
+            raise RuntimeError(
+                "halting on txINTERNAL_ERROR (tx %s)"
+                % tx.full_hash().hex()[:16])
+
+    def _record_applied(self, tx, meta: dict, elapsed: float,
+                        result_pairs, tx_metas) -> None:
+        if self.tx_apply_timer is not None:
+            self.tx_apply_timer.update(elapsed)
+        # adopt the result object and FREEZE it: the pair (and, with
+        # delay-meta, the held-back meta) reference this live object
+        # past the close, so any later in-place mutation that skips
+        # _reset_result (a REPLACE, which unfreezes) would corrupt
+        # already-committed results — set_error/mark_result_failed
+        # assert against the flag
+        result_pairs.append(TransactionResultPair(
+            transactionHash=tx.full_hash(), result=tx.result))
+        tx.result._frozen = True
+        tx_metas.append(meta)
+
+    def _apply_one(self, ltx, applicable, tx, verify) -> tuple:
+        """Apply one tx inline on `ltx` — the sequential unit both the
+        plain loop and the staged path's width-1/fallback cases share.
+        Returns (meta, elapsed) for the caller to record in apply
+        order."""
+        t0 = time.monotonic()
+        meta: dict = {}
+        tx.apply(ltx, applicable.base_fee_for(tx), verify, meta,
+                 self.invariants)
+        self._halt_check(ltx, tx)
+        return meta, time.monotonic() - t0
+
+    def _apply_transactions(self, ltx, applicable, txs, verify,
+                            footprints=None) -> tuple:
+        if self.apply_parallel > 1 and \
+                len(txs) >= self.apply_parallel_min_txs:
+            return self._apply_transactions_parallel(
+                ltx, applicable, txs, verify, footprints)
+        self.last_apply_stages = len(txs)
+        self.last_stage_widths = [1] * len(txs)
+        result_pairs: List[TransactionResultPair] = []
+        tx_metas: List[dict] = []
+        sleep_cum = self._sleep_cum()
+        for i, tx in enumerate(txs):
+            if sleep_cum:
+                self._sleep_for_apply(i, sleep_cum)
+            meta, elapsed = self._apply_one(ltx, applicable, tx, verify)
+            self._record_applied(tx, meta, elapsed,
+                                 result_pairs, tx_metas)
+        return result_pairs, tx_metas
+
+    def _apply_transactions_parallel(self, ltx, applicable, txs, verify,
+                                     footprints) -> tuple:
+        """Conflict-staged apply (parallel_apply.py): partition the
+        apply-order txset into stages of footprint-disjoint txs, run
+        each multi-tx stage on the worker pool against per-worker child
+        LedgerTxns over a materialized StageSnapshot, and merge worker
+        deltas in apply order. Byte-identical to the sequential loop:
+        stage-mates share no keys, merges happen in apply order, and a
+        merge-time audit (recorded touches ⊆ declared footprint, header
+        untouched) sends any stage that breaks its claim back through
+        the sequential path."""
+        from .parallel_apply import ApplyWorkerPool, partition_stages
+        if footprints is None:
+            from ..tx.footprint import extract_footprints
+            footprints = extract_footprints(txs)
+        stages = partition_stages(footprints)
+        self.last_apply_stages = len(stages)
+        self.last_stage_widths = [len(s) for s in stages]
+        self.parallel_ledgers += 1
+        self.parallel_stages_total += len(stages)
+        self.parallel_width_max = max(self.parallel_width_max,
+                                      max(len(s) for s in stages))
+        if self.apply_stages_hist is not None:
+            self.apply_stages_hist.update(len(stages))
+            for s in stages:
+                self.apply_stage_width_hist.update(len(s))
+            # 0.0 = every tx in one stage, 1.0 = fully sequential
+            self.apply_conflict_hist.update(
+                (len(stages) - 1) / (len(txs) - 1) if len(txs) > 1
+                else 0.0)
+        if self._apply_pool is None or \
+                self._apply_pool.workers() != self.apply_parallel:
+            self._apply_pool = ApplyWorkerPool(self.apply_parallel)
+        # stages complete out of apply order (a later-index tx in an
+        # early stage finishes before an earlier-index tx in a later
+        # one), so per-tx outcomes collect indexed and the result/meta
+        # lists assemble in apply order at the end — exactly the
+        # sequential loop's shape, hash-identical txSetResultHash
+        out: dict = {}
+        sleep_cum = self._sleep_cum()
+        for stage in stages:
+            if len(stage) == 1:
+                # width-1 stages (imprecise footprints, conflict-chain
+                # members) take the exact sequential path on the real
+                # ltx — zero divergence risk for the hard cases
+                i = stage[0]
+                if sleep_cum:
+                    self._sleep_for_apply(i, sleep_cum)
+                out[i] = self._apply_one(ltx, applicable, txs[i], verify)
+            else:
+                self._apply_stage(ltx, applicable, txs, verify,
+                                  footprints, stage, sleep_cum, out)
+        result_pairs: List[TransactionResultPair] = []
+        tx_metas: List[dict] = []
+        for i in range(len(txs)):
+            meta, elapsed = out[i]
+            self._record_applied(txs[i], meta, elapsed,
+                                 result_pairs, tx_metas)
+        return result_pairs, tx_metas
+
+    def parallel_apply_report(self) -> dict:
+        """Cumulative conflict-staged apply shape since start/reset —
+        the CATCHUP artifact's `parallel_apply` section
+        (scripts/check_artifacts.py pins it)."""
+        return {"workers": self.apply_parallel,
+                "ledgers": self.parallel_ledgers,
+                "stages_total": self.parallel_stages_total,
+                "width_max": self.parallel_width_max,
+                "fallbacks": self.apply_fallbacks}
+
+    def _apply_stage(self, ltx, applicable, txs, verify, footprints,
+                     stage, sleep_cum, out: dict) -> None:
+        """One multi-tx stage: prewarm signatures, dispatch, audit,
+        merge in apply order — or fall back to sequential re-apply."""
+        from .parallel_apply import StageSnapshot
+        targs = {"width": len(stage)} if tracing.ENABLED else None
+        with self.perf.zone("ledger.close.applyTx.stage", targs=targs):
+            self._prewarm_stage_verify([txs[i] for i in stage])
+            stage_keys = set()
+            for i in stage:
+                stage_keys |= footprints[i].keys
+            snap = StageSnapshot(ltx, stage_keys)
+            header_bytes = ltx.get_header().to_bytes()
+            slots: dict = {}
+            jobs = [self._make_stage_job(
+                i, txs[i], applicable.base_fee_for(txs[i]), verify,
+                snap, sleep_cum, slots) for i in stage]
+            ok = True
+            try:
+                self._apply_pool.run(jobs)
+            except RuntimeError:
+                log.exception("apply stage worker-pool failure; "
+                              "re-applying stage sequentially")
+                ok = False
+            if ok:
+                ok = self._audit_stage(stage, footprints, slots,
+                                       header_bytes)
+            if not ok:
+                # discard every worker ltx and re-apply the whole stage
+                # inline (tx.apply resets results on entry, so partial
+                # worker applies leave no trace); the synthetic sleep
+                # already ran on the workers
+                self.apply_fallbacks += 1
+                for i in stage:
+                    out[i] = self._apply_one(ltx, applicable, txs[i],
+                                             verify)
+                return
+            for i in stage:
+                w, meta, elapsed = slots[i]
+                ltx.commit_child(w._delta, w._prev, None)
+                self._halt_check(ltx, txs[i])
+                out[i] = (meta, elapsed)
+
+    def _audit_stage(self, stage, footprints, slots,
+                     header_bytes: bytes) -> bool:
+        """Merge-time claim audit: every worker finished cleanly, its
+        recorded touches stayed inside the declared footprint, and it
+        left the header byte-untouched. Any miss rejects the WHOLE
+        stage — partial merges could order conflicting writes wrong."""
+        for i in stage:
+            got = slots.get(i)
+            if got is None or isinstance(got, BaseException):
+                if isinstance(got, BaseException) and \
+                        not isinstance(got, Exception):
+                    raise got     # KeyboardInterrupt etc: not ours
+                log.warning("apply stage falls back to sequential: "
+                            "tx %d raised %r", i, got)
+                return False
+            w = got[0]
+            touched = set(w._delta) | set(w._prev)
+            if not touched <= footprints[i].keys:
+                log.warning(
+                    "apply stage falls back to sequential: tx %d "
+                    "escaped its declared footprint (%d stray keys)",
+                    i, len(touched - footprints[i].keys))
+                return False
+            if w._header is not None and \
+                    w._header.to_bytes() != header_bytes:
+                log.warning("apply stage falls back to sequential: "
+                            "tx %d mutated the ledger header", i)
+                return False
+        return True
+
+    def _make_stage_job(self, i, tx, base_fee, verify, snap, sleep_cum,
+                        slots):
+        """Build one worker job. The closure owns slot `i` exclusively
+        (stage indices are unique), so workers never write shared
+        manager state — the apply-worker thread domain stays disjoint
+        from crank state, which scripts/analyze.py checks."""
+        apply_fn = tx.apply
+        sleep_fn = self._sleep_for_apply
+        invariants = self.invariants
+        def job():
+            try:
+                if sleep_cum:
+                    sleep_fn(i, sleep_cum)
+                t0 = time.monotonic()
+                w = LedgerTxn(snap)
+                meta: dict = {}
+                apply_fn(w, base_fee, verify, meta, invariants)
+                slots[i] = (w, meta, time.monotonic() - t0)
+            except BaseException as exc:  # noqa: BLE001 — audited at merge
+                slots[i] = exc
+        return job
+
+    def _prewarm_stage_verify(self, stage_txs) -> None:
+        """Batch the stage's hint-matching signatures through the
+        verify service so worker-side checks hit the process-wide
+        verify cache (the reference's per-cluster signature batching,
+        SOSP 2019 §6) — a miss just falls back to sync verify."""
+        vs = self.verify_service
+        if vs is None:
+            return
+        from ..tx.signature_checker import collect_signature_tuples
+        tuples = collect_signature_tuples(stage_txs)
+        if not tuples:
+            return
+        try:
+            for f in vs.submit_many(tuples):
+                f.result()
+        except Exception:
+            log.exception("stage signature prewarm failed; workers "
+                          "fall back to sync verify")
+
+    def _eviction_scan(self, ltx, header) -> List:
+        """State archival (protocol 23+): expired soroban entries leave
+        live state — persistent ones into the hot archive (returned as
+        full LedgerEntry records), temporary ones deleted outright.
+
+        The scan is INCREMENTAL and bounded: a persistent
+        EvictionIterator in network config (consensus state — reference:
+        CONFIG_SETTING_EVICTION_ITERATOR, NetworkConfig.h:311-317,
+        BucketList.cpp:830-943) records the resume position; each close
+        probes at most `evictionScanSize` keys from there in canonical
+        key order (wrapping), so per-close work is O(scan size) — never
+        O(total contract state). The reference's iterator fields address
+        bucket files (level/curr/offset); rows indexed by key make
+        canonical key order the device-native walk, so here
+        `bucketFileOffset` carries the wrapped key-ordinal cursor and
+        level/isCurr stay 0/true. Deterministic across nodes and across
+        restarts: the cursor is ledger state, and the key index is
+        rebuilt from identical ledger state."""
+        if header.ledgerVersion < FIRST_PROTOCOL_STATE_ARCHIVAL or \
+                self.bucket_manager is None:
+            return []
+        from ..soroban.host import ttl_key_for
+        from ..soroban.network_config import SorobanNetworkConfig
+        from ..xdr.contract import (ConfigSettingEntry, ConfigSettingID,
+                                    ContractDataDurability,
+                                    EvictionIterator)
+        sa = SorobanNetworkConfig(ltx).state_archival
+        # incremental canonical key index: built once at the root, then
+        # maintained by every commit (ledger_txn._index_apply_delta)
+        keys = self.root.contract_key_index()
+        n = len(keys)
+        self.last_eviction_probes = 0
+        if n == 0:
+            return []
+        it_key = LedgerKey.config_setting(
+            ConfigSettingID.CONFIG_SETTING_EVICTION_ITERATOR)
+        it_le = ltx.load(it_key)
+        offset = it_le.data.value.value.bucketFileOffset % n \
+            if it_le is not None else 0
+        budget = min(n, max(1, sa.evictionScanSize))
+        evicted: List = []
+        probes = 0
+        i = offset
+        while probes < budget:
+            kb = keys[i]
+            i = (i + 1) % n
+            probes += 1
+            key = LedgerKey.from_bytes(kb)
+            ttlk = ttl_key_for(key)
+            ttl_le = ltx.load_without_record(ttlk)
+            if ttl_le is None or \
+                    ttl_le.data.value.liveUntilLedgerSeq >= header.ledgerSeq:
+                continue
+            le = ltx.load(key)
+            if le is None:
+                continue
+            persistent = key.disc == LedgerEntryType.CONTRACT_CODE or \
+                key.value.durability == ContractDataDurability.PERSISTENT
+            if persistent:
+                evicted.append(le.clone())
+            ltx.erase(key)
+            if ltx.load(ttlk) is not None:
+                ltx.erase(ttlk)
+            if len(evicted) >= sa.maxEntriesToArchive:
+                break
+        self.last_eviction_probes = probes
+        # Persist the cursor — consensus state, part of this close's
+        # delta. The index shifts at commit (evictions + this close's
+        # contract creates/deletes), so the stored ordinal is computed
+        # against the POST-close index: position of the next unprobed
+        # key = pre-index position, minus deletes below it, plus
+        # creates below it. An unadjusted ordinal would skip one
+        # unprobed key per entry removed below the cursor.
+        next_kb = keys[i]
+        import bisect
+
+        def _in_index(kb: bytes) -> bool:
+            p = bisect.bisect_left(keys, kb)
+            return p < len(keys) and keys[p] == kb
+
+        pos = bisect.bisect_left(keys, next_kb)
+        delta = ltx.get_delta()
+        _kinds = (LedgerEntryType.CONTRACT_DATA,
+                  LedgerEntryType.CONTRACT_CODE)
+        for le in delta.init:
+            k = ledger_entry_key(le)
+            kb = k.to_bytes()
+            if k.disc in _kinds and kb < next_kb and not _in_index(kb):
+                pos += 1
+        for k in delta.dead:
+            kb = k.to_bytes()
+            if k.disc in _kinds and kb < next_kb and _in_index(kb):
+                pos -= 1
+        new_it = EvictionIterator(bucketListLevel=0, isCurrBucket=True,
+                                  bucketFileOffset=pos)
+        if it_le is not None:
+            it_le.data.value.value = new_it
+        else:
+            from ..soroban.network_config import _entry
+            ltx.create(_entry(ConfigSettingEntry(
+                ConfigSettingID.CONFIG_SETTING_EVICTION_ITERATOR, new_it)))
+        return evicted
+
+    def _restored_archived_keys(self, delta) -> List:
+        """Keys recreated this ledger that the hot archive still holds
+        as ARCHIVED — they get a LIVE tombstone so the archive's view
+        stays consistent with live state."""
+        from ..xdr.next_types import HotArchiveBucketEntryType
+        hal = self.bucket_manager.hot_archive
+        out = []
+        for le in delta.init:
+            k = ledger_entry_key(le)
+            if k.disc not in (LedgerEntryType.CONTRACT_DATA,
+                              LedgerEntryType.CONTRACT_CODE):
+                continue
+            be = hal.get_entry(k)
+            if be is not None and be.disc == \
+                    HotArchiveBucketEntryType.HOT_ARCHIVE_ARCHIVED:
+                out.append(k)
+        return out
+
+    def _apply_upgrades(self, ltx, value: StellarValue) -> List:
+        from ..herder.upgrades import Upgrades
+        upgrade_metas = []
+        for raw in value.upgrades:
+            try:
+                up = LedgerUpgrade.from_bytes(bytes(raw))
+            except Exception:
+                log.error("skipping unparsable upgrade")
+                continue
+            with LedgerTxn(ltx) as ltx_up:
+                header = ltx_up.load_header()
+                old_version = header.ledgerVersion
+                Upgrades.apply_to(up, header, ltx=ltx_up)
+                if old_version < 20 <= header.ledgerVersion:
+                    # crossing into protocol 20 creates the Soroban
+                    # config entries (reference: upgrade hook →
+                    # createLedgerEntriesForV20)
+                    from ..soroban.network_config import \
+                        create_initial_settings
+                    create_initial_settings(ltx_up,
+                                            self.archival_overrides,
+                                            self.soroban_high_limits)
+                changes = ltx_up.get_changes()
+                ltx_up.commit()
+            upgrade_metas.append(UpgradeEntryMeta(
+                upgrade=bytes(raw), changes=changes))
+        return upgrade_metas
+
+    # ------------------------------------------------------------ history --
+    def _store_header(self, header: LedgerHeader) -> None:
+        if self.db is None or not self.stores_history_ledgerheaders:
+            return
+        self.db.execute(
+            "INSERT OR REPLACE INTO ledgerheaders "
+            "(ledgerhash, prevhash, ledgerseq, closetime, data) "
+            "VALUES (?,?,?,?,?)",
+            (ledger_header_hash(header), header.previousLedgerHash,
+             header.ledgerSeq, header.scpValue.closeTime,
+             header.to_bytes()))
+
+    def _store_tx_history(self, seq: int, applicable, txs, result_pairs,
+                          fee_metas, tx_metas, apply_version: int) -> None:
+        if self.db is None or not self.stores_history_misc:
+            return
+        from ..xdr.ledger import LedgerEntryChanges
+        from ..xdr.runtime import Writer
+        wire = applicable.to_wire()
+        self.db.execute(
+            "INSERT OR REPLACE INTO txsethistory "
+            "(ledgerseq, isgeneralized, txset) VALUES (?,?,?)",
+            (seq, 1 if wire.is_generalized else 0, wire.to_bytes()))
+        tx_rows = []
+        fee_rows = []
+        for i, tx in enumerate(txs):
+            tx_rows.append(
+                (tx.full_hash(), seq, i, tx.envelope_bytes(),
+                 result_pairs[i].to_bytes(),
+                 _encode_tx_meta(tx_metas[i], apply_version).to_bytes()))
+            w = Writer()
+            LedgerEntryChanges.pack(w, fee_metas[i])
+            fee_rows.append((tx.full_hash(), seq, i, bytes(w.buf)))
+        self.db.executemany(
+            "INSERT OR REPLACE INTO txhistory "
+            "(txid, ledgerseq, txindex, txbody, txresult, txmeta) "
+            "VALUES (?,?,?,?,?,?)", tx_rows)
+        self.db.executemany(
+            "INSERT OR REPLACE INTO txfeehistory "
+            "(txid, ledgerseq, txindex, txchanges) VALUES (?,?,?,?)",
+            fee_rows)
+
+    def _emit_meta(self, header, lcd, applicable, txs, result_pairs,
+                   fee_metas, tx_metas, upgrade_metas,
+                   apply_version: int) -> None:
+        if self.meta_stream is None and self.meta_debug_dir is None:
+            return
+        hhe = LedgerHeaderHistoryEntry(
+            hash=ledger_header_hash(header), header=header,
+            ext=ExtensionPoint(0))
+        tx_processing = [
+            TransactionResultMeta(
+                result=result_pairs[i],
+                feeProcessing=fee_metas[i],
+                txApplyProcessing=_encode_tx_meta(
+                    tx_metas[i], apply_version))
+            for i in range(len(txs))
+        ]
+        wire = applicable.to_wire()
+        if wire.is_generalized:
+            # protocol 20+: v1 meta carries the generalized set verbatim
+            from ..xdr.ledger import LedgerCloseMetaV1
+            v1 = LedgerCloseMetaV1(
+                ext=ExtensionPoint(0), ledgerHeader=hhe,
+                txSet=wire.to_xdr(), txProcessing=tx_processing,
+                upgradesProcessing=upgrade_metas, scpInfo=[],
+                totalByteSizeOfBucketList=0,
+                evictedTemporaryLedgerKeys=[],
+                evictedPersistentLedgerEntries=[])
+            meta = LedgerCloseMeta(1, v1)
+        else:
+            v0 = LedgerCloseMetaV0(
+                ledgerHeader=hhe, txSet=wire.to_xdr(),
+                txProcessing=tx_processing,
+                upgradesProcessing=upgrade_metas, scpInfo=[])
+            meta = LedgerCloseMeta(0, v0)
+        if self.delay_meta:
+            # one-ledger holdback: consumers only ever see meta for
+            # ledgers strictly behind the LCL (reference:
+            # EXPERIMENTAL_PRECAUTION_DELAY_META)
+            with self._meta_lock:
+                meta, self._delayed_meta = self._delayed_meta, meta
+            if meta is None:
+                return
+        self._deliver_meta(meta)
+
+    def flush_delayed_meta(self) -> None:
+        """Emit any held-back meta (clean shutdown must not leave a
+        permanent gap in the stream)."""
+        with self._meta_lock:
+            meta, self._delayed_meta = self._delayed_meta, None
+        if meta is not None:
+            self._deliver_meta(meta)
+
+    def _deliver_meta(self, meta) -> None:
+        if self.meta_stream is not None:
+            self.meta_stream(meta)
+        if self.meta_debug_dir is not None:
+            # key by the meta's OWN ledger seq: with delay-meta on, the
+            # emitted meta is one ledger behind the closing header
+            self._write_debug_meta(
+                meta, meta.value.ledgerHeader.header.ledgerSeq)
+
+    # ------------------------------------------------------- debug meta --
+    def _write_debug_meta(self, meta, seq: int) -> None:
+        """Append the close meta to the current debug segment; rotate +
+        gzip at checkpoint boundaries and GC old segments (reference:
+        LedgerManagerImpl.cpp:1100-1160 + FlushAndRotateMetaDebugWork)."""
+        import os
+        from ..history.archive import (CHECKPOINT_FREQUENCY,
+                                       checkpoint_containing)
+        from ..util.xdr_stream import write_record
+        with self._meta_lock:
+            segment = checkpoint_containing(seq)
+            if self._meta_debug_file is None or \
+                    self._meta_debug_segment != segment:
+                self._close_debug_meta()
+                os.makedirs(self.meta_debug_dir, exist_ok=True)
+                path = os.path.join(self.meta_debug_dir,
+                                    f"meta-debug-{segment:08x}.xdr")
+                if os.path.exists(path):
+                    # a crash can leave a partial tail record; drop it
+                    # so appended records stay readable (reference:
+                    # FlushAndRotateMetaDebugWork's startup cleanup)
+                    _truncate_partial_tail(path)
+                self._meta_debug_file = open(path, "ab")
+                self._meta_debug_segment = segment
+            write_record(self._meta_debug_file, meta.to_bytes())
+            # flush per record: a crash loses at most the in-flight
+            # record
+            self._meta_debug_file.flush()
+            if seq == segment:
+                # segment complete: compress and GC (keep enough
+                # segments to cover meta_debug_ledgers)
+                self._close_debug_meta(compress=True)
+                keep = max(1, (self.meta_debug_ledgers +
+                               CHECKPOINT_FREQUENCY - 1)
+                           // CHECKPOINT_FREQUENCY)
+                files = sorted(
+                    f for f in os.listdir(self.meta_debug_dir)
+                    if f.startswith("meta-debug-"))
+                for f in files[:-keep] if len(files) > keep else []:
+                    os.unlink(os.path.join(self.meta_debug_dir, f))
+
+    def _close_debug_meta(self, compress: bool = False) -> None:
+        import gzip
+        import os
+        with self._meta_lock:
+            if self._meta_debug_file is None:
+                return
+            path = self._meta_debug_file.name
+            self._meta_debug_file.close()
+            self._meta_debug_file = None
+            self._meta_debug_segment = None
+        if compress:
+            import shutil
+            with open(path, "rb") as src, \
+                    gzip.open(path + ".gz", "wb") as dst:
+                shutil.copyfileobj(src, dst)
+            os.unlink(path)
+
+
+def _phase_summary(phases: dict) -> str:
+    """`applyTx=2100ms seal=300ms ...` — slowest phase first, so the
+    slow-execution log names the guilty phase."""
+    return " ".join(
+        "%s=%.0fms" % (name.rsplit(".", 1)[-1], dt * 1000)
+        for name, dt in sorted(phases.items(), key=lambda kv: -kv[1]))
+
+
+def _truncate_partial_tail(path: str) -> None:
+    """Scan XDR records in `path` and truncate anything after the last
+    complete record."""
+    import os
+    from ..util.xdr_stream import read_record
+    good = 0
+    with open(path, "rb") as f:
+        while True:
+            try:
+                rec = read_record(f)
+            except OSError:
+                break
+            if rec is None:
+                return  # file ends cleanly
+            good = f.tell()
+    os.truncate(path, good)
+    log.warning("dropped partial tail record from %s", path)
+
+
+def _encode_tx_meta(meta: dict,
+                    ledger_version: int = 0) -> TransactionMeta:
+    from ..xdr.ledger import OperationMeta
+    ops = [OperationMeta(changes=ch)
+           for ch in meta.get("operations", [])]
+    if ledger_version >= 20:
+        # reference: protocol 20+ emits TransactionMetaV3; sorobanMeta
+        # is present for soroban txs (events + host-fn return value)
+        from ..xdr.contract import SCVal, SCValType
+        from ..xdr.ledger import (SorobanTransactionMeta,
+                                  TransactionMetaV3)
+        soroban = meta.get("soroban")
+        sm = None
+        if soroban is not None:
+            from ..xdr.ledger import DiagnosticEvent
+            rv = soroban.get("return_value")
+            sm = SorobanTransactionMeta(
+                ext=ExtensionPoint(0),
+                events=list(soroban.get("events") or []),
+                returnValue=rv if rv is not None
+                else SCVal(SCValType.SCV_VOID),
+                diagnosticEvents=[
+                    DiagnosticEvent(
+                        inSuccessfulContractCall=bool(
+                            soroban.get("in_success", True)),
+                        event=ev)
+                    for ev in (soroban.get("diagnostics") or [])])
+        return TransactionMeta(3, TransactionMetaV3(
+            ext=ExtensionPoint(0),
+            txChangesBefore=meta.get("tx_changes_before", []),
+            operations=ops,
+            txChangesAfter=[],
+            sorobanMeta=sm))
+    v2 = TransactionMetaV2(
+        txChangesBefore=meta.get("tx_changes_before", []),
+        operations=ops,
+        txChangesAfter=[])
+    return TransactionMeta(2, v2)

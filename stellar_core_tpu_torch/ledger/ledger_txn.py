@@ -15,16 +15,15 @@ hop and re-fetching prevs at commit cost ~46% of catchup apply time).
 Headers follow the same rule: a child clones the parent header only on
 `load_header()`, and commit passes ownership up without another copy.
 
-Order-book queries of the SQL root resolve root offers through its index
+Order-book queries resolve root offers through the SQL index
 (sellingasset/buyingasset/price/offerid columns) with child deltas
 overlaid, mirroring LedgerTxn::loadBestOffer / the reference's
 loadBestOffersIntoCache SQL (ledger/LedgerTxnOfferSQL.cpp) rather than
 scanning the book.
 
-Counterpart of stellar_core_tpu/ledger/ledger_txn.py. The port has the
-dict-backed InMemoryLedgerTxnRoot, which `from_xdr` fills from the XDR
-bytes of a header and of entries; the SQL-backed LedgerTxnRoot is not
-copied yet (it comes with the db/ slice).
+Counterpart of stellar_core_tpu/ledger/ledger_txn.py; beside the
+reference's roots, `InMemoryLedgerTxnRoot.from_xdr` fills a dict-backed
+root from the XDR bytes of a header and of entries.
 """
 
 from __future__ import annotations
@@ -412,7 +411,7 @@ class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
         self._entries: Dict[bytes, LedgerEntry] = {}
         self._header = header or LedgerHeader()
         self._child = None
-        self.hot_archive = None   # state-archival lookup (protocol 23+)
+        self.hot_archive = None   # see LedgerTxnRoot
         self._contract_key_index: Optional[List[bytes]] = None
 
     @classmethod
@@ -515,3 +514,336 @@ def _index_apply_delta(idx: Optional[List[bytes]], delta) -> None:
                 del idx[pos]
         elif not present:
             idx.insert(pos, kb)
+
+
+_TABLE_FOR_TYPE = {
+    LedgerEntryType.ACCOUNT: "accounts",
+    LedgerEntryType.TRUSTLINE: "trustlines",
+    LedgerEntryType.OFFER: "offers",
+    LedgerEntryType.DATA: "accountdata",
+    LedgerEntryType.CLAIMABLE_BALANCE: "claimablebalance",
+    LedgerEntryType.LIQUIDITY_POOL: "liquiditypool",
+    LedgerEntryType.CONTRACT_DATA: "contractdata",
+    LedgerEntryType.CONTRACT_CODE: "contractcode",
+    LedgerEntryType.CONFIG_SETTING: "configsettings",
+    LedgerEntryType.TTL: "ttl",
+}
+
+_ABSENT = object()
+
+
+class LedgerTxnRoot(AbstractLedgerTxnParent):
+    """SQL-backed root: entries live in per-type tables, commit writes
+    them inside the caller's DB transaction (reference: LedgerTxnRoot +
+    LedgerTxn*SQL.cpp).
+
+    The entry cache holds DECODED LedgerEntry objects (or _ABSENT
+    negatives) handed out as shared snapshots — the load path clones
+    exactly once at the LedgerTxn that records the entry.  Values
+    prefetched in bulk are kept as raw bytes and decoded lazily on
+    first access (reference analogue: the entry cache fed by
+    prefetch, LedgerTxnRoot.h)."""
+
+    def __init__(self, db, header: Optional[LedgerHeader] = None,
+                 cache_size: int = 4096):
+        from ..util.cache import RandomEvictionCache
+        self._db = db
+        self._header = header or LedgerHeader()
+        self._child = None
+        self._cache: "RandomEvictionCache" = RandomEvictionCache(cache_size)
+        self._bucket_list = None
+        # state-archival lookup hook (protocol 23+): set by the
+        # LedgerManager so RestoreFootprint can consult the hot archive
+        # through its LedgerTxn chain (reference: the host's restore
+        # path reading the hot archive bucket list)
+        self.hot_archive = None
+        self._contract_key_index: Optional[List[bytes]] = None
+        # batch tuning (reference: PREFETCH_BATCH_SIZE,
+        # MAX_BATCH_WRITE_COUNT/_BYTES) — set from config by Application
+        self.prefetch_batch = 1000
+        self.max_batch_write_count = 1024
+        self.max_batch_write_bytes = 1024 * 1024
+        # reference: BEST_OFFER_DEBUGGING_ENABLED
+        self.best_offer_debugging = False
+
+    def get_root(self) -> "LedgerTxnRoot":
+        return self
+
+    def contract_entry_keys(self):
+        """Canonically ordered CONTRACT_DATA/CONTRACT_CODE key bytes
+        (the eviction scan's walk order)."""
+        out = []
+        for table in ("contractdata", "contractcode"):
+            out.extend(bytes(r[0]) for r in self._db.query_all(
+                f"SELECT key FROM {table}"))
+        return sorted(out)
+
+    def contract_key_index(self) -> List[bytes]:
+        """Sorted contract-key index: ONE full SELECT when first needed,
+        then maintained by every commit_child — the bounded eviction
+        scan never re-walks total contract state."""
+        if self._contract_key_index is None:
+            self._contract_key_index = list(self.contract_entry_keys())
+        return self._contract_key_index
+
+    def serve_from_bucket_list(self, bucket_list) -> None:
+        """BucketListDB mode (reference: EXPERIMENTAL_BUCKETLIST_DB,
+        bucket/readme.md:55-105): non-offer entry loads are answered by
+        the bucket indexes (bloom-gated, newest level first) instead of
+        SQL.  Offers stay in SQL — the order book needs its range
+        queries, exactly as the reference keeps offers in the database
+        under BucketListDB."""
+        self._bucket_list = bucket_list
+
+    # ------------------------------------------------------------- entries --
+    @staticmethod
+    def _table_for(kb: bytes) -> str:
+        t = LedgerEntryType(struct.unpack(">i", kb[:4])[0])
+        table = _TABLE_FOR_TYPE.get(t)
+        releaseAssert(table is not None, f"no SQL table for {t!r}")
+        return table
+
+    def _lookup(self, kb: bytes) -> Optional[LedgerEntry]:
+        hit = self._cache.maybe_get(kb)
+        if hit is not None:
+            if hit is _ABSENT:
+                return None
+            if hit.__class__ is bytes:        # lazily decode prefetches
+                hit = LedgerEntry.from_bytes(hit)
+                self._cache.put(kb, hit)
+            return hit
+        if self._bucket_list is not None \
+                and not kb.startswith(_OFFER_KB_PREFIX):
+            from ..xdr.ledger import BucketEntryType
+            be = self._bucket_list.get_entry(LedgerKey.from_bytes(kb))
+            if be is None or be.disc == BucketEntryType.DEADENTRY:
+                self._cache.put(kb, _ABSENT)
+                return None
+            e = be.value
+            self._cache.put(kb, e)
+            return e
+        row = self._db.query_one(
+            f"SELECT entry FROM {self._table_for(kb)} WHERE key=?", (kb,))
+        if row:
+            e = LedgerEntry.from_bytes(bytes(row[0]))
+            self._cache.put(kb, e)
+            return e
+        self._cache.put(kb, _ABSENT)
+        return None
+
+    def prefetch(self, keys) -> int:
+        """Batch-load entries into the root cache: one SELECT ... IN (...)
+        per table instead of a query per key (reference: LedgerTxnRoot
+        prefetch + prefetchTxSourceIds, LedgerManagerImpl.cpp:805).
+        Stops inserting near the cache cap so a huge key set cannot
+        thrash out its own (or hot, unrelated) entries. Returns the
+        number of keys now cached."""
+        budget = self._cache.max_size - len(self._cache)
+        by_table: Dict[str, list] = {}
+        n = 0
+        for key in keys:
+            kb = key.to_bytes() if hasattr(key, "to_bytes") else bytes(key)
+            if self._cache.maybe_get(kb) is not None:
+                n += 1
+                continue
+            if budget <= 0:
+                continue
+            budget -= 1
+            if self._bucket_list is not None \
+                    and not kb.startswith(_OFFER_KB_PREFIX):
+                # SQL is not authoritative for bucket-list-served keys
+                # (entries may live only in buckets); caching an SQL
+                # miss as _ABSENT here would shadow a live entry.
+                self._lookup(kb)
+                n += 1
+                continue
+            by_table.setdefault(self._table_for(kb), []).append(kb)
+        # chunk to stay under sqlite's bound-parameter limit AND the
+        # configured batch (reference: PREFETCH_BATCH_SIZE)
+        step = min(500, max(1, self.prefetch_batch))
+        for table, kbs in by_table.items():
+            for i in range(0, len(kbs), step):
+                chunk = kbs[i:i + step]
+                marks = ",".join("?" * len(chunk))
+                found = {bytes(row[0]): bytes(row[1])
+                         for row in self._db.query_all(
+                             f"SELECT key, entry FROM {table} "
+                             f"WHERE key IN ({marks})", chunk)}
+                for kb in chunk:
+                    self._cache.put(kb, found.get(kb, _ABSENT))
+                    n += 1
+        return n
+
+    def get_header(self) -> LedgerHeader:
+        return self._header
+
+    def set_header(self, header: LedgerHeader) -> None:
+        self._header = header.clone()
+
+    def commit_child(self, delta, prev, header) -> None:
+        # group per (table, kind) so sqlite sees executemany batches
+        # instead of one statement per entry
+        deletes: Dict[str, list] = {}
+        upserts: Dict[str, list] = {}
+        offer_rows: list = []
+        cache_updates: list = []
+        for kb, e in delta.items():
+            table = self._table_for(kb)
+            if e is None:
+                deletes.setdefault(table, []).append((kb,))
+                cache_updates.append((kb, _ABSENT))
+                continue
+            raw = e.to_bytes()
+            if table == "offers":
+                of: OfferEntry = e.data.value
+                offer_rows.append(
+                    (kb, raw, e.lastModifiedLedgerSeq,
+                     of.sellerID.to_bytes(), of.offerID,
+                     of.selling.to_bytes(), of.buying.to_bytes(),
+                     of.price.n, of.price.d, of.price.n / of.price.d))
+            else:
+                upserts.setdefault(table, []).append(
+                    (kb, raw, e.lastModifiedLedgerSeq))
+            cache_updates.append((kb, e))
+        def write_batches(rows, raw_at):
+            # bound each executemany by count AND payload bytes
+            # (reference: MAX_BATCH_WRITE_COUNT / MAX_BATCH_WRITE_BYTES,
+            # the SQL batch upload bounds in BucketApplicator/SQL roots)
+            batch, size = [], 0
+            for r in rows:
+                batch.append(r)
+                if raw_at is not None:
+                    size += len(r[raw_at])
+                if len(batch) >= self.max_batch_write_count or \
+                        size >= self.max_batch_write_bytes:
+                    yield batch
+                    batch, size = [], 0
+            if batch:
+                yield batch
+
+        with self._db.transaction():
+            for table, rows in deletes.items():
+                for b in write_batches(rows, None):
+                    self._db.executemany(
+                        f"DELETE FROM {table} WHERE key=?", b)
+            for table, rows in upserts.items():
+                for b in write_batches(rows, 1):
+                    self._db.executemany(
+                        f"INSERT OR REPLACE INTO {table} "
+                        "(key, entry, lastmodified) VALUES (?,?,?)", b)
+            for b in write_batches(offer_rows, 1):
+                self._db.executemany(
+                    "INSERT OR REPLACE INTO offers (key, entry, "
+                    "lastmodified, sellerid, offerid, sellingasset, "
+                    "buyingasset, pricen, priced, price) "
+                    "VALUES (?,?,?,?,?,?,?,?,?,?)", b)
+        # cache reflects only durably committed state; committed objects
+        # are adopted (the committing txn is closed, so they are frozen)
+        for kb, v in cache_updates:
+            self._cache.put(kb, v)
+        _index_apply_delta(self._contract_key_index, delta)
+        if header is not None:
+            self._header = header
+
+    # ---------------------------------------------------------- order book --
+    def best_offer(self, selling: Asset, buying: Asset,
+                   exclude) -> Optional[Tuple[bytes, LedgerEntry]]:
+        """Best offer via the indexed columns, skipping `exclude`d keys
+        (those are overridden by open deltas).  Pages through candidates
+        in (price, offerid) order exactly like the reference's
+        loadBestOffers SQL (ledger/LedgerTxnOfferSQL.cpp:34-60)."""
+        found = self._best_offer_sql(selling, buying, exclude)
+        if self.best_offer_debugging:
+            # reference: BEST_OFFER_DEBUGGING_ENABLED — cross-check the
+            # indexed result against a full scan on every lookup
+            check = self._best_offer_scan(selling, buying, exclude)
+            from ..util.checks import releaseAssert
+            releaseAssert(
+                (found[0] if found else None) ==
+                (check[0] if check else None),
+                "best-offer debugging: indexed lookup disagrees with "
+                "the full scan")
+        return found
+
+    def _best_offer_scan(self, selling, buying, exclude):
+        best_kb, best = None, None
+        for kb, e in self.iter_offers():
+            if kb in exclude:
+                continue
+            of = e.data.value
+            if of.selling != selling or of.buying != buying:
+                continue
+            if best is None or _offer_less(of, best.data.value):
+                best_kb, best = kb, e
+        return None if best_kb is None else (best_kb, best)
+
+    def _best_offer_sql(self, selling: Asset, buying: Asset,
+                        exclude) -> Optional[Tuple[bytes, LedgerEntry]]:
+        sb = selling.to_bytes()
+        bb = buying.to_bytes()
+        offset = 0
+        page = 8
+        while True:
+            rows = self._db.query_all(
+                "SELECT key, entry FROM offers WHERE sellingasset=? AND "
+                "buyingasset=? ORDER BY price, offerid LIMIT ? OFFSET ?",
+                (sb, bb, page, offset))
+            if not rows:
+                return None
+            for kb, raw in rows:
+                kb = bytes(kb)
+                if kb in exclude:
+                    continue
+                cached = self._cache.maybe_get(kb)
+                if cached is not None and cached is not _ABSENT \
+                        and cached.__class__ is not bytes:
+                    e = cached
+                else:
+                    e = LedgerEntry.from_bytes(bytes(raw))
+                    self._cache.put(kb, e)
+                # double rounding is monotone, so SQL order can only
+                # COLLAPSE distinct rational prices onto one double —
+                # resolve such ties with the exact comparator over every
+                # row sharing the stored price (reference re-sorts each
+                # loaded batch exactly, LedgerTxnRoot loadBestOffers)
+                return self._exact_best_at_price(sb, bb, kb, e, exclude)
+            offset += page
+            page *= 2
+
+    def _exact_best_at_price(self, sb, bb, kb, e, exclude):
+        ties = self._db.query_all(
+            "SELECT key, entry FROM offers WHERE sellingasset=? AND "
+            "buyingasset=? AND price=(SELECT price FROM offers WHERE "
+            "key=?) ORDER BY offerid", (sb, bb, kb))
+        best_kb, best = kb, e
+        for tkb, traw in ties:
+            tkb = bytes(tkb)
+            if tkb == kb or tkb in exclude:
+                continue
+            te = self._cache.maybe_get(tkb)
+            if te is None or te is _ABSENT or te.__class__ is bytes:
+                te = LedgerEntry.from_bytes(bytes(traw))
+                self._cache.put(tkb, te)
+            if _offer_less(te.data.value, best.data.value):
+                best_kb, best = tkb, te
+        return best_kb, best
+
+    def offers_by_account(self, account_id) -> Dict[bytes, LedgerEntry]:
+        out = {}
+        for kb, raw in self._db.query_all(
+                "SELECT key, entry FROM offers WHERE sellerid=?",
+                (account_id.to_bytes(),)):
+            out[bytes(kb)] = LedgerEntry.from_bytes(bytes(raw))
+        return out
+
+    def iter_offers(self):
+        for (kb, raw) in self._db.query_all("SELECT key, entry FROM offers"):
+            yield bytes(kb), LedgerEntry.from_bytes(bytes(raw))
+
+    def load_header_from_db(self) -> Optional[LedgerHeader]:
+        row = self._db.query_one(
+            "SELECT data FROM ledgerheaders ORDER BY ledgerseq DESC LIMIT 1")
+        if not row:
+            return None
+        self._header = LedgerHeader.from_bytes(row[0])
+        return self._header

@@ -1,0 +1,258 @@
+"""Conflict-staged parallel transaction apply.
+
+Reference: the parallel apply phases of Lokhava et al. (SOSP 2019 §6):
+a ledger's transactions are partitioned by the ledger entries they
+touch, entries are loaded up front, and non-conflicting groups apply
+concurrently while conflicting ones serialize. This module provides the
+three pieces the LedgerManager's staged apply path composes:
+
+- ``partition_stages``: union-find over shared footprint keys
+  (tx/footprint.py) turns the apply-order txset into stages — within a
+  stage no two txs share any key, and a tx's stage comes after every
+  stage holding an earlier conflicting tx. Txs with imprecise
+  footprints are barriers: they flush the current segment and run as
+  width-1 stages (applied inline on the real LedgerTxn by the caller).
+
+- ``StageSnapshot``: the parent a stage's worker ``LedgerTxn``s hang
+  off. It MATERIALIZES every declared footprint key of the stage into a
+  plain dict on the crank thread before workers start, because workers
+  must never reach the SQL root: the close holds the Database session
+  RLock (db/database.py `_TxScope`) on the crank for the whole commit
+  scope, so a worker-side cache miss would deadlock against its own
+  dispatcher. A worker read outside the materialized set raises
+  ``FootprintEscape`` — the stage then falls back to sequential apply,
+  so an under-declared footprint degrades parallelism, never
+  correctness. Order-book walks escape for the same reason (only
+  imprecise txs trade, and those never run on workers).
+
+- ``ApplyWorkerPool``: a small bounded pool patterned on
+  CloseCompletionQueue (completion.py) — lazy spawn, idle exit, jobs
+  are opaque closures. ``run(jobs)`` blocks the crank until the stage
+  drains, so workers only ever run while the crank is parked inside
+  the applyTx phase; the `apply-worker` thread domain declaration plus
+  SC_THREAD_CHECK runtime binding make that checkable.
+
+The GIL note: stage concurrency pays off only in the portions that
+release the GIL — native signature verification, the OP_APPLY_SLEEP
+synthetic cost model, SQL in other configurations — which is exactly
+what the APPLYPAR bench measures.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Iterable, List, Optional
+
+from ..util import threads
+from ..util.logging import get_logger
+from .ledger_txn import AbstractLedgerTxnParent
+
+log = get_logger("Ledger")
+
+# pool workers exit after this long with an empty queue (respawned lazily)
+IDLE_EXIT_SECONDS = 30.0
+
+
+class FootprintEscape(RuntimeError):
+    """A stage worker touched state outside its tx's declared footprint.
+    Raised from StageSnapshot accessors; the staged apply path catches
+    it per job and re-applies the whole stage sequentially."""
+
+
+# ------------------------------------------------------------ partition --
+
+def partition_stages(footprints) -> List[List[int]]:
+    """Partition tx indices 0..n-1 into conflict-free stages.
+
+    `footprints` is the apply-order list of TxFootprints. Returns stage
+    lists of ascending indices; txs in one stage share no footprint
+    keys, and for any two conflicting txs the earlier one sits in an
+    earlier stage. Imprecise txs are barriers: everything before one
+    stages first, then the tx itself as a width-1 stage.
+    """
+    stages: List[List[int]] = []
+    segment: List[int] = []
+
+    def flush() -> None:
+        if not segment:
+            return
+        parent = {i: i for i in segment}
+
+        def find(x: int) -> int:
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        owner: Dict[bytes, int] = {}
+        for i in segment:
+            for kb in footprints[i].keys:
+                o = owner.get(kb)
+                if o is None:
+                    owner[kb] = i
+                else:
+                    ra, rb = find(o), find(i)
+                    if ra != rb:
+                        parent[max(ra, rb)] = min(ra, rb)
+        comps: Dict[int, List[int]] = {}
+        for i in segment:            # ascending, so components stay sorted
+            comps.setdefault(find(i), []).append(i)
+        depth = 0
+        while True:
+            stage = sorted(c[depth] for c in comps.values()
+                           if len(c) > depth)
+            if not stage:
+                break
+            stages.append(stage)
+            depth += 1
+        segment.clear()
+
+    for i, fp in enumerate(footprints):
+        if fp.precise:
+            segment.append(i)
+        else:
+            flush()
+            stages.append([i])
+    flush()
+    return stages
+
+
+# ------------------------------------------------------------- snapshot --
+
+class StageSnapshot(AbstractLedgerTxnParent):
+    """Read-only materialized view of an open LedgerTxn for one stage.
+
+    Built on the crank: every key in `keys` is resolved through the
+    real chain ONCE (warming from the prefetched root cache) into a
+    plain dict, so worker lookups are lock-free dict reads and never
+    reach SQL. Values are the chain's shared snapshots — workers clone
+    on load exactly like any LedgerTxn child, and stage-mates touch
+    disjoint keys by construction, so no object is written from two
+    threads.
+    """
+
+    def __init__(self, ltx, keys: Iterable[bytes]):
+        self._entries: Dict[bytes, Optional[object]] = {
+            kb: ltx._lookup(kb) for kb in keys}
+        self._header = ltx.get_header()
+        self._child = None
+        self.hot_archive = None      # soroban applies inline, never here
+
+    def _lookup(self, kb: bytes):
+        try:
+            return self._entries[kb]
+        except KeyError:
+            raise FootprintEscape(
+                f"stage worker read key outside declared footprint: "
+                f"{kb[:8].hex()}…") from None
+
+    def get_header(self):
+        return self._header
+
+    def commit_child(self, delta, prev, header) -> None:
+        raise RuntimeError("stage workers are merged by the staged apply "
+                           "path, never committed through the snapshot")
+
+    def _offer_deltas(self, acc) -> None:
+        raise FootprintEscape("stage worker walked the order book")
+
+    def best_offer(self, selling, buying, exclude):
+        raise FootprintEscape("stage worker walked the order book")
+
+    def offers_by_account(self, account_id):
+        raise FootprintEscape("stage worker walked the order book")
+
+    def iter_offers(self):
+        raise FootprintEscape("stage worker walked the order book")
+
+    def get_root(self):
+        raise FootprintEscape("stage worker reached for the root store")
+
+    def prefetch(self, keys) -> int:
+        return 0
+
+    # any number of worker children may hang off one snapshot
+    def child_open(self, child) -> None:
+        return None
+
+    def child_closed(self) -> None:
+        return None
+
+
+# ----------------------------------------------------------------- pool --
+
+class ApplyWorkerPool:
+    """Bounded worker pool for stage jobs (template: CloseCompletionQueue).
+
+    Jobs are opaque thunks that record their own outcome (result or
+    exception) into caller-owned slots; `run` blocks the submitting
+    crank until every job of the batch has finished, so the pool is
+    quiescent outside the applyTx phase. Workers spawn lazily up to the
+    bound and exit after a short idle period, so short-lived
+    LedgerManagers (tests construct thousands) do not park threads.
+    """
+
+    def __init__(self, workers: int, name: str = "apply-worker"):
+        self._max = max(1, int(workers))
+        self._name = name
+        self._cond = threading.Condition()
+        self._jobs: deque = deque()
+        self._pending = 0
+        self._nworkers = 0
+        self._error: Optional[BaseException] = None
+
+    def workers(self) -> int:
+        return self._max
+
+    def run(self, jobs: List[Callable[[], None]]) -> None:
+        """Run `jobs` on the pool; returns when all have completed.
+        Raises only on pool-infrastructure failure (a job escaping its
+        own error capture) — per-tx apply errors stay in the jobs' own
+        result slots."""
+        if not jobs:
+            return
+        with self._cond:
+            self._jobs.extend(jobs)
+            self._pending += len(jobs)
+            spawn = min(self._max, len(self._jobs)) - self._nworkers
+            for _ in range(max(0, spawn)):
+                self._nworkers += 1
+                threading.Thread(
+                    target=self._run, name=self._name, daemon=True).start()
+            self._cond.notify_all()
+            while self._pending:
+                self._cond.wait()
+            if self._error is not None:
+                exc, self._error = self._error, None
+                raise RuntimeError("apply-worker job escaped its error "
+                                   "capture") from exc
+
+    def _run(self) -> None:  # thread-domain: apply-worker
+        if threads.CHECK:
+            threads.bind("apply-worker")
+        while True:
+            with self._cond:
+                deadline = time.monotonic() + IDLE_EXIT_SECONDS
+                while not self._jobs:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        # idle exit decided under the lock, so a racing
+                        # run() either sees us alive (job picked up) or
+                        # an honest count and spawns a replacement
+                        self._nworkers -= 1
+                        return
+                    self._cond.wait(remaining)
+                job = self._jobs.popleft()
+            try:
+                job()
+            except BaseException as exc:  # noqa: BLE001 — surfaced in run()
+                log.exception("apply-worker job escaped its error capture")
+                with self._cond:
+                    if self._error is None:
+                        self._error = exc
+            finally:
+                with self._cond:
+                    self._pending -= 1
+                    self._cond.notify_all()

@@ -1,0 +1,50 @@
+"""Key-value node state in the `storestate` table.
+
+Reference: src/main/PersistentState.{h,cpp} — enumerated entries keyed by
+name, storing the last closed ledger, the history archive state, SCP
+state per slot, the DB initialization marker, and rebuild flags.
+"""
+
+from __future__ import annotations
+
+from enum import Enum
+from typing import Optional
+
+
+class StateEntry(Enum):
+    # reference: PersistentState.h kLastClosedLedger etc.
+    LAST_CLOSED_LEDGER = "lastclosedledger"
+    HISTORY_ARCHIVE_STATE = "historyarchivestate"
+    DATABASE_SCHEMA = "databaseschema"
+    NETWORK_PASSPHRASE = "networkpassphrase"
+    LEDGER_UPGRADES = "ledgerupgrades"
+    REBUILD_LEDGER = "rebuildledger"
+    LAST_SCP_DATA = "lastscpdata"     # + slot suffix
+    HOT_ARCHIVE_STATE = "hotarchivestate"  # protocol-23 state archival
+    # highest ledger whose deferred close-completion segment (tx-history
+    # rows, meta) committed; < LCL after a crash mid-completion
+    LAST_CLOSE_COMPLETED = "lastclosecompleted"
+
+
+class PersistentState:
+    def __init__(self, db):
+        self._db = db
+
+    def get(self, entry: StateEntry, suffix: str = "") -> Optional[str]:
+        row = self._db.query_one(
+            "SELECT state FROM storestate WHERE statename = ?",
+            (entry.value + suffix,))
+        return row[0] if row else None
+
+    def set(self, entry: StateEntry, value: str, suffix: str = "") -> None:
+        self._db.execute(
+            "INSERT OR REPLACE INTO storestate (statename, state) "
+            "VALUES (?, ?)", (entry.value + suffix, value))
+
+    def drop(self, entry: StateEntry, suffix: str = "") -> None:
+        self._db.execute(
+            "DELETE FROM storestate WHERE statename = ?",
+            (entry.value + suffix,))
+
+    def has(self, entry: StateEntry, suffix: str = "") -> bool:
+        return self.get(entry, suffix) is not None

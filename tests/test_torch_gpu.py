@@ -312,3 +312,22 @@ def test_wasm_txset_on_card(card):
     except SystemExit as e:
         pytest.fail(str(e))
     assert launches == {"msg32": 2, "k": 0, "ladder": 2}
+
+
+def test_close_on_card(card):
+    """chip_smoke.py phase 13 at 2 closes of 100 transactions over 200
+    accounts, with its checks: the staged apply's per-stage prewarm
+    through VerifyService(BackendSupervisor(CudaBatchVerifier())) on the
+    card (stages of 98 and 2: one device dispatch and one native bypass
+    per close), every verdict equal to the oracle; the verify cache's
+    hits and misses during each close; the card run equal to the native
+    run on every header, result, meta and bucket level and on the final
+    rows; the reload; the supervisor CLOSED with 0 failures and 0
+    skips."""
+    import chip_smoke as cs
+    try:
+        launches = cs.close_phase(str(card), accounts=200, txs=100,
+                                  ledgers=2)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches == {"msg32": 2, "k": 0, "ladder": 2}

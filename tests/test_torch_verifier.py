@@ -381,7 +381,14 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "soroban.wasm", "soroban.wasm.module", "soroban.wasm.decode",
              "soroban.wasm.validate", "soroban.wasm.interp",
              "soroban.wasm_host", "soroban.env_abi", "soroban.env_contract",
-             "soroban.scvm_wasm", "tx", "herder.tx_set", "invariant"):
+             "soroban.scvm_wasm", "tx", "herder.tx_set", "invariant",
+             "main", "main.persistent_state", "db", "db.database",
+             "db.libpq", "db.postgres", "db.pg_stub", "ledger",
+             "bucket", "bucket.bucket", "bucket.bucket_index",
+             "bucket.bucket_list", "bucket.hot_archive", "bucket.manager",
+             "history", "history.archive", "herder.upgrades",
+             "ledger.completion", "ledger.parallel_apply",
+             "ledger.ledger_manager"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
@@ -402,6 +409,15 @@ out = chip_smoke.txset_run(chip_smoke.wasm_workload(8), native,
                            apply_batch=native, invariants=True)
 assert len(out["dropped"]) == 1 and out["apply_cache"] == (4, 2), out
 assert len(wasm_host._MODULE_CACHE) == 3
+import shutil, tempfile
+work = tempfile.mkdtemp()
+wl = chip_smoke.close_workload(accounts=8, txs=4, ledgers=1)
+run = chip_smoke.close_run(wl, work)
+assert [led["tag"] for led in run["ledgers"]] == \
+    ["upgrade", "create", "measured", "control"], run["ledgers"]
+assert chip_smoke.close_reload(work, wl["passphrase"])[:2] == \
+    (True, run["lcl"])
+shutil.rmtree(work)
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

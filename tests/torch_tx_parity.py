@@ -1,5 +1,5 @@
 """Shared by tests/test_torch_{xdr,tx,txset,ops,dex,claims_pools,soroban,
-wasm}.py:
+wasm,close,persistence}.py:
 the JAX package's and the port's transaction layers side by side.
 
 State crosses as XDR bytes only: the JAX package's ledger goes into the
@@ -67,6 +67,13 @@ _MODULES = {
     "transaction": "xdr.transaction",
     "results": "xdr.results",
     "ledger": "xdr.ledger",
+    "ledger_manager": "ledger.ledger_manager",
+    "bucket_manager": "bucket.manager",
+    "persistent_state": "main.persistent_state",
+    "perf": "util.perf",
+    "bucket": "bucket.bucket",
+    "database": "db.database",
+    "pg_stub": "db.pg_stub",
 }
 
 
@@ -285,6 +292,12 @@ class OracleVerifier:
         if self.fail:
             raise RuntimeError("stand-in batch verifier down")
         return [ed25519_ref.verify(p, s, m) for p, s, m in items]
+
+    def verify_tuples_async(self, items):
+        """The same, as the collect handle the supervisor and the
+        service dispatch through."""
+        out = self.verify_tuples(items)
+        return lambda: out
 
 
 def run_set(pkg, root, envelopes, batch_verifier=None,
