@@ -173,12 +173,40 @@ Phases (any failure exits non-zero; nothing is caught):
    close prewarms and launches nothing. It prints each close's wall, its
    ledger.close.* zones and the garbage collector's passes, the
    prewarm's wall and the flushes' walls.
+14. catchup from a local history archive (BASELINE.json config #3,
+   catchup-complete replay), each checkpoint's signatures verified on
+   the card in one dispatch: a publisher node (phase 13's close_node
+   with the port's HistoryManager, on a stand-in for the Application,
+   CatchupApp) closes ledger 2 (the maxTxSetSize vote), 3-4 (2000
+   accounts), 5-63 (10 one-Payment transactions each on disjoint pairs)
+   and 64-127 (1000 one-Payment transactions each in phase 13's mix,
+   staged apply) and publishes checkpoints 63 and 127 to a tmpdir
+   archive through `cp`. Run A1: StreamingCatchupWork, complete (the
+   node's default path); run A2: the sequential CatchupWork to ledger
+   80; each on a fresh node whose batch verifier is
+   BackendSupervisor(CudaBatchVerifier()) at the node's defaults, at
+   batch_grace 60 s, holding every result to the archived results and
+   every header to the hash chain. Fails unless each lands on the
+   publisher's LCL and hash; every checkpoint is in exactly one batch
+   holding its replay range's tuples (610 and 64,000 in A1; 610 and
+   17,000 in A2), each streaming batch as prevalidate_coalesce fused it
+   from the counts the pump saw; the batches' hits equal the signature
+   checks of the publisher's apply, with 0 misses, 0 failed batches
+   and 0 calls to the native fallback; the verdicts equal the native
+   verifier's, false exactly on the flipped transactions; prep msg32
+   launches equal ladder launches equal device dispatches equal
+   batches, no k launch; the supervisor CLOSED with 0 failures and 0
+   skips. It prints each batch's dispatch to landing, the coalesce
+   calls, replayed ledgers per second, the collector's passes, A1's
+   PipelineStats report, and both kernels timed on the largest
+   dispatch's rows (held against their plain versions there first).
 The oracle verdicts of the live tuples and of phase 5's tuples are
 computed in worker processes while phase 2 builds, those of phases 9
 to 12 while their runs go, those of phase 13 before its runs. It prints one `kernels` JSON line
 (launches by path: verifier, live, sharded, hybrid, txset, classic,
-soroban, wasm, close), the card line, and last {"ok": true, "device":
-{...}}.
+soroban, wasm, close, catchup; the msg32 prep and the ladder also carry
+their phase 14 times under "catchup"), the card line, and last {"ok":
+true, "device": {...}}.
 """
 
 import atexit
@@ -270,6 +298,12 @@ CLOSE_TABLES = ("accounts", "trustlines", "offers", "accountdata",
                 "contractcode", "configsettings", "ttl", "storestate",
                 "ledgerheaders", "txhistory", "txfeehistory",
                 "txsethistory")
+CATCHUP_QUIET = 59       # phase 14: ledgers 5-63 ...
+CATCHUP_QUIET_TXS = 10   # ... of 10 one-Payment transactions each
+CATCHUP_LEDGERS = 64     # phase 14: ledgers 64-127 of CLOSE_TXS payments
+CATCHUP_SEED = 14        # phase 14's permutations, mix and flipped bytes
+CATCHUP_TO = 80          # run A2's target ledger
+CATCHUP_GRACE_S = 60.0   # batch_grace, as the reference's tests set it
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -1205,9 +1239,11 @@ def txset_workload(n, seed=TXSET_SEED):
 
 
 class RecordingVerifier:
-    """Passes verify_tuples and verify_tuples_async to `inner` and keeps
-    each call's tuples, its verdicts and its wall time (for an async
-    call, from dispatch to collected)."""
+    """Passes verify_tuples and verify_tuples_async to `inner` (an async
+    call to its verify_tuples where it has no async form) and keeps each
+    call, in the order of dispatch, as [tuples, verdicts, wall time]; an
+    async call's verdicts and wall, from dispatch to collected, are
+    filled in when it is collected."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -1216,19 +1252,26 @@ class RecordingVerifier:
     def verify_tuples(self, items):
         t0 = time.perf_counter()
         out = self.inner.verify_tuples(items)
-        self.calls.append((list(items), list(out),
-                           time.perf_counter() - t0))
+        self.calls.append([list(items), list(out),
+                           time.perf_counter() - t0])
         return out
 
     def verify_tuples_async(self, items):
+        call = [list(items), None, None]
+        self.calls.append(call)
         t0 = time.perf_counter()
-        collect = self.inner.verify_tuples_async(items)
+        if hasattr(self.inner, "verify_tuples_async"):
+            collect = self.inner.verify_tuples_async(items)
+        else:
+            out = self.inner.verify_tuples(items)
+
+            def collect():
+                return out
 
         def done():
-            out = collect()
-            self.calls.append((list(items), list(out),
-                               time.perf_counter() - t0))
-            return out
+            got = collect()
+            call[1], call[2] = list(got), time.perf_counter() - t0
+            return got
         return done
 
 
@@ -2533,8 +2576,8 @@ def wasm_phase(card, n=WASM_N):
 
 
 def close_modules():
-    """The port's modules a close run drives, by the short names
-    tests/torch_tx_parity.py's `Pkg` gives them."""
+    """The port's modules a close run and a catchup run drive, by the
+    short names tests/torch_tx_parity.py's `Pkg` gives them."""
     import importlib
     from types import SimpleNamespace
     return SimpleNamespace(**{k: importlib.import_module(
@@ -2544,11 +2587,15 @@ def close_modules():
         ("tx_set", "herder.tx_set"), ("perf", "util.perf"),
         ("ledger_manager", "ledger.ledger_manager"),
         ("database", "db.database"), ("bucket_manager", "bucket.manager"),
-        ("persistent_state", "main.persistent_state"))})
+        ("persistent_state", "main.persistent_state"),
+        ("timer", "util.timer"), ("tracing", "util.tracing"),
+        ("history", "history"), ("process", "process"), ("work", "work"),
+        ("catchup", "catchup"))})
 
 
 def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
-                   ledgers=CLOSE_LEDGERS, seed=CLOSE_SEED):
+                   ledgers=CLOSE_LEDGERS, seed=CLOSE_SEED, quiet=0,
+                   quiet_txs=0, control=True):
     """Phase 13's closes as XDR bytes, built with the port only, for a
     node whose genesis is at protocol 21 on the standalone network:
     - a close with no transaction that votes LEDGER_UPGRADE_MAX_TX_SET_SIZE
@@ -2557,6 +2604,8 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
       per transaction from the master, as the load generator's
       generate_accounts does (its keys and starting balance), at most
       CLOSE_MAX_TX_SET operations per close;
+    - `quiet` closes of `quiet_txs` one-Payment transactions each (tag
+      "quiet"), source 2j paying 2j + 1 over a fresh seeded permutation;
     - `ledgers` measured closes of `txs` one-Payment transactions each
       (native, CLOSE_AMOUNT stroops, fee 100, as generate_payments makes
       them), a chosen mix placed by a seeded permutation: a fresh seeded
@@ -2566,10 +2615,11 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
       which puts one of the two in a second stage, and its "flipped"
       ones carry one flipped signature byte (txBAD_AUTH at apply, the fee
       charged);
-    - one close in the load generator's PAY chain, order[i] paying
-      order[i + 1] over a seeded permutation: one conflict component, so
-      every stage has width 1 and nothing is prewarmed.
-    Needs accounts >= 2 * txs."""
+    - with `control`, one close in the load generator's PAY chain,
+      order[i] paying order[i + 1] over a seeded permutation: one
+      conflict component, so every stage has width 1 and nothing is
+      prewarmed.
+    Needs accounts >= 2 * max(txs, quiet_txs)."""
     from stellar_core_tpu_torch.crypto.keys import SecretKey
     from stellar_core_tpu_torch.crypto.sha import sha256
     from stellar_core_tpu_torch.tx.frame import make_frame
@@ -2584,9 +2634,9 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
         TransactionV1Envelope, _OperationBody, _TxExt)
     from stellar_core_tpu_torch.xdr.types import EnvelopeType, PublicKey
 
-    if accounts < 2 * txs:
+    if accounts < 2 * max(txs, quiet_txs):
         raise ValueError(f"close_workload: {accounts} accounts hold no "
-                         f"{txs} disjoint pairs")
+                         f"{max(txs, quiet_txs)} disjoint pairs")
     rng = np.random.default_rng(seed)
     network_id = sha256(CLOSE_PASSPHRASE.encode())
     master = SecretKey.from_seed(network_id)
@@ -2639,6 +2689,11 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
             ops_in += len(batch)
             created += len(batch)
         closes.append(dict(tag="create", envelopes=envs, upgrades=[]))
+    for _ in range(quiet):
+        perm = [int(x) for x in rng.permutation(accounts)]
+        closes.append(dict(tag="quiet", upgrades=[], envelopes=[
+            envelope(keys[perm[2 * j]], *pay(perm[2 * j], perm[2 * j + 1]))
+            for j in range(quiet_txs)]))
     for _ in range(ledgers):
         perm = [int(x) for x in rng.permutation(accounts)]
         kinds = ["pair"] * txs
@@ -2660,10 +2715,11 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
                                  flip=kind == "flipped"))
         closes.append(dict(tag="measured", envelopes=envs, upgrades=[],
                            kinds=kinds))
-    chain = [int(x) for x in rng.permutation(accounts)]
-    closes.append(dict(tag="control", upgrades=[], envelopes=[
-        envelope(keys[chain[i]], *pay(chain[i], chain[i + 1]))
-        for i in range(txs)]))
+    if control:
+        chain = [int(x) for x in rng.permutation(accounts)]
+        closes.append(dict(tag="control", upgrades=[], envelopes=[
+            envelope(keys[chain[i]], *pay(chain[i], chain[i + 1]))
+            for i in range(txs)]))
     return {"network_id": network_id, "passphrase": CLOSE_PASSPHRASE,
             "closes": closes}
 
@@ -2716,6 +2772,29 @@ def close_node(pkg, directory, passphrase, meta=None):
     return lm
 
 
+def close_data(pkg, lm, nid, c, i):
+    """The LedgerCloseData of close `i` of a workload (`c`) on top of
+    `lm`'s LCL, as the manual close makes it: the envelopes' txset
+    through make_tx_set_from_transactions (exits if surge pricing leaves
+    one out), a StellarValue with the close's upgrades and a close time
+    from the sequence."""
+    lcl = lm.get_last_closed_ledger_header()
+    frames = [pkg.frame.make_frame(
+        pkg.transaction.TransactionEnvelope.from_bytes(b), nid)
+        for b in c["envelopes"]]
+    frame, _, excluded = pkg.tx_set.make_tx_set_from_transactions(
+        frames, lcl, nid)
+    if excluded:
+        raise SystemExit(f"close {i}: surge pricing left out "
+                         f"{len(excluded)} transactions")
+    value = pkg.ledger.StellarValue(
+        txSetHash=frame.get_contents_hash(),
+        closeTime=1_700_000_000 + lcl.ledgerSeq,
+        upgrades=list(c["upgrades"]))
+    return pkg.ledger_manager.LedgerCloseData(lcl.ledgerSeq + 1, frame,
+                                              value)
+
+
 def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
               on_close=None):
     """Genesis at protocol 21 and every close of `wl` on `close_node` in
@@ -2760,26 +2839,13 @@ def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
         for i, c in enumerate(wl["closes"]):
             if on_close is not None:
                 on_close(i, c["tag"])
-            lcl = lm.get_last_closed_ledger_header()
-            frames = [pkg.frame.make_frame(
-                pkg.transaction.TransactionEnvelope.from_bytes(b), nid)
-                for b in c["envelopes"]]
-            frame, _, excluded = pkg.tx_set.make_tx_set_from_transactions(
-                frames, lcl, nid)
-            if excluded:
-                raise SystemExit(f"close {i}: surge pricing left out "
-                                 f"{len(excluded)} transactions")
-            value = pkg.ledger.StellarValue(
-                txSetHash=frame.get_contents_hash(),
-                closeTime=1_700_000_000 + lcl.ledgerSeq,
-                upgrades=list(c["upgrades"]))
+            lcd = close_data(pkg, lm, nid, c, i)
             zones = lm.perf.report()
             prewarm.clear()
             pauses.clear()
             pkg.keys.flush_verify_cache_counts()
             t0 = time.perf_counter()
-            lm.close_ledger(pkg.ledger_manager.LedgerCloseData(
-                lcl.ledgerSeq + 1, frame, value))
+            lm.close_ledger(lcd)
             lm.join_completion()
             wall = time.perf_counter() - t0
             cache = pkg.keys.flush_verify_cache_counts()
@@ -3081,6 +3147,512 @@ def close_phase(card, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
           f"files; every prewarm verdict equals the oracle [{card}]",
           flush=True)
     return launches
+
+
+def catchup_config(passphrase, history=None, jitter_seed=0):
+    """The Config fields catchup, the history manager and the catchup
+    manager read, at the JAX package's defaults (main/config.py, by
+    line): LEDGER_PROTOCOL_VERSION :82, HISTORY :124, CATCHUP_PIPELINE
+    :132, its window, byte budget and prevalidate window :134-140,
+    APPLY_PARALLEL and APPLY_PARALLEL_MIN_TXS :190-192,
+    CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING :265,
+    PUBLISH_TO_ARCHIVE_DELAY :280, MAX_CONCURRENT_SUBPROCESSES :288,
+    ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING :294,
+    RETRY_SUPPRESSION_SECONDS :479; network_id() :489, jitter_seed()
+    :498 (here the seed given) and mode_does_catchup() :521."""
+    from types import SimpleNamespace
+    cfg = SimpleNamespace(
+        NETWORK_PASSPHRASE=passphrase, LEDGER_PROTOCOL_VERSION=21,
+        HISTORY={k: dict(v) for k, v in (history or {}).items()},
+        CATCHUP_PIPELINE=True, CATCHUP_PIPELINE_AHEAD_CHECKPOINTS=8,
+        CATCHUP_PIPELINE_BYTE_BUDGET=64 * 1024 * 1024,
+        CATCHUP_PIPELINE_PREVALIDATE_AHEAD=4,
+        APPLY_PARALLEL=APPLY_PARALLEL,
+        APPLY_PARALLEL_MIN_TXS=APPLY_PARALLEL_MIN_TXS,
+        CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING=False,
+        PUBLISH_TO_ARCHIVE_DELAY=0.0, MAX_CONCURRENT_SUBPROCESSES=16,
+        ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING=0.0,
+        RETRY_SUPPRESSION_SECONDS=300.0, MODE_DOES_CATCHUP=True)
+    network_id = hashlib.sha256(passphrase.encode()).digest()
+    cfg.network_id = lambda: network_id
+    cfg.jitter_seed = lambda: jitter_seed
+    cfg.mode_does_catchup = lambda: cfg.MODE_DOES_CATCHUP
+    return cfg
+
+
+class CatchupApp:
+    """A stand-in for the Application (the port has none yet) holding
+    what catchup, the history manager and the catchup manager read from
+    `app`: `config` (catchup_config), a virtual clock, perf zones, an
+    idle flight recorder, a LedgerManager over a sqlite Database and a
+    BucketManager in `directory` (close_node) with its persistent state,
+    the process manager, a work scheduler, the history manager and
+    `batch_verifier` (None until catchup_run sets it). Wired as main/application.py of the
+    JAX package wires them: the staged apply from the config, the
+    history manager's queued buckets kept from bucket GC and the ledger
+    manager's history manager set (:271-277). Genesis at the config's
+    protocol unless the files hold a ledger, or `genesis` is False (the
+    node ApplyBucketsWork fills)."""
+
+    def __init__(self, directory, passphrase, history=None, genesis=True):
+        pkg = close_modules()
+        self.config = catchup_config(passphrase, history)
+        self.clock = pkg.timer.VirtualClock(pkg.timer.ClockMode.VIRTUAL_TIME)
+        self.perf = pkg.perf.ZoneRegistry()
+        self.flight_recorder = pkg.tracing.FlightRecorder()
+        self.perf.tracer = self.flight_recorder
+        os.makedirs(directory, exist_ok=True)
+        lm = close_node(pkg, directory, passphrase)
+        lm.perf = self.perf
+        lm.apply_parallel = self.config.APPLY_PARALLEL
+        lm.apply_parallel_min_txs = self.config.APPLY_PARALLEL_MIN_TXS
+        self.ledger_manager, self.database = lm, lm.db
+        self.bucket_manager = lm.bucket_manager
+        self.bucket_manager.bucket_list.perf = self.perf
+        self.persistent_state = lm.persistent_state
+        self.batch_verifier = None
+        self.process_manager = pkg.process.ProcessManager(
+            self, max_concurrent=self.config.MAX_CONCURRENT_SUBPROCESSES)
+        self.work_scheduler = pkg.work.WorkScheduler(self)
+        self.history_manager = pkg.history.HistoryManager(self)
+        self.bucket_manager.gc_ref_providers.append(
+            self.history_manager.queued_bucket_hashes)
+        lm.history_manager = self.history_manager
+        entry = pkg.persistent_state.StateEntry
+        self.persistent_state.set(entry.NETWORK_PASSPHRASE, passphrase)
+        if genesis and not lm.load_last_known_ledger():
+            lm.start_new_ledger(self.config.network_id(),
+                                self.config.LEDGER_PROTOCOL_VERSION)
+            self.persistent_state.set(
+                entry.LAST_CLOSED_LEDGER,
+                lm.get_last_closed_ledger_hash().hex())
+
+    def shutdown(self):
+        self.work_scheduler.shutdown()
+        self.process_manager.shutdown()
+        self.ledger_manager.join_completion(reraise=False)
+        self.bucket_manager.shutdown()
+        self.database.close()
+
+
+def archive_commands(root):
+    """The get and put commands of a tmpdir archive at `root`, named
+    "test", as tests/test_history_catchup.py:136-140 of the JAX package
+    sets them."""
+    return {"test": {
+        "get": f"cp {root}/{{0}} {{1}}",
+        "put": f"mkdir -p $(dirname {root}/{{1}}) && cp {{0}} {root}/{{1}}"}}
+
+
+def catchup_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
+                     ledgers=CATCHUP_LEDGERS, quiet=CATCHUP_QUIET,
+                     quiet_txs=CATCHUP_QUIET_TXS, seed=CATCHUP_SEED):
+    """Phase 14's closes (close_workload with `quiet` closes and no
+    control): ledger 2 votes maxTxSetSize, ledgers 3-4 create the
+    accounts, then `quiet` closes of `quiet_txs` payments and `ledgers`
+    closes of `txs` payments in phase 13's mix. With the defaults,
+    checkpoint 63 holds ledgers 2-63 and checkpoint 127 ledgers
+    64-127. Adds each close's signature tuples (collect_signature_tuples
+    of its frames) and the flipped envelopes' tuples."""
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.signature_checker import \
+        collect_signature_tuples
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+    wl = close_workload(accounts, txs, ledgers, seed, quiet=quiet,
+                        quiet_txs=quiet_txs, control=False)
+    nid, flipped = wl["network_id"], set()
+    for c in wl["closes"]:
+        frames = [make_frame(TransactionEnvelope.from_bytes(b), nid)
+                  for b in c["envelopes"]]
+        c["tuples"] = collect_signature_tuples(frames, nid)
+        for f, kind in zip(frames, c.get("kinds", ())):
+            if kind == "flipped":
+                flipped.update(collect_signature_tuples([f], nid))
+    wl["flipped"] = flipped
+    return wl
+
+
+def catchup_publish(wl, directory):
+    """Phase 14's publisher: a CatchupApp in `directory`/publisher whose
+    history manager publishes every checkpoint to the tmpdir archive
+    `directory`/archive; genesis, then every close of `wl` (close_data,
+    close_ledger, join_completion, as close_run makes them). Returns the
+    archive's root, each ledger's header hash, the signature checks each
+    close's apply made (the verify cache's hits plus misses during the
+    close), the published checkpoint count and the archive's HAS."""
+    pkg = close_modules()
+    root = os.path.join(directory, "archive")
+    app = CatchupApp(os.path.join(directory, "publisher"), wl["passphrase"],
+                     history=archive_commands(root))
+    lm, nid = app.ledger_manager, wl["network_id"]
+    hashes, checks = {}, {}
+    undo = counted_verify_cache(pkg.keys)
+    try:
+        for i, c in enumerate(wl["closes"]):
+            lcd = close_data(pkg, lm, nid, c, i)
+            pkg.keys.flush_verify_cache_counts()
+            lm.close_ledger(lcd)
+            lm.join_completion()
+            seq = lm.get_last_closed_ledger_num()
+            hashes[seq] = lm.get_last_closed_ledger_hash()
+            checks[seq] = sum(pkg.keys.flush_verify_cache_counts())
+        published = app.history_manager.published_count
+    finally:
+        undo()
+        app.shutdown()
+    with open(os.path.join(root, ".well-known", "stellar-history.json")) as f:
+        has = pkg.history.HistoryArchiveState.from_json(f.read())
+    return {"root": root, "hashes": hashes, "checks": checks,
+            "published": published, "has": has}
+
+
+def counted_prevalidated(signature_checker):
+    """Make PrevalidatedVerifier's hit and miss counts exact under the
+    staged apply's worker threads (plain attribute increments) by
+    putting each lookup under a lock; returns the undo."""
+    import threading
+    cls, lock = signature_checker.PrevalidatedVerifier, threading.Lock()
+    call = cls.__call__
+
+    def locked(self, pub, sig, msg):
+        with lock:
+            return call(self, pub, sig, msg)
+    cls.__call__ = locked
+    return lambda: setattr(cls, "__call__", call)
+
+
+def recorded_catchup(verifier_mod, signature_checker):
+    """Record a package's prevalidate_coalesce per call (counts, window,
+    k) into the returned list, and count PrevalidatedVerifier under a
+    lock (counted_prevalidated), for the package whose `ops.verifier`
+    and `tx.signature_checker` modules are given. Returns (the list,
+    the undo)."""
+    coalesce, inner = [], verifier_mod.prevalidate_coalesce
+
+    def recorded(counts, max_fuse, *a):
+        k = inner(counts, max_fuse, *a)
+        coalesce.append((list(counts), max_fuse, k))
+        return k
+    verifier_mod.prevalidate_coalesce = recorded
+    undo = counted_prevalidated(signature_checker)
+
+    def undo_all():
+        undo()
+        verifier_mod.prevalidate_coalesce = inner
+    return coalesce, undo_all
+
+
+def work_batches(work, streaming):
+    """Per batch of a finished catchup work, in dispatch order: its
+    checkpoints, the PrevalidatedVerifier's hits and misses, whether it
+    failed and whether it landed. A streaming work keeps its batches; a
+    sequential one has one per applied checkpoint that prevalidated."""
+    if streaming:
+        return [dict(cps=list(b.cps), hits=b.pv.hits if b.pv else 0,
+                     misses=b.pv.misses if b.pv else 0, failed=b.failed,
+                     landed=b.pv is not None)
+                for b in work.batches]
+    return [dict(cps=[cw.checkpoint], hits=cw.prevalidated.hits,
+                 misses=cw.prevalidated.misses, failed=False, landed=True)
+            for cw in work.applied_checkpoints
+            if cw.prevalidated is not None]
+
+
+def catchup_run(archive_root, passphrase, directory, streaming, to_ledger,
+                verifier):
+    """One catchup of a fresh CatchupApp in `directory` from the tmpdir
+    archive at `archive_root`: StreamingCatchupWork (the node's default,
+    CATCHUP_PIPELINE) or the sequential CatchupWork, complete, to
+    `to_ledger` (0: the archive's last), holding the archived results
+    (verify_results), at batch_grace CATCHUP_GRACE_S. `verifier(app)`
+    makes the app's batch verifier, which the work takes from the app as
+    the node's does, behind a RecordingVerifier; the verify the works
+    fall back to is the package's default_verify, counting its calls.
+    prevalidate_coalesce and PrevalidatedVerifier are recorded
+    (recorded_catchup). Returns the final state, the LCL number and
+    hash, the recorder's dispatches, the batches (work_batches), the
+    coalesce calls, the fallback calls, the pipeline's report
+    (streaming), the wall, the collector's passes and the work."""
+    from stellar_core_tpu_torch.ops import verifier as vmod
+    from stellar_core_tpu_torch.tx import signature_checker as sigchk
+    pkg = close_modules()
+    cu = pkg.catchup
+    app = CatchupApp(directory, passphrase)
+    rec = app.batch_verifier = RecordingVerifier(verifier(app))
+    fallbacks = []
+
+    def verify(pub, sig, msg):
+        fallbacks.append(1)
+        return sigchk.default_verify(pub, sig, msg)
+    archive = pkg.history.make_tmpdir_archive("test", archive_root)
+    cls = cu.StreamingCatchupWork if streaming else cu.CatchupWork
+    work = cls(app, archive, cu.CatchupConfiguration(to_ledger=to_ledger),
+               verify=verify, batch_grace=CATCHUP_GRACE_S)
+    lm = app.ledger_manager
+    try:
+        coalesce, undo = recorded_catchup(vmod, sigchk)
+        pauses, undo_gc = collector_pauses()
+        try:
+            t0 = time.perf_counter()
+            state = pkg.work.run_work_to_completion(app, work,
+                                                    timeout_virtual=3000)
+            wall = time.perf_counter() - t0
+            lm.join_completion()
+        finally:
+            undo_gc()
+            undo()
+        return dict(
+            state=state, lcl=lm.get_last_closed_ledger_num(),
+            hash=lm.get_last_closed_ledger_hash(), dispatches=rec.calls,
+            batches=work_batches(work, streaming), coalesce=coalesce,
+            fallbacks=len(fallbacks),
+            report=work.stats.report() if streaming else None,
+            wall_s=wall, gc=pauses, work=work)
+    finally:
+        app.shutdown()
+
+
+def catchup_problems(run, wl, pub, last):
+    """What a catchup run of phase 14 (`run`, catchup_run's result) got
+    wrong against the workload `wl` and its publisher `pub`, replaying
+    ledgers 2..`last`: the final state, LCL and hash; every checkpoint
+    with signatures in exactly one batch, holding the tuples of its
+    replay range; each streaming batch fusing the checkpoints
+    prevalidate_coalesce chose from the counts the pump saw; every batch
+    landed and not failed with 0 misses, the hits summing to the
+    signature checks the publisher's apply made over those ledgers, and
+    0 fallback calls; every verdict the native verifier's, false exactly
+    on the flipped envelopes' tuples. Returns the problems as strings."""
+    from stellar_core_tpu_torch.crypto.keys import verify_sig_uncached
+    p = []
+    if run["state"].name != "WORK_SUCCESS" or run["lcl"] != last or \
+            run["hash"] != pub["hashes"][last]:
+        p.append(f"ended {run['state'].name} at ledger {run['lcl']} "
+                 f"{run['hash'].hex()[:16]}, not at {last} "
+                 f"{pub['hashes'][last].hex()[:16]}")
+    by_cp = collections.defaultdict(list)
+    for seq, c in enumerate(wl["closes"][:last - 1], start=2):
+        by_cp[seq | 63].extend(c["tuples"])
+    cps = [cp for b in run["batches"] for cp in b["cps"]]
+    if sorted(cps) != sorted(cp for cp, ts in by_cp.items() if ts) or \
+            len(run["dispatches"]) != len(run["batches"]):
+        p.append(f"batches over checkpoints {cps} in "
+                 f"{len(run['dispatches'])} dispatches, not each of "
+                 f"{sorted(by_cp)} once")
+    for b, (items, _, _) in zip(run["batches"], run["dispatches"]):
+        want = collections.Counter(t for cp in b["cps"] for t in by_cp[cp])
+        if collections.Counter(items) != want:
+            p.append(f"the batch of {b['cps']} holds {len(items)} "
+                     f"tuples, not its checkpoints' {sum(want.values())}")
+        if not b["landed"] or b["failed"] or b["misses"]:
+            p.append(f"the batch of {b['cps']}: landed {b['landed']}, "
+                     f"failed {b['failed']}, misses {b['misses']}")
+    calls = [c for c in run["coalesce"] if sum(c[0][:c[2]])]
+    if run["report"] is not None and (
+            len(calls) != len(run["batches"]) or any(
+                len(b["cps"]) != k or len(d[0]) != sum(counts[:k])
+                for b, d, (counts, _, k) in zip(
+                    run["batches"], run["dispatches"], calls))):
+        p.append(f"batches {[b['cps'] for b in run['batches']]} do not "
+                 f"follow prevalidate_coalesce's calls {run['coalesce']}")
+    checks = sum(pub["checks"][s] for s in range(2, last + 1))
+    hits = sum(b["hits"] for b in run["batches"])
+    if hits != checks or run["fallbacks"]:
+        p.append(f"{hits} batch hits for the publisher's {checks} "
+                 f"signature checks, {run['fallbacks']} fallback calls")
+    for items, got, _ in run["dispatches"]:
+        want = [verify_sig_uncached(*t) for t in items]
+        false = {t for t, g in zip(items, want) if not g}
+        if got != want or false != wl["flipped"] & set(items):
+            p.append(f"a batch of {len(items)}: "
+                     f"{sum(g != w for g, w in zip(got or [], want))} "
+                     f"verdicts off the native verifier's, {len(false)} "
+                     "false")
+    return p
+
+
+def catchup_kernels(items, imad_per_s):
+    """Both msg32-path kernels on the rows of one catchup dispatch
+    (`items`), on the card: each held byte for byte against its plain
+    version once, then timed (CUDA events, median of 25 launches after
+    3), beside its bound, as phase 3 does at n = N. Returns
+    {"prep": ..., "ladder": ...} with n, ms, plain_ms, bound_ms,
+    bound_by, max_abs_err."""
+    from stellar_core_tpu_torch.ops import ed25519_kernel as EK
+    from stellar_core_tpu_torch.ops import ladder as LD
+    dev = torch.device("cuda", 0)
+    n = len(items)
+    pubs, sigs, msgs = rows(items)
+
+    def on_card(arr):
+        return torch.from_numpy(np.array(arr)).to(dev)
+    a, r, s = on_card(pubs), on_card(sigs[:, :32]), on_card(sigs[:, 32:])
+    m = on_card(np.frombuffer(b"".join(msgs), np.uint8).reshape(n, 32))
+    out = {}
+    got = EK.prep(a, r, s, m, EK.MODE_MSG32)
+    want, plain_ms = once_ms(lambda: EK.prep_plain(a, r, s, m, EK.MODE_MSG32))
+    b_ops = n * EK.prep_products(EK.MODE_MSG32) / imad_per_s * 1e3
+    b_mem = n * (128 + 32 + 64 + 1) / HBM_BYTES_PER_S * 1e3
+    out["prep"] = dict(
+        n=n, match=all(torch.equal(x, y) for x, y in zip(got, want)),
+        max_abs_err=max_abs_err(got, want), plain_ms=plain_ms,
+        ms=median_ms(lambda: EK.prep(a, r, s, m, EK.MODE_MSG32)),
+        bound_ms=max(b_ops, b_mem),
+        bound_by="operations" if b_ops >= b_mem else "bytes")
+    k, neg_a = got[0], got[1]
+    nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
+    got = LD.ladder(s, k, nax, nay)
+    want, plain_ms = once_ms(lambda: LD.ladder_plain(s, k, nax, nay))
+    s_np, k_np = s.cpu().numpy().tobytes(), k.cpu().numpy().tobytes()
+    b_ops = ladder_products([s_np[32 * i:32 * i + 32] for i in range(n)],
+                            [k_np[32 * i:32 * i + 32] for i in range(n)]) \
+        / imad_per_s * 1e3
+    b_mem = n * (4 * 32 + 2 * 32) / HBM_BYTES_PER_S * 1e3
+    out["ladder"] = dict(
+        n=n, match=all(torch.equal(x, y) for x, y in zip(got, want)),
+        max_abs_err=max_abs_err(got, want), plain_ms=plain_ms,
+        ms=median_ms(lambda: LD.ladder(s, k, nax, nay)),
+        bound_ms=max(b_ops, b_mem),
+        bound_by="operations" if b_ops >= b_mem else "bytes")
+    for name, e in out.items():
+        if not e["match"]:
+            raise SystemExit(f"catchup: {name} disagrees with its plain "
+                             f"version at n={n}")
+    return out
+
+
+def catchup_phase(card, imad_per_s=None, accounts=CLOSE_ACCOUNTS,
+                  txs=CLOSE_TXS, ledgers=CATCHUP_LEDGERS,
+                  quiet=CATCHUP_QUIET, quiet_txs=CATCHUP_QUIET_TXS):
+    """Phase 14: catchup (BASELINE.json config #3) from a local archive,
+    each checkpoint's signatures verified on the card in one dispatch.
+    The publisher (catchup_publish) closes catchup_workload(accounts,
+    txs, ledgers, quiet, quiet_txs) with the node's staged apply and
+    publishes each checkpoint to a tmpdir archive through `cp`. Two runs
+    on fresh nodes in a fresh temporary directory (which also holds the
+    works' downloads, and is removed), each with the app's
+    batch verifier BackendSupervisor(CudaBatchVerifier()) at the node's
+    defaults (phase 7's LIVE: device cutoff 16, dispatch deadline 2000
+    ms, canary 16) on the app's clock, at batch_grace CATCHUP_GRACE_S:
+    run A1, StreamingCatchupWork complete (the node's default path), and
+    run A2, the sequential CatchupWork to CATCHUP_TO. The launch
+    counters are set to 0 just before each run and read just after.
+    Fails unless each run passes catchup_problems (LCL and hash, every
+    checkpoint in one batch of its tuples, the coalescing, hits equal to
+    the publisher's signature checks, 0 misses, 0 failed, 0 fallback
+    calls, the native verdicts), prep msg32 launches equal ladder
+    launches equal the device dispatches equal the batches, with no k
+    launch, and the supervisor ends CLOSED with 0 failures, 0 skips and
+    dispatches equal to the batches. With `imad_per_s`, catchup_kernels
+    times both kernels on the largest dispatch's rows. Prints the
+    publisher, each run (batches, dispatch to landing, the coalesce
+    calls, replayed ledgers per second, the collector's passes) and A1's
+    PipelineStats report. Returns the launches of both runs by kernel
+    and the kernel times (or None)."""
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+
+    t0 = time.perf_counter()
+    wl = catchup_workload(accounts, txs, ledgers, quiet, quiet_txs)
+    build_s = time.perf_counter() - t0
+    last = len(wl["closes"]) + 1
+    work = tempfile.mkdtemp(prefix="chip-smoke-catchup-")
+    # the works' download directories (tempfile.mkdtemp, which the
+    # sequential work never removes) go under `work`
+    tempdir, tempfile.tempdir = tempfile.tempdir, work
+    try:
+        t0 = time.perf_counter()
+        pub = catchup_publish(wl, work)
+        publish_s = time.perf_counter() - t0
+        if pub["published"] != (last + 1) // 64 or \
+                pub["has"].current_ledger != last or last % 64 != 63:
+            raise SystemExit(f"catchup: the publisher closed to {last} and "
+                             f"published {pub['published']} checkpoints, "
+                             f"HAS at {pub['has'].current_ledger}")
+        runs, launches = {}, {"msg32": 0, "k": 0, "ladder": 0}
+        for tag, streaming, target in (("A1", True, last),
+                                       ("A2", False, CATCHUP_TO)):
+            reg, sups = MetricsRegistry(), []
+
+            def verifier(app):
+                sups.append(BackendSupervisor(
+                    CudaBatchVerifier(
+                        perf=app.perf, metrics=reg,
+                        device_min_batch=LIVE["device_min_batch"]),
+                    clock=app.clock, metrics=reg, perf=app.perf,
+                    dispatch_deadline_ms=LIVE["dispatch_deadline_ms"],
+                    canary_batch=LIVE["canary_batch"]))
+                return sups[0]
+            zero_launches()
+            run = catchup_run(pub["root"], wl["passphrase"],
+                              os.path.join(work, tag), streaming,
+                              0 if streaming else target, verifier)
+            got = launch_counts()
+            st = sups[0].status()
+            sups[0].shutdown()
+            device = reg.to_json().get("crypto.verify.dispatch.batch",
+                                       {}).get("count", 0)
+            batches = len(run["dispatches"])
+            problems = catchup_problems(run, wl, pub, target)
+            if got != {"msg32": device, "k": 0, "ladder": device} or \
+                    device != batches or not batches:
+                problems.append(f"launched {got} for {device} device "
+                                f"dispatches and {batches} batches")
+            if st["state"] != CLOSED or any(st["failures"].values()) or \
+                    st["skips"] or st["transitions"] or \
+                    st["dispatches"] != batches:
+                problems.append(f"supervisor: {st['state']}, failures "
+                                f"{st['failures']}, skips {st['skips']}, "
+                                f"transitions {st['transitions']}, "
+                                f"dispatches {st['dispatches']}")
+            if problems:
+                raise SystemExit(f"catchup run {tag}: " + "; ".join(problems))
+            runs[tag] = (run, st)
+            for k in launches:
+                launches[k] += got[k]
+        big = max((d for run, _ in runs.values() for d in run["dispatches"]),
+                  key=lambda d: len(d[0]))
+        kernels = catchup_kernels(big[0], imad_per_s) \
+            if imad_per_s else None
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(f"catchup: {accounts} accounts, {quiet} closes of {quiet_txs} and "
+          f"{ledgers} of {txs} one-Payment transactions (phase 13's mix), "
+          f"built in {build_s:.3f} s; the publisher closed ledgers 2-{last} "
+          f"and published {pub['published']} checkpoints in "
+          f"{publish_s:.3f} s (HAS current_ledger "
+          f"{pub['has'].current_ledger}) [{card}]", flush=True)
+    for tag, (run, st) in runs.items():
+        gc_s = [t for _, t in run["gc"]]
+        full = [t for g, t in run["gc"] if g == 2]
+        print(f"  run {tag} ({type(run['work']).__name__}): LCL {run['lcl']} "
+              f"{run['hash'].hex()[:16]} (the publisher's) in "
+              f"{run['wall_s']:.3f} s, "
+              f"{(run['lcl'] - 1) / run['wall_s']:.2f} replayed ledgers/s; "
+              f"batches " + ", ".join(
+                  f"{b['cps']}: {len(d[0])} tuples, dispatch to "
+                  f"landing {d[2] * 1e3:.2f} ms, hits {b['hits']} misses "
+                  f"{b['misses']}"
+                  for b, d in zip(run["batches"], run["dispatches"]))
+              + f"; coalesce calls {run['coalesce']}; fallback calls "
+              f"{run['fallbacks']}; supervisor dispatches "
+              f"{st['dispatches']}, CLOSED; collector {len(gc_s)} passes "
+              f"{sum(gc_s):.3f} s, {len(full)} full "
+              f"{sum(full):.3f} s (max {max(full, default=0.0):.3f} s) "
+              f"[{card}]", flush=True)
+    print("catchup A1 stages: " + json.dumps(runs["A1"][0]["report"]),
+          flush=True)
+    if kernels:
+        for name, e in kernels.items():
+            print(f"catchup {name}[msg32] at n={e['n']}: {e['ms']:.4f} ms "
+                  f"(plain {e['plain_ms']:.1f} ms, matches; bound "
+                  f"{e['bound_ms']:.4f} ms = {e['bound_ms'] / e['ms']:.4f} "
+                  f"of the time) [{card}]", flush=True)
+    return launches, kernels
 
 
 def main():
@@ -3431,11 +4003,15 @@ def main():
     # --- 13. persistence and ledger close, the stage prewarm on the card -
     close = close_phase(card)
 
+    # --- 14. catchup, each checkpoint's signatures in one dispatch -------
+    catchup, catchup_times = catchup_phase(card, imad_per_s)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
     # of phase 10 (classic), run A of phase 11 (soroban), run A of
-    # phase 12 (wasm) and run A of phase 13 (close)
+    # phase 12 (wasm), run A of phase 13 (close) and runs A1 and A2 of
+    # phase 14 (catchup)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -3445,8 +4021,17 @@ def main():
             "hybrid": mesh["hybrid"].get(kind, 0),
             "txset": txset[kind], "classic": classic[kind],
             "soroban": soroban[kind], "wasm": wasm[kind],
-            "close": close[kind]}
+            "close": close[kind], "catchup": catchup[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
+        timed = catchup_times.get({"msg32": "prep", "ladder": "ladder"}
+                                  .get(kind))
+        if timed:
+            # the same kernel on the largest catchup dispatch's rows
+            e["catchup"] = {k: timed[k] for k in (
+                "n", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            print(f"{e['name']}: {e['ms']:.4f} ms at n={e['n']} (phase 3), "
+                  f"{timed['ms']:.4f} ms at n={timed['n']} (phase 14) "
+                  f"[{card}]", flush=True)
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)

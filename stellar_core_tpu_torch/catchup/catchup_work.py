@@ -1,0 +1,879 @@
+"""Catchup: download, verify, and replay history.
+
+Reference: src/catchup/CatchupWork.{h,cpp} (orchestration),
+VerifyLedgerChainWork (hash-chain back-links), ApplyCheckpointWork
+(per-ledger replay → LedgerManager::closeLedger — the north-star
+workload, SURVEY.md §3.3), ApplyBucketsWork (CATCHUP_MINIMAL
+fast-forward), CatchupConfiguration (MINIMAL count=0 / COMPLETE
+count=UINT32_MAX / RECENT count=N).
+
+The download legs run the archive's `get` command per file through the
+ProcessManager via GetAndUnzipRemoteFileWork; verification and apply are
+plain works cranked on the clock.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import tempfile
+from typing import Dict, List, Optional
+
+import threading
+
+from ..herder.tx_set import TxSetFrame
+from ..history.archive import (CHECKPOINT_FREQUENCY, HAS_PATH,
+                               HistoryArchive, HistoryArchiveState,
+                               bucket_path, checkpoint_containing,
+                               file_path, first_ledger_in_checkpoint,
+                               note_archive_failure, read_gz)
+from ..ledger.ledger_manager import LedgerCloseData, ledger_header_hash
+from ..tx.signature_checker import collect_signature_tuples
+from ..util import chaos, tracing
+from ..util.logging import get_logger
+from ..util.xdr_stream import read_record
+from ..work import BasicWork, State, Work, WorkSequence
+from ..xdr.ledger import (LedgerHeaderHistoryEntry, TransactionHistoryEntry,
+                          TransactionHistoryResultEntry)
+
+log = get_logger("History")
+
+CATCHUP_COMPLETE = 0xFFFFFFFF
+CATCHUP_MINIMAL = 0
+
+
+class CatchupConfiguration:
+    def __init__(self, to_ledger: int, count: int = CATCHUP_COMPLETE,
+                 verify_results: bool = True):
+        self.to_ledger = to_ledger
+        self.count = count  # how many recent ledgers to replay
+        # download archived tx results and hold the replay to them,
+        # catching divergence at the offending ledger (reference:
+        # historywork/DownloadVerifyTxResultsWork.cpp + VerifyTxResultsWork)
+        self.verify_results = verify_results
+
+
+def build_txset_frame(the: Optional[TransactionHistoryEntry], hhe,
+                      network_id: bytes) -> TxSetFrame:
+    """TxSetFrame for one replay ledger: the archived entry's set
+    (generalized or classic), or the canonical empty set when the
+    archive carries no transactions for the ledger."""
+    if the is not None:
+        if the.ext.disc == 1:
+            return TxSetFrame(the.ext.value, network_id)
+        return TxSetFrame(the.txSet, network_id)
+    from ..xdr.ledger import TransactionSet
+    return TxSetFrame(TransactionSet(
+        previousLedgerHash=hhe.header.previousLedgerHash, txs=[]),
+        network_id)
+
+
+def check_replayed_results(lm, seq: int, hhe, applicable,
+                           expected: Optional[
+                               TransactionHistoryResultEntry]) -> bool:
+    """Hold the replayed results to the verified archive anchor
+    (reference: VerifyTxResultsWork semantics carried into apply) — on
+    divergence, name the ledger and the first offending transaction
+    instead of dying later on a bare header mismatch. The caller already
+    proved the archived set hashes to the signed header's
+    txSetResultHash, so the per-ledger check is one 32-byte compare; the
+    archived pairs are only consulted for the diagnostic."""
+    if expected is None:
+        return True     # no archived results anchor for this ledger
+    replayed_hash = bytes(
+        lm.get_last_closed_ledger_header().txSetResultHash)
+    exp_set = expected.txResultSet
+    if bytes(hhe.header.txSetResultHash) == replayed_hash:
+        return True
+    # diverged: diff per tx for the diagnostic
+    by_hash = {}
+    for tx in applicable.get_txs_in_apply_order():
+        if tx.result is not None:
+            by_hash[tx.full_hash()] = tx.result
+    for pair in exp_set.results:
+        mine = by_hash.get(bytes(pair.transactionHash))
+        if mine is None:
+            log.error(
+                "replay diverged at ledger %d: tx %s in archived "
+                "results was not applied", seq,
+                bytes(pair.transactionHash).hex()[:16])
+            return False
+        if mine.to_bytes() != pair.result.to_bytes():
+            log.error(
+                "replay diverged at ledger %d: tx %s result %s != "
+                "archived %s", seq,
+                bytes(pair.transactionHash).hex()[:16],
+                mine.result.disc.name, pair.result.result.disc.name)
+            return False
+    log.error("replay diverged at ledger %d: result set hash "
+              "mismatch", seq)
+    return False
+
+
+def replay_one_ledger(app, seq: int, hhe, frame: TxSetFrame, verify=None,
+                      expected_results=None) -> bool:
+    """Close one replayed ledger and pin it to the verified chain:
+    prepare → closeLedger → archived-results anchor → header-hash
+    compare. The ONE apply core shared by the sequential
+    ApplyCheckpointWork and the streaming pipeline (catchup/pipeline.py)
+    so the two replay paths cannot drift semantically."""
+    lm = app.ledger_manager
+    if chaos.ENABLED:
+        # mid-apply fault seam (docs/CHAOS.md): `crash` here models a
+        # node dying between replayed ledgers — restart must resume
+        # from the last committed ledger
+        chaos.point("catchup.apply", seq=seq,
+                    checkpoint=checkpoint_containing(seq))
+    applicable = frame.prepare_for_apply(
+        lm.get_last_closed_ledger_header())
+    if applicable is None:
+        log.error("malformed archived tx set for ledger %d", seq)
+        return False
+    lcd = LedgerCloseData(seq, applicable, hhe.header.scpValue)
+    kwargs = {"verify": verify} if verify else {}
+    lm.close_ledger(lcd, **kwargs)
+    if app.config.CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING \
+            and app.bucket_manager is not None:
+        # reference: catchup applies the next ledger only after all
+        # in-flight bucket merges resolve
+        app.bucket_manager.wait_merges()
+    if not check_replayed_results(lm, seq, hhe, applicable,
+                                  expected_results):
+        return False
+    got = lm.get_last_closed_ledger_hash()
+    if got != bytes(hhe.hash):
+        # reference: "Local node's ledger corrupted during close"
+        log.error("replayed ledger %d hash mismatch: %s != %s", seq,
+                  got.hex()[:16], bytes(hhe.hash).hex()[:16])
+        return False
+    return True
+
+
+class GetRemoteFileWork(BasicWork):
+    """Spawn the archive `get` command (reference:
+    historywork/GetRemoteFileWork)."""
+
+    def __init__(self, app, archive: HistoryArchive, remote: str,
+                 local: str, max_retries: int = 3):
+        super().__init__(app, f"get-{remote}", max_retries)
+        self.archive = archive
+        self.remote = remote
+        self.local = local
+        self._ev = None
+
+    def on_reset(self) -> None:
+        self._ev = None
+        if os.path.exists(self.local):
+            os.unlink(self.local)
+
+    def on_run(self) -> State:
+        if self._ev is None:
+            os.makedirs(os.path.dirname(os.path.abspath(self.local)),
+                        exist_ok=True)
+            cmd = self.archive.get_file_cmd(self.remote, self.local)
+            self._ev = self.app.process_manager.run_process(
+                cmd, lambda code: self.wake_up())
+            return State.WORK_WAITING
+        if self._ev.exit_code is None:
+            return State.WORK_WAITING
+        if tracing.ENABLED:
+            rec = self.app.flight_recorder
+            if rec.active:
+                # history work-step marker: one per fetched archive file
+                rec.instant("catchup.download", {
+                    "remote": self.remote, "exit": self._ev.exit_code})
+        if self._ev.exit_code == 0 and os.path.exists(self.local):
+            return State.WORK_SUCCESS
+        note_archive_failure(self.app)
+        return State.WORK_FAILURE
+
+
+class GetHistoryArchiveStateWork(BasicWork):
+    def __init__(self, app, archive: HistoryArchive,
+                 checkpoint: Optional[int] = None):
+        name = "get-has" if checkpoint is None else f"get-has-{checkpoint}"
+        super().__init__(app, name, max_retries=3)
+        self.archive = archive
+        self.checkpoint = checkpoint
+        self.has: Optional[HistoryArchiveState] = None
+        self._get: Optional[GetRemoteFileWork] = None
+        self._local = tempfile.mktemp(prefix="has-")
+
+    def on_run(self) -> State:
+        if self._get is None:
+            remote = HAS_PATH if self.checkpoint is None else \
+                file_path("history", self.checkpoint, ".json")
+            self._get = GetRemoteFileWork(self.app, self.archive, remote,
+                                          self._local)
+            self._get.start_work(self.wake_up)
+        if not self._get.is_done():
+            self._get.crank_work()
+        if not self._get.is_done():
+            # re-check AFTER cranking: finishing during our crank must
+            # not park us WAITING with no one left to wake us
+            return State.WORK_RUNNING if \
+                self._get.get_state() == State.WORK_RUNNING \
+                else State.WORK_WAITING
+        if self._get.get_state() != State.WORK_SUCCESS:
+            return State.WORK_FAILURE
+        with open(self._local) as f:
+            self.has = HistoryArchiveState.from_json(f.read())
+        os.unlink(self._local)
+        return State.WORK_SUCCESS
+
+
+class DownloadVerifyLedgerChainWork(Work):
+    """Download ledger-header files for a checkpoint range and verify
+    the hash chain (reference: BatchDownloadWork +
+    VerifyLedgerChainWork)."""
+
+    def __init__(self, app, archive: HistoryArchive, checkpoints: List[int],
+                 download_dir: str):
+        super().__init__(app, "download-verify-ledger-chain",
+                         max_retries=0)
+        self.archive = archive
+        self.checkpoints = checkpoints
+        self.dir = download_dir
+        self.headers: Dict[int, LedgerHeaderHistoryEntry] = {}
+        self._spawned = False
+
+    def local_path(self, checkpoint: int) -> str:
+        return os.path.join(self.dir, f"ledger-{checkpoint:08x}.xdr.gz")
+
+    def do_work(self) -> State:
+        if not self._spawned:
+            for cp in self.checkpoints:
+                self.add_work(GetRemoteFileWork(
+                    self.app, self.archive, file_path("ledger", cp),
+                    self.local_path(cp)))
+            self._spawned = True
+            return State.WORK_RUNNING
+        # all downloads done: parse + verify back-links
+        targs = {"checkpoints": len(self.checkpoints)} \
+            if tracing.ENABLED else None
+        with self.app.perf.zone("catchup.verifyChain", targs=targs):
+            return self._verify_chain()
+
+    def _verify_chain(self) -> State:
+        prev_hash: Optional[bytes] = None
+        prev_seq: Optional[int] = None
+        for cp in self.checkpoints:
+            data = read_gz(self.local_path(cp))
+            bio = io.BytesIO(data)
+            while True:
+                rec = read_record(bio)
+                if rec is None:
+                    break
+                hhe = LedgerHeaderHistoryEntry.from_bytes(rec)
+                computed = ledger_header_hash(hhe.header)
+                if computed != bytes(hhe.hash):
+                    log.error("header %d hash mismatch",
+                              hhe.header.ledgerSeq)
+                    return State.WORK_FAILURE
+                if prev_hash is not None and \
+                        hhe.header.ledgerSeq == prev_seq + 1 and \
+                        bytes(hhe.header.previousLedgerHash) != prev_hash:
+                    log.error("chain broken at %d", hhe.header.ledgerSeq)
+                    return State.WORK_FAILURE
+                self.headers[hhe.header.ledgerSeq] = hhe
+                prev_hash = bytes(hhe.hash)
+                prev_seq = hhe.header.ledgerSeq
+        return State.WORK_SUCCESS
+
+
+_PENDING = object()
+
+
+class _ReadyResult:
+    """Already-materialized result with the _AsyncResult interface."""
+
+    __slots__ = ("_res",)
+
+    def __init__(self, res):
+        self._res = res
+
+    def done(self) -> bool:
+        return True
+
+    def wait(self, timeout=None) -> bool:
+        return True
+
+    def result(self, timeout=None):
+        return self._res
+
+
+class _AsyncResult:
+    """Daemon-thread future: collects a blocking device result off the
+    apply path without ever pinning process shutdown (a stalled batch
+    dies with the process; ThreadPoolExecutor's non-daemon workers
+    would be joined at exit)."""
+
+    __slots__ = ("_done", "_res", "_exc")
+
+    def __init__(self, fn):
+        self._done = threading.Event()
+        self._res = None
+        self._exc: Optional[BaseException] = None
+        t = threading.Thread(target=self._run, args=(fn,), daemon=True,
+                             name="batch-resolve")
+        t.start()
+
+    def _run(self, fn) -> None:  # thread-domain: catchup-worker
+        from ..util import threads
+        if threads.CHECK:
+            threads.bind("catchup-worker")
+        try:
+            self._res = fn()
+        except BaseException as e:      # surfaced on result()
+            self._exc = e
+        finally:
+            self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block up to `timeout` for completion; no result adoption."""
+        return self._done.wait(timeout)
+
+    def result(self, timeout: Optional[float] = None):
+        """Result, the stored exception, or _PENDING on timeout."""
+        if not self._done.wait(timeout):
+            return _PENDING
+        if self._exc is not None:
+            raise self._exc
+        return self._res
+
+
+class DownloadVerifyTxResultsWork(BasicWork):
+    """Download a checkpoint's archived tx results and verify each
+    ledger's result set against the already-verified header chain
+    (reference: historywork/DownloadVerifyTxResultsWork.cpp:1 +
+    VerifyTxResultsWork.cpp — sha256(txResultSet) must equal the
+    header's txSetResultHash). The verified per-ledger entries then
+    anchor the replay: any divergence is caught at the offending
+    ledger with the offending transaction named, instead of only as an
+    opaque header-hash mismatch."""
+
+    def __init__(self, app, archive: HistoryArchive, checkpoint: int,
+                 headers: Dict[int, LedgerHeaderHistoryEntry],
+                 download_dir: str):
+        super().__init__(app, f"verify-tx-results-{checkpoint:08x}",
+                         max_retries=0)
+        self.archive = archive
+        self.checkpoint = checkpoint
+        self.headers = headers
+        self.dir = download_dir
+        self.results_by_seq: Dict[int, TransactionHistoryResultEntry] = {}
+        self._get: Optional[GetRemoteFileWork] = None
+        self._verified = False
+
+    def _local(self) -> str:
+        return os.path.join(self.dir,
+                            f"results-{self.checkpoint:08x}.xdr.gz")
+
+    def on_run(self) -> State:
+        from ..crypto.sha import sha256
+        if self._get is None:
+            self._get = GetRemoteFileWork(
+                self.app, self.archive,
+                file_path("results", self.checkpoint), self._local())
+            self._get.start_work(self.wake_up)
+        if not self._get.is_done():
+            self._get.crank_work()
+            if not self._get.is_done():
+                return State.WORK_RUNNING if \
+                    self._get.get_state() == State.WORK_RUNNING else \
+                    State.WORK_WAITING
+        if self._get.get_state() != State.WORK_SUCCESS:
+            log.error("results file for checkpoint %d missing from "
+                      "archive", self.checkpoint)
+            return State.WORK_FAILURE
+        if not self._verified:
+            bio = io.BytesIO(read_gz(self._local()))
+            while True:
+                rec = read_record(bio)
+                if rec is None:
+                    break
+                tre = TransactionHistoryResultEntry.from_bytes(rec)
+                hhe = self.headers.get(tre.ledgerSeq)
+                if hhe is None:
+                    continue    # outside the verified range
+                got = sha256(tre.txResultSet.to_bytes())
+                want = bytes(hhe.header.txSetResultHash)
+                if got != want:
+                    log.error(
+                        "archived results for ledger %d do not match the "
+                        "signed header chain (%s != %s)", tre.ledgerSeq,
+                        got.hex()[:16], want.hex()[:16])
+                    return State.WORK_FAILURE
+                self.results_by_seq[tre.ledgerSeq] = tre
+            self._verified = True
+        return State.WORK_SUCCESS
+
+
+class ApplyCheckpointWork(BasicWork):
+    """Replay one checkpoint's ledgers through closeLedger (reference:
+    catchup/ApplyCheckpointWork.{h,cpp} — the north-star hot path).
+
+    With `batch_verifier` set, every checkpoint's signature tuples are
+    verified in ONE device batch before the apply loop; the per-signature
+    results seed a PrevalidatedVerifier so the sequential apply does hash
+    lookups instead of scalar verifies (SURVEY.md §3.3)."""
+
+    def __init__(self, app, archive: HistoryArchive, checkpoint: int,
+                 headers: Dict[int, LedgerHeaderHistoryEntry],
+                 download_dir: str, verify=None, batch_verifier=None,
+                 last_ledger: Optional[int] = None,
+                 batch_grace: float = 0.05,
+                 results_work: Optional[DownloadVerifyTxResultsWork]
+                 = None):
+        super().__init__(app, f"apply-checkpoint-{checkpoint}",
+                         max_retries=0)
+        self.archive = archive
+        self.checkpoint = checkpoint
+        # archived-results anchor (reference: VerifyTxResultsWork)
+        self.results_work = results_work
+        # replay stops here: min(checkpoint boundary, catchup target)
+        # (reference: ApplyCheckpointWork honours the CatchupRange's
+        # exact last ledger, CatchupWork.cpp)
+        self.last_ledger = checkpoint if last_ledger is None \
+            else min(checkpoint, last_ledger)
+        self.headers = headers
+        self.dir = download_dir
+        self.verify = verify
+        self.batch_verifier = batch_verifier
+        self.prevalidated = None
+        self.next_work: Optional["ApplyCheckpointWork"] = None
+        self._txs_by_seq: Optional[Dict[int, TransactionHistoryEntry]] = None
+        self._get: Optional[GetRemoteFileWork] = None
+        self._next_seq: Optional[int] = None
+        self._pending_batch = None   # (tuples, resolver future)
+        self._frame_sets: Dict[int, TxSetFrame] = {}
+        self._prefetch_failed = False
+        # seconds the FIRST result probe may wait (see
+        # _resolve_prevalidated); deterministic tests raise it
+        self.batch_grace = batch_grace
+        self._grace_spent = False
+
+    def _local(self) -> str:
+        return os.path.join(self.dir,
+                            f"transactions-{self.checkpoint:08x}.xdr.gz")
+
+
+    def advance_prefetch(self, swallow_errors: bool = False) -> bool:
+        """Crank the download/parse/batch-dispatch stages without applying.
+        Called by the PREVIOUS checkpoint's apply loop (swallow_errors=True
+        there: a corrupt prefetched file must fail THIS work when its own
+        on_run reaches it, not the caller mid-apply) so that this
+        checkpoint's archive download and device signature batch overlap
+        the sequential apply (the batch is dispatched async; its results
+        are collected lazily at first use). Returns True when prefetched
+        through the batch dispatch."""
+        if swallow_errors:
+            if self._prefetch_failed:
+                return True      # don't redo the doomed parse every crank
+            try:
+                return self.advance_prefetch(swallow_errors=False)
+            except Exception as e:       # noqa: BLE001 — re-raised by owner
+                # reset the partial parse so on_run re-attempts (once) and
+                # the failure is attributed to this checkpoint's own work
+                self._txs_by_seq = None
+                self._pending_batch = None
+                self._prefetch_failed = True
+                log.debug("prefetch of checkpoint %d deferred error: %s",
+                          self.checkpoint, e)
+                return True
+        if self.results_work is not None and \
+                not self.results_work.is_done():
+            self.results_work.ensure_started(self.wake_up)
+            self.results_work.crank_work()
+        if self._get is None:
+            self._get = GetRemoteFileWork(
+                self.app, self.archive,
+                file_path("transactions", self.checkpoint), self._local())
+            self._get.start_work(self.wake_up)
+        if not self._get.is_done():
+            self._get.crank_work()
+            if not self._get.is_done():
+                return False
+        if self._get.get_state() != State.WORK_SUCCESS:
+            return True  # failure surfaces when on_run reaches this work
+        if self._txs_by_seq is None:
+            targs = {"checkpoint": self.checkpoint} \
+                if tracing.ENABLED else None
+            with self.app.perf.zone("catchup.prefetch", targs=targs):
+                self._txs_by_seq = {}
+                bio = io.BytesIO(read_gz(self._local()))
+                while True:
+                    rec = read_record(bio)
+                    if rec is None:
+                        break
+                    the = TransactionHistoryEntry.from_bytes(rec)
+                    self._txs_by_seq[the.ledgerSeq] = the
+                self._next_seq = max(
+                    self.app.ledger_manager
+                    .get_last_closed_ledger_num() + 1,
+                    first_ledger_in_checkpoint(self.checkpoint))
+                if self.batch_verifier is not None:
+                    self._batch_prevalidate()
+        return True
+
+    def on_run(self) -> State:
+        lm = self.app.ledger_manager
+        if self._get is None or not self._get.is_done() \
+                or self._txs_by_seq is None:
+            self.advance_prefetch()
+            if not self._get.is_done():
+                return State.WORK_RUNNING if \
+                    self._get.get_state() == State.WORK_RUNNING else \
+                    State.WORK_WAITING
+            if self._get.get_state() != State.WORK_SUCCESS:
+                return State.WORK_FAILURE
+
+        if self.results_work is not None:
+            # the archived-results anchor must be verified before any
+            # ledger applies: divergence diagnostics name the first
+            # offending ledger, so the anchor cannot lag the replay
+            if not self.results_work.is_done():
+                self.results_work.ensure_started(self.wake_up)
+                self.results_work.crank_work()
+                if not self.results_work.is_done():
+                    return State.WORK_RUNNING if \
+                        self.results_work.get_state() == \
+                        State.WORK_RUNNING else State.WORK_WAITING
+            if self.results_work.get_state() != State.WORK_SUCCESS:
+                return State.WORK_FAILURE
+
+        # apply one ledger per crank (keeps the clock responsive,
+        # reference: ApplyCheckpointWork applies ledger-at-a-time);
+        # meanwhile push the next checkpoint's download + device batch
+        if self.next_work is not None:
+            self.next_work.advance_prefetch(swallow_errors=True)
+        if self._next_seq > self.last_ledger:
+            return State.WORK_SUCCESS
+        seq = self._next_seq
+        hhe = self.headers.get(seq)
+        if hhe is None:
+            log.error("no verified header for ledger %d", seq)
+            return State.WORK_FAILURE
+        if not self._apply_one(lm, seq, hhe):
+            return State.WORK_FAILURE
+        self._next_seq += 1
+        return State.WORK_RUNNING if self._next_seq <= self.last_ledger \
+            else State.WORK_SUCCESS
+
+    def _batch_prevalidate(self) -> None:
+        """Dispatch one device batch for the whole checkpoint's
+        signatures (async — results are collected lazily at first apply,
+        so the device computes while earlier ledgers still apply)."""
+        network_id = self.app.config.network_id()
+        frames = []
+        for the in self._txs_by_seq.values():
+            if not self._next_seq <= the.ledgerSeq <= self.last_ledger:
+                continue  # outside the replay range; never applied
+            if the.ext.disc == 1:
+                frame_set = TxSetFrame(the.ext.value, network_id)
+            else:
+                frame_set = TxSetFrame(the.txSet, network_id)
+            # apply reuses these frame sets (and their cached content
+            # hashes) instead of re-parsing the txset per ledger
+            self._frame_sets[the.ledgerSeq] = frame_set
+            frames.extend(t for t, _ in frame_set._frames_with_base_fee())
+        tuples = collect_signature_tuples(frames, network_id)
+        if not tuples:
+            return
+        try:
+            if hasattr(self.batch_verifier, "verify_tuples_async"):
+                # collect device results on a daemon side thread: apply
+                # never stalls on the batch — ledgers applied before it
+                # lands verify through the sync fallback, later ones hit
+                # the table — and an abandoned/stalled batch can never
+                # block process shutdown
+                handle = self.batch_verifier.verify_tuples_async(tuples)
+                fut = _AsyncResult(handle)
+            else:
+                # synchronous verifier: the cost was just paid inline;
+                # no thread, the result is simply ready
+                fut = _ReadyResult(
+                    self.batch_verifier.verify_tuples(tuples))
+        except Exception:
+            # device verifier down at dispatch: the sync fallback
+            # covers every signature — replay semantics are identical
+            log.warning("checkpoint %d: batch verifier failed at "
+                        "dispatch; native fallback", self.checkpoint,
+                        exc_info=True)
+            return
+        self._pending_batch = (tuples, fut)
+        log.info("checkpoint %d: dispatched batch of %d signatures",
+                 self.checkpoint, len(tuples))
+
+    def _resolve_prevalidated(self) -> None:
+        """Adopt the dispatched batch's results once available.  The
+        first probe grants a short grace (`batch_grace` seconds) — worth
+        a bounded stall to catch a nearly-landed batch — after which the
+        probe is non-blocking and the sync fallback covers the in-flight
+        gap, so apply never waits on the device."""
+        if self._pending_batch is None:
+            return
+        from ..tx.signature_checker import (PrevalidatedVerifier,
+                                            default_verify)
+        tuples, fut = self._pending_batch
+        try:
+            if self._grace_spent or self.batch_grace <= 0:
+                if not fut.done():
+                    return
+                results = fut.result()
+            else:
+                self._grace_spent = True
+                results = fut.result(timeout=self.batch_grace)
+                if results is _PENDING:
+                    return
+        except Exception:
+            # device verifier died after dispatch: drop the batch and
+            # let the sync fallback verify everything
+            log.warning("checkpoint %d: batch verifier failed at "
+                        "collection; native fallback", self.checkpoint,
+                        exc_info=True)
+            self._pending_batch = None
+            return
+        self._pending_batch = None
+        pv = PrevalidatedVerifier(fallback=self.verify or default_verify)
+        pv.add_results(tuples, results)
+        self.prevalidated = pv
+        log.info("checkpoint %d: batch-verified %d signatures",
+                 self.checkpoint, len(tuples))
+
+    def _apply_one(self, lm, seq: int, hhe) -> bool:
+        self._resolve_prevalidated()
+        the = self._txs_by_seq.get(seq)
+        frame = self._frame_sets.pop(seq, None) if the is not None else None
+        if frame is None:
+            frame = build_txset_frame(the, hhe,
+                                      self.app.config.network_id())
+        expected = self.results_work.results_by_seq.get(seq) \
+            if self.results_work is not None else None
+        return replay_one_ledger(self.app, seq, hhe, frame,
+                                 verify=self.prevalidated or self.verify,
+                                 expected_results=expected)
+
+
+class CatchupWork(Work):
+    """Top-level orchestration (reference: catchup/CatchupWork.cpp):
+    HAS → ledger chain download/verify → replay leg checkpoint by
+    checkpoint. (The bucket-apply MINIMAL leg is in ApplyBucketsWork.)"""
+
+    def __init__(self, app, archive: HistoryArchive,
+                 config: CatchupConfiguration, verify=None,
+                 batch_verifier=None, batch_grace: float = 0.05):
+        super().__init__(app, "catchup", max_retries=0)
+        self.batch_grace = batch_grace
+        self.archive = archive
+        self.catchup_config = config
+        self.verify = verify
+        self.batch_verifier = batch_verifier
+        if batch_verifier is None:
+            # the Application owns one shared verifier when the device
+            # backend is configured
+            self.batch_verifier = getattr(app, "batch_verifier", None)
+        self.applied_checkpoints: List[ApplyCheckpointWork] = []
+        self._phase = 0
+        self._has_work: Optional[GetHistoryArchiveStateWork] = None
+        self._chain: Optional[DownloadVerifyLedgerChainWork] = None
+        self._apply_seq: List[int] = []
+        self._target = config.to_ledger
+        self._tmp = tempfile.mkdtemp(prefix="catchup-")
+
+    def do_work(self) -> State:
+        if self._phase == 0:
+            self._has_work = GetHistoryArchiveStateWork(self.app,
+                                                        self.archive)
+            self.add_work(self._has_work)
+            self._phase = 1
+            return State.WORK_RUNNING
+        if self._phase == 1:
+            has = self._has_work.has
+            target = self.catchup_config.to_ledger
+            if target == 0 or target > has.current_ledger:
+                target = has.current_ledger
+            lcl = self.app.ledger_manager.get_last_closed_ledger_num()
+            if target <= lcl:
+                return State.WORK_SUCCESS
+            self._target = target
+            first_cp = checkpoint_containing(lcl + 1)
+            last_cp = checkpoint_containing(target)
+            last_cp = min(last_cp, checkpoint_containing(
+                has.current_ledger))
+            cps = list(range(first_cp, last_cp + 1,
+                             CHECKPOINT_FREQUENCY))
+            self._apply_seq = cps
+            self._chain = DownloadVerifyLedgerChainWork(
+                self.app, self.archive, cps, self._tmp)
+            self.add_work(self._chain)
+            self._phase = 2
+            return State.WORK_RUNNING
+        if self._phase == 2:
+            # checkpoints replay strictly in order: each one's ledgers
+            # build on the previous (reference: DownloadApplyTxsWork's
+            # sequential apply constraint)
+            self.applied_checkpoints = [
+                ApplyCheckpointWork(
+                    self.app, self.archive, cp, self._chain.headers,
+                    self._tmp, verify=self.verify,
+                    batch_verifier=self.batch_verifier,
+                    last_ledger=self._target,
+                    batch_grace=self.batch_grace,
+                    results_work=DownloadVerifyTxResultsWork(
+                        self.app, self.archive, cp, self._chain.headers,
+                        self._tmp)
+                    if self.catchup_config.verify_results else None)
+                for cp in self._apply_seq]
+            # chain them so checkpoint N's apply loop prefetches N+1's
+            # download + device signature batch (reference analogue:
+            # DownloadApplyTxsWork's pipelined download-ahead)
+            for cur, nxt in zip(self.applied_checkpoints,
+                                self.applied_checkpoints[1:]):
+                cur.next_work = nxt
+            self.add_work(WorkSequence(
+                self.app, "apply-checkpoints", self.applied_checkpoints))
+            self._phase = 3
+            return State.WORK_RUNNING
+        return State.WORK_SUCCESS
+
+
+class CheckSingleLedgerHeaderWork(BasicWork):
+    """Archive audit: download the checkpoint ledger file containing a
+    (trusted) header and verify the archived copy hashes identically
+    (reference: historywork/CheckSingleLedgerHeaderWork.cpp:1 — used by
+    self-check to prove an archive has not diverged from the node)."""
+
+    def __init__(self, app, archive: HistoryArchive, expected_seq: int,
+                 expected_hash: bytes, download_dir: str):
+        super().__init__(app, f"check-ledger-header-{expected_seq}",
+                         max_retries=0)
+        self.archive = archive
+        self.expected_seq = expected_seq
+        self.expected_hash = expected_hash
+        self.dir = download_dir
+        self.checkpoint = checkpoint_containing(expected_seq)
+        self._get: Optional[GetRemoteFileWork] = None
+
+    def on_run(self) -> State:
+        if self._get is None:
+            self._get = GetRemoteFileWork(
+                self.app, self.archive,
+                file_path("ledger", self.checkpoint),
+                os.path.join(self.dir,
+                             f"ledger-{self.checkpoint:08x}.xdr.gz"))
+            self._get.start_work(self.wake_up)
+        if not self._get.is_done():
+            self._get.crank_work()
+            if not self._get.is_done():
+                return State.WORK_RUNNING if \
+                    self._get.get_state() == State.WORK_RUNNING else \
+                    State.WORK_WAITING
+        if self._get.get_state() != State.WORK_SUCCESS:
+            log.error("archive %s: ledger file for checkpoint %d missing",
+                      self.archive.name, self.checkpoint)
+            return State.WORK_FAILURE
+        bio = io.BytesIO(read_gz(os.path.join(
+            self.dir, f"ledger-{self.checkpoint:08x}.xdr.gz")))
+        while True:
+            rec = read_record(bio)
+            if rec is None:
+                break
+            hhe = LedgerHeaderHistoryEntry.from_bytes(rec)
+            if hhe.header.ledgerSeq != self.expected_seq:
+                continue
+            if bytes(hhe.hash) == self.expected_hash:
+                return State.WORK_SUCCESS
+            log.error(
+                "archive %s diverges at ledger %d: archived header %s != "
+                "local %s", self.archive.name, self.expected_seq,
+                bytes(hhe.hash).hex()[:16], self.expected_hash.hex()[:16])
+            return State.WORK_FAILURE
+        log.error("archive %s: ledger %d not found in checkpoint %d",
+                  self.archive.name, self.expected_seq, self.checkpoint)
+        return State.WORK_FAILURE
+
+
+class FetchRecentQsetsWork(Work):
+    """SCP-state recovery from archives: download the last few
+    checkpoints' SCP files and restore the quorum sets they carry into
+    the local scpquorums table, reporting the inferred node->qset map
+    (reference: historywork/FetchRecentQsetsWork.cpp:1 feeding
+    InferredQuorum)."""
+
+    NUM_CHECKPOINTS = 2
+
+    def __init__(self, app, archive: HistoryArchive, download_dir: str):
+        super().__init__(app, "fetch-recent-qsets", max_retries=0)
+        self.archive = archive
+        self.dir = download_dir
+        self.inferred: Dict[bytes, bytes] = {}   # node id -> qset hash
+        self.qsets: Dict[bytes, object] = {}     # qset hash -> SCPQuorumSet
+        self._has_work: Optional[GetHistoryArchiveStateWork] = None
+        self._gets: List[GetRemoteFileWork] = []
+        self._phase = 0
+
+    def do_work(self) -> State:
+        from ..crypto.sha import sha256
+        from ..xdr.scp import SCPHistoryEntry
+        if self._phase == 0:
+            self._has_work = GetHistoryArchiveStateWork(self.app,
+                                                        self.archive)
+            self.add_work(self._has_work)
+            self._phase = 1
+            return State.WORK_RUNNING
+        if self._phase == 1:
+            latest = checkpoint_containing(
+                self._has_work.has.current_ledger)
+            first = max(checkpoint_containing(1),
+                        latest - (self.NUM_CHECKPOINTS - 1)
+                        * CHECKPOINT_FREQUENCY)
+            for cp in range(first, latest + 1, CHECKPOINT_FREQUENCY):
+                g = GetRemoteFileWork(
+                    self.app, self.archive, file_path("scp", cp),
+                    os.path.join(self.dir, f"scp-{cp:08x}.xdr.gz"))
+                self._gets.append(g)
+                self.add_work(g)
+            self._phase = 2
+            return State.WORK_RUNNING
+        # parse + persist
+        db = self.app.database
+        for g in self._gets:
+            bio = io.BytesIO(read_gz(g.local))
+            while True:
+                rec = read_record(bio)
+                if rec is None:
+                    break
+                entry = SCPHistoryEntry.from_bytes(rec)
+                v0 = entry.value
+                for qs in v0.quorumSets:
+                    qb = qs.to_bytes()
+                    qh = sha256(qb)
+                    self.qsets[qh] = qs
+                    if db is not None:
+                        db.execute(
+                            "INSERT OR REPLACE INTO scpquorums "
+                            "(qsethash, lastledgerseq, qset) "
+                            "VALUES (?,?,?)",
+                            (qh, v0.ledgerMessages.ledgerSeq, qb))
+                for env in v0.ledgerMessages.messages:
+                    node = bytes(env.statement.nodeID.value)
+                    h = self._statement_qset_hash(env.statement)
+                    if h is not None:
+                        self.inferred[node] = h
+        return State.WORK_SUCCESS
+
+    @staticmethod
+    def _statement_qset_hash(statement) -> Optional[bytes]:
+        """The quorum-set hash a statement pins (reference:
+        Slot::getCompanionQuorumSetHashFromStatement)."""
+        p = statement.pledges
+        v = p.value
+        if hasattr(v, "quorumSetHash"):
+            return bytes(v.quorumSetHash)
+        if hasattr(v, "commitQuorumSetHash"):
+            return bytes(v.commitQuorumSetHash)
+        return None

@@ -1,0 +1,110 @@
+"""Catchup manager: out-of-sync detection and recovery.
+
+Reference: src/catchup/CatchupManagerImpl.{h,cpp} + the herder's
+tracking/not-tracking states (herder/readme.md:23-40) — when
+externalized values arrive for slots beyond LCL+1 the node buffers them;
+if the gap can't be filled from the network, catchup runs from the
+configured history archives up to the checkpoint below the buffered
+slots, after which the buffered ledgers apply and the node is back in
+sync (§5.3's elastic-recovery analogue).
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Optional
+
+from ..util.logging import get_logger
+from ..work import State, WorkSequence, WorkWithCallback
+from .catchup_work import CatchupConfiguration, CatchupWork
+from .pipeline import StreamingCatchupWork
+
+log = get_logger("History")
+
+
+# each attempt's suppression window is stretched by up to this fraction
+# (seeded per node) so a fleet of simultaneously out-of-sync nodes
+# desynchronizes instead of hammering the archive in lockstep — the
+# Tail-at-Scale retry-decorrelation pattern (PAPERS.md)
+RETRY_JITTER_FRAC = 0.25
+
+
+class CatchupManager:
+    def __init__(self, app):
+        self.app = app
+        self._running: Optional[WorkSequence] = None
+        self.catchups_started = 0
+        self._last_attempt = None       # (target, lcl) of the last trigger
+        self._last_attempt_time = 0.0
+        self._suppression_window = 0.0  # jittered, set per attempt
+        # per-node seeded jitter: deterministic for one node (the chaos
+        # repro contract), decorrelated across nodes
+        self._jitter_rng = random.Random(app.config.jitter_seed())
+
+    def is_catchup_running(self) -> bool:
+        return self._running is not None and not self._running.is_done()
+
+    def maybe_trigger_catchup(self) -> bool:
+        """Called by the herder when buffered externalized values can't
+        apply because of a ledger gap (reference:
+        CatchupManagerImpl::processLedger deciding to startCatchup)."""
+        herder = self.app.herder
+        if not self.app.config.mode_does_catchup():
+            return False
+        if self.is_catchup_running() or not herder._buffered_values:
+            return False
+        if self._running is not None and \
+                self._running.get_state() == State.WORK_FAILURE:
+            # last catchup failed (e.g. transient archive error): allow
+            # another attempt on the next trigger
+            self._running = None
+            self._last_attempt = None
+        archives = [a for a in self.app.history_manager.archives
+                    if a.has_get()]
+        if not archives:
+            return False
+        lcl = self.app.ledger_manager.get_last_closed_ledger_num()
+        lowest_buffered = min(herder._buffered_values)
+        if lowest_buffered <= lcl + 1:
+            return False  # contiguous; normal apply path handles it
+        target = lowest_buffered - 1
+        now = self.app.clock.now()
+        if self._last_attempt == (target, lcl) and \
+                now - self._last_attempt_time < self._suppression_window:
+            # the archive couldn't close this gap moments ago; wait for
+            # the network (GET_SCP_STATE recovery) or for the archive to
+            # publish further checkpoints, then retry
+            return False
+        self._last_attempt = (target, lcl)
+        self._last_attempt_time = now
+        # jittered per attempt (config knob × [1, 1+RETRY_JITTER_FRAC))
+        self._suppression_window = \
+            self.app.config.RETRY_SUPPRESSION_SECONDS * \
+            (1.0 + RETRY_JITTER_FRAC * self._jitter_rng.random())
+        log.info("ledger gap %d..%d: starting catchup from archive",
+                 lcl + 1, target)
+        # rotate across configured archives so one bad archive doesn't
+        # wedge recovery (reference: random archive selection in
+        # HistoryArchiveManager::selectRandomReadableHistoryArchive)
+        archive = archives[self.catchups_started % len(archives)]
+        # streaming pipeline by default (docs/CATCHUP.md); the
+        # sequential CatchupWork stays as the reference path behind the
+        # CATCHUP_PIPELINE knob (and as the differential-test baseline)
+        work_cls = StreamingCatchupWork \
+            if self.app.config.CATCHUP_PIPELINE else CatchupWork
+        work = work_cls(
+            self.app, archive,
+            CatchupConfiguration(to_ledger=target),
+            verify=herder._verify)
+
+        def drain() -> bool:
+            self._running = None
+            herder._apply_buffered()
+            return True
+
+        self._running = WorkSequence(
+            self.app, "catchup-then-drain",
+            [work, WorkWithCallback(self.app, "drain-buffered", drain)])
+        self.app.work_scheduler.schedule(self._running)
+        self.catchups_started += 1
+        return True

@@ -1,0 +1,733 @@
+"""Streaming catchup: pipelined checkpoint replay (docs/CATCHUP.md).
+
+Catchup restructured as a four-stage pipeline over checkpoints with
+bounded queues between stages, so the device never drains while the
+host downloads and the archive never outruns memory:
+
+    download ──► verify ──► prevalidate ──► apply
+    (archive      (header     (coalesced       (strict ledger
+     subprocesses, chain +     device           order through
+     N checkpoints results     signature        closeLedger →
+     ahead, byte-  anchor +    batches for      conflict-staged
+     budgeted)     txset       checkpoints      parallel apply)
+                   parse, on   ahead, async
+                   a worker    on the verify
+                   thread)     service/mesh)
+
+Ordering is enforced only where correctness needs it: header back-links
+verify in checkpoint order (the chain tail threads from one verify
+worker to the next), and apply commits in ledger order; downloads and
+device prevalidation run ahead freely inside their windows
+(CATCHUP_PIPELINE_AHEAD_CHECKPOINTS / _PREVALIDATE_AHEAD), parked by the
+byte budget (CATCHUP_PIPELINE_BYTE_BUDGET) when apply falls behind.
+
+The replay inner loop is `catchup_work.replay_one_ledger` — the exact
+core the sequential ApplyCheckpointWork uses (closeLedger routes into
+the conflict-staged parallel apply when APPLY_PARALLEL is set), so
+pipelined and sequential catchup are byte-identical by construction and
+pinned so differentially in tests/test_catchup_pipeline.py.
+
+Shape reference: Clipper's bounded-delay batching and Orca's continuous
+admission (PAPERS.md §Dynamic batching) — stage the work, overlap host
+prep with device compute, never let the accelerator drain.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import shutil
+import tempfile
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..history.archive import (CHECKPOINT_FREQUENCY, HistoryArchive,
+                               checkpoint_containing, file_path,
+                               first_ledger_in_checkpoint, read_gz)
+from ..ledger.ledger_manager import ledger_header_hash
+from ..tx.signature_checker import collect_signature_tuples
+from ..util import tracing
+from ..util.logging import get_logger
+from ..util.xdr_stream import read_record
+from ..work import BasicWork, State
+from ..xdr.ledger import (LedgerHeaderHistoryEntry, TransactionHistoryEntry,
+                          TransactionHistoryResultEntry)
+from .catchup_work import (CatchupConfiguration, GetHistoryArchiveStateWork,
+                           GetRemoteFileWork, _PENDING, _AsyncResult,
+                           _ReadyResult, build_txset_frame,
+                           replay_one_ledger)
+
+log = get_logger("History")
+
+# bounded wait when the only runnable event is a worker-thread future
+# landing (verify parse or device batch): keeps the crank loop from
+# busy-spinning without ever sleeping unboundedly past a download
+# completion (Event.wait, never time.sleep — determinism pass)
+_FUTURE_POLL_S = 0.002
+
+
+class _VerifyFailed(Exception):
+    """Checkpoint verification failed on the worker (already logged)."""
+
+
+class PipelineStats:
+    """Interval-union occupancy accounting across the pipeline stages.
+
+    Every transition is recorded on the crank thread (stage workers are
+    observed entering/leaving by the pumps, not self-reported), so the
+    counters need no locks. Wall-clock here feeds observability only —
+    stage *scheduling* decisions depend on queue depths and byte
+    budgets, never on these timings, and replay semantics depend on
+    neither (the determinism contract for catchup).
+    """
+
+    STAGES = ("download", "verify", "prevalidate", "apply")
+
+    def __init__(self) -> None:
+        self._active = {s: 0 for s in self.STAGES}
+        self._last: Optional[float] = None
+        self._t0: Optional[float] = None
+        self._t1: Optional[float] = None
+        self.busy_s = {s: 0.0 for s in self.STAGES}
+        self.items = {s: 0 for s in self.STAGES}
+        # device-prevalidate / apply busy while >=1 download in flight:
+        # the stage-overlap evidence the CATCHUP artifact must show
+        self.overlap_device_download_s = 0.0
+        self.overlap_apply_download_s = 0.0
+        self.bytes_buffered = 0
+        self.bytes_hwm = 0
+        self.byte_budget = 0
+        self.ready = 0          # verified checkpoints not yet applied
+        self.ready_hwm = 0
+        self.backpressure_stalls = 0
+
+    def _advance(self) -> None:
+        now = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = now
+        elif self._last is not None:
+            dt = now - self._last
+            for s in self.STAGES:
+                if self._active[s] > 0:
+                    self.busy_s[s] += dt
+            if self._active["download"] > 0:
+                if self._active["prevalidate"] > 0:
+                    self.overlap_device_download_s += dt
+                if self._active["apply"] > 0:
+                    self.overlap_apply_download_s += dt
+        self._last = now
+        self._t1 = now
+
+    def enter(self, stage: str, n: int = 1) -> None:
+        self._advance()
+        self._active[stage] += n
+        self.items[stage] += n
+
+    def exit(self, stage: str, n: int = 1) -> None:
+        self._advance()
+        self._active[stage] -= n
+
+    def add_bytes(self, n: int) -> None:
+        self.bytes_buffered += n
+        self.bytes_hwm = max(self.bytes_hwm, self.bytes_buffered)
+
+    def add_ready(self, n: int) -> None:
+        self.ready += n
+        self.ready_hwm = max(self.ready_hwm, self.ready)
+
+    def report(self) -> dict:
+        """The CATCHUP artifact's `stages` section
+        (scripts/check_artifacts.py pins the shape)."""
+        wall = (self._t1 - self._t0) if self._t0 is not None else 0.0
+        stages = {}
+        for s in self.STAGES:
+            stages[s] = {
+                "busy_s": round(self.busy_s[s], 3),
+                "occupancy": round(self.busy_s[s] / wall, 3) if wall
+                else 0.0,
+                "items": self.items[s],
+            }
+        return {
+            "wall_s": round(wall, 3),
+            "stages": stages,
+            "queues": {
+                "bytes_hwm": self.bytes_hwm,
+                "byte_budget": self.byte_budget,
+                "ready_hwm": self.ready_hwm,
+                "backpressure_stalls": self.backpressure_stalls,
+            },
+            "overlap": {
+                "device_busy_while_download_s":
+                    round(self.overlap_device_download_s, 3),
+                "apply_busy_while_download_s":
+                    round(self.overlap_apply_download_s, 3),
+            },
+        }
+
+
+class _SigBatch:
+    """One coalesced device dispatch covering >= 1 checkpoints' tuples
+    (ops.verifier.prevalidate_coalesce decides the fusion)."""
+
+    __slots__ = ("cps", "tuples", "fut", "grace_spent", "pv", "failed")
+
+    def __init__(self, cps: List[int], tuples: list, fut) -> None:
+        self.cps = cps
+        self.tuples = tuples
+        self.fut = fut
+        self.grace_spent = False
+        self.pv = None          # PrevalidatedVerifier once landed
+        self.failed = False     # dispatch/collect error → sync fallback
+
+
+# a checkpoint whose replay range carries zero signatures: nothing to
+# dispatch, apply goes straight to the sync verifier
+_NO_BATCH = object()
+
+
+class _CheckpointTask:
+    """Per-checkpoint pipeline state: one row of the streaming window."""
+
+    __slots__ = ("cp", "first_seq", "last_seq", "gets", "downloaded",
+                 "bytes", "bundle", "batch", "next_seq", "applied")
+
+    def __init__(self, cp: int, first_seq: int, last_seq: int) -> None:
+        self.cp = cp
+        self.first_seq = first_seq   # first ledger this task applies
+        self.last_seq = last_seq     # min(cp boundary, catchup target)
+        self.gets: Dict[str, GetRemoteFileWork] = {}
+        self.downloaded = False
+        self.bytes = 0               # on-disk size while buffered
+        self.bundle: Optional[dict] = None   # verify-stage output
+        self.batch = None            # _SigBatch / _NO_BATCH / None
+        self.next_seq = first_seq
+        self.applied = False
+
+
+def _verify_checkpoint_bundle(task: _CheckpointTask, paths: Dict[str, str],
+                              prev_tail: Tuple[Optional[bytes],
+                                               Optional[int]],
+                              network_id: bytes, perf) -> dict:
+    # thread-domain: catchup-worker (runs inside _AsyncResult._run)
+    """Verify-stage body, off the crank thread: parse the checkpoint's
+    header file and verify per-header hashes + back-links (seeded with
+    the previous checkpoint's chain tail), parse the transaction file
+    into TxSetFrames for the replay range and collect their signature
+    tuples, and (when archived results ride along) pin each ledger's
+    result set to the signed header chain. Pure function of its inputs
+    — everything shared flows in as arguments and out through the
+    returned bundle, published by _AsyncResult's completion event."""
+    from ..crypto.sha import sha256
+    targs = {"checkpoint": task.cp} if tracing.ENABLED else None
+    with perf.zone("catchup.pipeline.verify", targs=targs):
+        headers: Dict[int, LedgerHeaderHistoryEntry] = {}
+        prev_hash, prev_seq = prev_tail
+        bio = io.BytesIO(read_gz(paths["ledger"]))
+        while True:
+            rec = read_record(bio)
+            if rec is None:
+                break
+            hhe = LedgerHeaderHistoryEntry.from_bytes(rec)
+            if ledger_header_hash(hhe.header) != bytes(hhe.hash):
+                log.error("header %d hash mismatch", hhe.header.ledgerSeq)
+                raise _VerifyFailed(f"header {hhe.header.ledgerSeq}")
+            if prev_hash is not None and \
+                    hhe.header.ledgerSeq == prev_seq + 1 and \
+                    bytes(hhe.header.previousLedgerHash) != prev_hash:
+                log.error("chain broken at %d", hhe.header.ledgerSeq)
+                raise _VerifyFailed(f"chain at {hhe.header.ledgerSeq}")
+            headers[hhe.header.ledgerSeq] = hhe
+            prev_hash = bytes(hhe.hash)
+            prev_seq = hhe.header.ledgerSeq
+
+        txs: Dict[int, TransactionHistoryEntry] = {}
+        frames: Dict[int, object] = {}
+        sig_frames = []
+        bio = io.BytesIO(read_gz(paths["transactions"]))
+        while True:
+            rec = read_record(bio)
+            if rec is None:
+                break
+            the = TransactionHistoryEntry.from_bytes(rec)
+            txs[the.ledgerSeq] = the
+            if not task.first_seq <= the.ledgerSeq <= task.last_seq:
+                continue    # outside the replay range; never applied
+            # apply reuses these frame sets (and their cached content
+            # hashes) instead of re-parsing the txset per ledger
+            frame = build_txset_frame(the, headers.get(the.ledgerSeq),
+                                      network_id)
+            frames[the.ledgerSeq] = frame
+            sig_frames.extend(
+                t for t, _ in frame._frames_with_base_fee())
+        tuples = collect_signature_tuples(sig_frames, network_id)
+
+        results: Dict[int, TransactionHistoryResultEntry] = {}
+        if "results" in paths:
+            bio = io.BytesIO(read_gz(paths["results"]))
+            while True:
+                rec = read_record(bio)
+                if rec is None:
+                    break
+                tre = TransactionHistoryResultEntry.from_bytes(rec)
+                hhe = headers.get(tre.ledgerSeq)
+                if hhe is None:
+                    continue    # outside the verified range
+                got = sha256(tre.txResultSet.to_bytes())
+                want = bytes(hhe.header.txSetResultHash)
+                if got != want:
+                    log.error(
+                        "archived results for ledger %d do not match the "
+                        "signed header chain (%s != %s)", tre.ledgerSeq,
+                        got.hex()[:16], want.hex()[:16])
+                    raise _VerifyFailed(f"results {tre.ledgerSeq}")
+                results[tre.ledgerSeq] = tre
+        return {"headers": headers, "txs": txs, "frames": frames,
+                "tuples": tuples, "results": results,
+                "tail": (prev_hash, prev_seq)}
+
+
+class StreamingCatchupWork(BasicWork):
+    """Top-level streaming catchup (the CATCHUP_PIPELINE path chosen by
+    CatchupManager; CatchupWork remains the sequential reference).
+
+    A BasicWork, not a Work: the Work base only runs its own step once
+    ALL children finish, which is exactly the stage barrier this
+    pipeline exists to remove — so the per-file GetRemoteFileWorks are
+    driven manually (start_work(self.wake_up) + crank_work per crank),
+    the established ApplyCheckpointWork pattern."""
+
+    def __init__(self, app, archive: HistoryArchive,
+                 config: CatchupConfiguration, verify=None,
+                 batch_verifier=None, batch_grace: float = 0.05):
+        super().__init__(app, "catchup-pipeline", max_retries=0)
+        self.archive = archive
+        self.catchup_config = config
+        self.verify = verify
+        self.batch_verifier = batch_verifier
+        if batch_verifier is None:
+            # the Application owns one shared verifier when the device
+            # backend is configured
+            self.batch_verifier = getattr(app, "batch_verifier", None)
+        # seconds a batch's FIRST result probe may block (then the sync
+        # fallback covers stragglers); deterministic tests raise it
+        self.batch_grace = batch_grace
+        cfg = app.config
+        self.ahead = max(1, cfg.CATCHUP_PIPELINE_AHEAD_CHECKPOINTS)
+        self.prevalidate_ahead = max(
+            1, cfg.CATCHUP_PIPELINE_PREVALIDATE_AHEAD)
+        self.stats = PipelineStats()
+        self.stats.byte_budget = cfg.CATCHUP_PIPELINE_BYTE_BUDGET
+        self.tasks: List[_CheckpointTask] = []
+        self.batches: List[_SigBatch] = []
+        self._phase = 0
+        self._has_work: Optional[GetHistoryArchiveStateWork] = None
+        self._target = config.to_ledger
+        self._tmp = tempfile.mkdtemp(prefix="catchup-pipe-")
+        self._apply_idx = 0      # first unapplied task
+        self._download_idx = 0   # next task to admit into download
+        self._verify_idx = 0     # next task to verify (in order: tail)
+        self._verify_fut: Optional[_AsyncResult] = None
+        self._tail: Tuple[Optional[bytes], Optional[int]] = (None, None)
+        self._bp_blocked = False     # inside a byte-budget stall?
+        self._error: Optional[str] = None
+
+    # ------------------------------------------------------------ plumbing --
+    def _instant(self, name: str, args: dict) -> None:
+        rec = self.app.flight_recorder
+        if rec.active:
+            rec.instant(name, args)
+
+    def _paths(self, task: _CheckpointTask) -> Dict[str, str]:
+        p = {"ledger": os.path.join(
+                self._tmp, f"ledger-{task.cp:08x}.xdr.gz"),
+             "transactions": os.path.join(
+                self._tmp, f"transactions-{task.cp:08x}.xdr.gz")}
+        if self.catchup_config.verify_results:
+            p["results"] = os.path.join(
+                self._tmp, f"results-{task.cp:08x}.xdr.gz")
+        return p
+
+    def on_abort(self) -> None:
+        for t in self.tasks:
+            for g in t.gets.values():
+                g.shutdown()
+        if self._has_work is not None:
+            self._has_work.shutdown()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    # ------------------------------------------------------------- phases --
+    def on_run(self) -> State:
+        if self._phase == 0:
+            return self._run_has()
+        if self._phase == 1:
+            st = self._plan()
+            if st is not None:
+                return st
+        return self._run_stream()
+
+    def _run_has(self) -> State:
+        if self._has_work is None:
+            self._has_work = GetHistoryArchiveStateWork(self.app,
+                                                        self.archive)
+            self._has_work.start_work(self.wake_up)
+        if not self._has_work.is_done():
+            self._has_work.crank_work()
+        if not self._has_work.is_done():
+            # re-check AFTER cranking: finishing during our crank must
+            # not park us WAITING with no one left to wake us
+            return State.WORK_RUNNING if \
+                self._has_work.get_state() == State.WORK_RUNNING \
+                else State.WORK_WAITING
+        if self._has_work.get_state() != State.WORK_SUCCESS:
+            return State.WORK_FAILURE
+        self._phase = 1
+        return State.WORK_RUNNING
+
+    def _plan(self) -> Optional[State]:
+        """Compute the checkpoint window (same range math as the
+        sequential CatchupWork) and lay out one task per checkpoint."""
+        has = self._has_work.has
+        target = self.catchup_config.to_ledger
+        if target == 0 or target > has.current_ledger:
+            target = has.current_ledger
+        lcl = self.app.ledger_manager.get_last_closed_ledger_num()
+        if target <= lcl:
+            shutil.rmtree(self._tmp, ignore_errors=True)
+            return State.WORK_SUCCESS
+        self._target = target
+        first_cp = checkpoint_containing(lcl + 1)
+        last_cp = min(checkpoint_containing(target),
+                      checkpoint_containing(has.current_ledger))
+        for cp in range(first_cp, last_cp + 1, CHECKPOINT_FREQUENCY):
+            first_seq = max(lcl + 1, first_ledger_in_checkpoint(cp))
+            self.tasks.append(_CheckpointTask(
+                cp, first_seq, min(cp, target)))
+        log.info("streaming catchup %d..%d: %d checkpoints, window %d, "
+                 "byte budget %d", lcl + 1, target, len(self.tasks),
+                 self.ahead, self.stats.byte_budget)
+        self._phase = 2
+        return None
+
+    # ------------------------------------------------------------- stream --
+    def _run_stream(self) -> State:
+        progress = self._pump_downloads()
+        if self._error is None:
+            progress |= self._pump_verify()
+        if self._error is None:
+            self._pump_batches()
+            progress |= self._pump_prevalidate()
+        st = None
+        if self._error is None:
+            st = self._pump_apply()
+        if self._error is not None:
+            log.error("streaming catchup failed: %s", self._error)
+            self.on_abort()
+            return State.WORK_FAILURE
+        if st is not None:
+            if st == State.WORK_SUCCESS:
+                shutil.rmtree(self._tmp, ignore_errors=True)
+            return st
+        if progress:
+            return State.WORK_RUNNING
+        if self._verify_fut is not None:
+            # blocked on the parse/verify worker: bounded event wait so
+            # the crank loop neither spins hot nor oversleeps a
+            # download completion
+            self._verify_fut.wait(_FUTURE_POLL_S)
+            return State.WORK_RUNNING
+        # blocked only on archive downloads / retry timers: their
+        # completion callbacks wake us
+        return State.WORK_WAITING
+
+    # ----------------------------------------------------------- download --
+    def _pump_downloads(self) -> bool:
+        progress = self._admit_downloads()
+        for t in self.tasks[self._apply_idx:self._download_idx]:
+            if t.downloaded or not t.gets:
+                continue
+            all_done = True
+            for g in t.gets.values():
+                if not g.is_done():
+                    g.crank_work()
+                if not g.is_done():
+                    all_done = False
+                elif g.get_state() != State.WORK_SUCCESS:
+                    self._error = (f"checkpoint {t.cp:#x}: download of "
+                                   f"{g.remote} failed")
+                    return progress
+            if all_done:
+                t.downloaded = True
+                t.bytes = sum(os.path.getsize(g.local)
+                              for g in t.gets.values())
+                self.stats.add_bytes(t.bytes)
+                self.stats.exit("download")
+                progress = True
+                if tracing.ENABLED:
+                    self._instant("catchup.pipeline.download", {
+                        "event": "done", "checkpoint": t.cp,
+                        "bytes": t.bytes})
+                    self._emit_queue_instant()
+        return progress
+
+    def _admit_downloads(self) -> bool:
+        progress = False
+        while self._download_idx < len(self.tasks):
+            in_window = self._download_idx - self._apply_idx
+            # the apply head's own checkpoint is always admitted —
+            # budgets bound the run-AHEAD, never wedge the head
+            if in_window > 0:
+                if in_window >= self.ahead:
+                    break
+                if self.stats.bytes_buffered >= self.stats.byte_budget:
+                    if not self._bp_blocked:
+                        # count stall EPISODES, not stalled cranks
+                        self._bp_blocked = True
+                        self.stats.backpressure_stalls += 1
+                    break
+            self._bp_blocked = False
+            t = self.tasks[self._download_idx]
+            paths = self._paths(t)
+            for category, local in paths.items():
+                g = GetRemoteFileWork(self.app, self.archive,
+                                      file_path(category, t.cp), local)
+                g.start_work(self.wake_up)
+                t.gets[category] = g
+            self.stats.enter("download")
+            if tracing.ENABLED:
+                self._instant("catchup.pipeline.download", {
+                    "event": "start", "checkpoint": t.cp,
+                    "files": len(paths)})
+            self._download_idx += 1
+            progress = True
+        return progress
+
+    # ------------------------------------------------------------- verify --
+    def _pump_verify(self) -> bool:
+        progress = False
+        if self._verify_fut is not None:
+            t = self.tasks[self._verify_idx]
+            try:
+                bundle = self._verify_fut.result(timeout=0)
+            except _VerifyFailed as e:
+                self._error = f"checkpoint {t.cp:#x} verification: {e}"
+                self._verify_fut = None
+                return True
+            except Exception as e:      # noqa: BLE001 — parse errors
+                log.error("checkpoint %d verify/parse raised: %s",
+                          t.cp, e)
+                self._error = f"checkpoint {t.cp:#x} parse: {e!r}"
+                self._verify_fut = None
+                return True
+            if bundle is _PENDING:
+                return False
+            self._verify_fut = None
+            t.bundle = bundle
+            self._tail = bundle["tail"]
+            self.stats.exit("verify")
+            self.stats.add_ready(1)
+            self._verify_idx += 1
+            progress = True
+            if tracing.ENABLED:
+                self._emit_queue_instant()
+        if self._verify_fut is None and self._verify_idx < len(self.tasks):
+            t = self.tasks[self._verify_idx]
+            if t.downloaded:
+                # one in-flight verify, strictly in checkpoint order:
+                # the chain tail must thread from task N into N+1's
+                # back-link check (the ONLY cross-checkpoint ordering
+                # the verify stage needs)
+                paths = self._paths(t)
+                tail = self._tail
+                network_id = self.app.config.network_id()
+                perf = self.app.perf
+
+                def job(t=t, paths=paths, tail=tail,
+                        network_id=network_id, perf=perf):
+                    # thread-domain: catchup-worker (bound by
+                    # _AsyncResult._run; all inputs flow in by value,
+                    # the bundle publishes through the done event)
+                    return _verify_checkpoint_bundle(
+                        t, paths, tail, network_id, perf)
+
+                self._verify_fut = _AsyncResult(job)
+                self.stats.enter("verify")
+                progress = True
+        return progress
+
+    # -------------------------------------------------------- prevalidate --
+    def _pump_prevalidate(self) -> bool:
+        """Fuse the verified-but-undispatched checkpoints inside the
+        prevalidate window into one coalesced device batch
+        (ops.verifier.prevalidate_coalesce picks the padding-optimal
+        fusion), dispatched async through the shared verifier."""
+        if self.batch_verifier is None:
+            return False
+        hi = min(len(self.tasks), self._apply_idx + self.prevalidate_ahead)
+        pending = [t for t in self.tasks[self._apply_idx:hi]
+                   if t.bundle is not None and t.batch is None]
+        if not pending:
+            return False
+        from ..ops.verifier import prevalidate_coalesce
+        counts = [len(t.bundle["tuples"]) for t in pending]
+        k = prevalidate_coalesce(counts, self.prevalidate_ahead)
+        chosen = pending[:k]
+        tuples: list = []
+        for t in chosen:
+            tuples.extend(t.bundle["tuples"])
+        if not tuples:
+            for t in chosen:
+                t.batch = _NO_BATCH
+            return True
+        targs = {"signatures": len(tuples),
+                 "checkpoints": len(chosen)} if tracing.ENABLED else None
+        try:
+            with self.app.perf.zone("catchup.pipeline.prevalidate",
+                                    targs=targs):
+                if hasattr(self.batch_verifier, "verify_tuples_async"):
+                    # collect device results on a daemon side thread:
+                    # apply never stalls on the batch — ledgers applied
+                    # before it lands verify through the sync fallback,
+                    # later ones hit the table
+                    handle = self.batch_verifier.verify_tuples_async(
+                        tuples)
+                    fut = _AsyncResult(handle)
+                else:
+                    # synchronous verifier: cost just paid inline
+                    fut = _ReadyResult(
+                        self.batch_verifier.verify_tuples(tuples))
+        except Exception:
+            # device verifier down at dispatch: the sync fallback
+            # covers every signature — replay semantics are identical
+            log.warning("checkpoints %s: batch verifier failed at "
+                        "dispatch; native fallback",
+                        [t.cp for t in chosen], exc_info=True)
+            for t in chosen:
+                t.batch = _NO_BATCH
+            return True
+        batch = _SigBatch([t.cp for t in chosen], tuples, fut)
+        for t in chosen:
+            t.batch = batch
+        self.batches.append(batch)
+        self.stats.enter("prevalidate")
+        if tracing.ENABLED:
+            self._instant("catchup.pipeline.device", {
+                "event": "dispatch", "batch": len(self.batches) - 1,
+                "signatures": len(tuples),
+                "checkpoints": batch.cps})
+        log.info("checkpoints %s: dispatched coalesced batch of %d "
+                 "signatures", batch.cps, len(tuples))
+        return True
+
+    def _pump_batches(self) -> None:
+        """Non-blocking land check for every in-flight batch (keeps the
+        device-busy accounting honest even while apply is parked)."""
+        for i, b in enumerate(self.batches):
+            if b.pv is None and not b.failed and b.fut.done():
+                self._resolve_batch(b, i)
+
+    def _resolve_batch(self, batch: _SigBatch, idx: int) -> None:
+        """Adopt a dispatched batch's results once available. The first
+        probe grants a short grace (`batch_grace` seconds) — worth a
+        bounded stall to catch a nearly-landed batch — after which the
+        probe is non-blocking and the sync fallback covers the
+        in-flight gap, so apply never waits on the device."""
+        if batch.pv is not None or batch.failed:
+            return
+        from ..tx.signature_checker import (PrevalidatedVerifier,
+                                            default_verify)
+        try:
+            if batch.grace_spent or self.batch_grace <= 0:
+                if not batch.fut.done():
+                    return
+                results = batch.fut.result()
+            else:
+                batch.grace_spent = True
+                results = batch.fut.result(timeout=self.batch_grace)
+                if results is _PENDING:
+                    return
+        except Exception:
+            # device verifier died after dispatch: drop the batch and
+            # let the sync fallback verify everything
+            log.warning("checkpoints %s: batch verifier failed at "
+                        "collection; native fallback", batch.cps,
+                        exc_info=True)
+            batch.failed = True
+            self.stats.exit("prevalidate")
+            return
+        pv = PrevalidatedVerifier(fallback=self.verify or default_verify)
+        pv.add_results(batch.tuples, results)
+        batch.pv = pv
+        self.stats.exit("prevalidate")
+        if tracing.ENABLED:
+            self._instant("catchup.pipeline.device", {
+                "event": "land", "batch": idx,
+                "signatures": len(batch.tuples)})
+        log.info("checkpoints %s: batch-verified %d signatures",
+                 batch.cps, len(batch.tuples))
+
+    # -------------------------------------------------------------- apply --
+    def _pump_apply(self) -> Optional[State]:
+        """Apply one ledger per crank, strictly in ledger order (keeps
+        the clock responsive, matching the sequential reference). None
+        = apply head not ready, a State = terminal/progress verdict."""
+        if self._apply_idx >= len(self.tasks):
+            return State.WORK_SUCCESS
+        t = self.tasks[self._apply_idx]
+        if t.bundle is None:
+            return None
+        batch = t.batch
+        if batch is not None and batch is not _NO_BATCH:
+            self._resolve_batch(batch, self.batches.index(batch))
+            verify = batch.pv or self.verify
+        else:
+            verify = self.verify
+        if t.next_seq <= t.last_seq:
+            seq = t.next_seq
+            hhe = t.bundle["headers"].get(seq)
+            if hhe is None:
+                self._error = f"no verified header for ledger {seq}"
+                return None
+            frame = t.bundle["frames"].pop(seq, None)
+            if frame is None:
+                frame = build_txset_frame(
+                    t.bundle["txs"].get(seq), hhe,
+                    self.app.config.network_id())
+            expected = t.bundle["results"].get(seq)
+            targs = {"seq": seq} if tracing.ENABLED else None
+            self.stats.enter("apply")
+            try:
+                with self.app.perf.zone("catchup.pipeline.apply",
+                                        targs=targs):
+                    ok = replay_one_ledger(self.app, seq, hhe, frame,
+                                           verify=verify,
+                                           expected_results=expected)
+            finally:
+                self.stats.exit("apply")
+            if not ok:
+                self._error = f"replay failed at ledger {seq}"
+                return None
+            t.next_seq = seq + 1
+        if t.next_seq > t.last_seq:
+            self._finish_task(t)
+        return State.WORK_SUCCESS if self._apply_idx >= len(self.tasks) \
+            else State.WORK_RUNNING
+
+    def _finish_task(self, t: _CheckpointTask) -> None:
+        t.applied = True
+        t.bundle = None     # free the window's parsed state
+        for g in t.gets.values():
+            if os.path.exists(g.local):
+                os.unlink(g.local)
+        self.stats.add_bytes(-t.bytes)
+        self.stats.add_ready(-1)
+        self._apply_idx += 1
+        if tracing.ENABLED:
+            self._instant("catchup.pipeline.checkpoint", {
+                "checkpoint": t.cp, "last_seq": t.last_seq})
+            self._emit_queue_instant()
+
+    def _emit_queue_instant(self) -> None:
+        self._instant("catchup.pipeline.queue", {
+            "bytes": self.stats.bytes_buffered,
+            "ready": self.stats.ready,
+            "in_flight": self._download_idx - self._apply_idx})

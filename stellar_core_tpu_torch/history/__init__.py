@@ -1,14 +1,10 @@
-"""History archives + checkpoint publish (reference: src/history).
-
-Counterpart of stellar_core_tpu/history/__init__.py; the port has the
-archive layer (`archive.py`) that every close persists its local HAS
-through. `HistoryManager` (`manager.py`) comes with catchup.
-"""
+"""History archives + checkpoint publish (reference: src/history)."""
 
 from .archive import (CHECKPOINT_FREQUENCY, HistoryArchive,
                       HistoryArchiveState, checkpoint_containing,
                       is_checkpoint_ledger, make_tmpdir_archive)
+from .manager import HistoryManager
 
-__all__ = ["HistoryArchive", "HistoryArchiveState",
+__all__ = ["HistoryManager", "HistoryArchive", "HistoryArchiveState",
            "CHECKPOINT_FREQUENCY", "checkpoint_containing",
            "is_checkpoint_ledger", "make_tmpdir_archive"]

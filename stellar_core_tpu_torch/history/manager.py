@@ -1,0 +1,326 @@
+"""History manager: checkpoint production + publish.
+
+Reference: src/history/HistoryManagerImpl.{h,cpp} + StateSnapshot — at
+every 64th ledger close the checkpoint is queued inside the same commit
+(crash-safe, LedgerManagerImpl.cpp:914-943); publishing writes the
+checkpoint's ledger-header, transactions, results files and the HAS,
+plus any bucket files the HAS references, to every writable archive via
+its templated commands run under the ProcessManager.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import threading
+from typing import Callable, Dict, List, Optional, Set
+
+from ..util import tracing
+from ..util.logging import get_logger
+from ..xdr.ledger import (LedgerHeader, LedgerHeaderHistoryEntry,
+                          TransactionHistoryEntry,
+                          TransactionHistoryResultEntry, TransactionSet,
+                          _TxHistoryEntryExt)
+from ..xdr.results import TransactionResultPair, TransactionResultSet
+from ..xdr.transaction import TransactionEnvelope
+from ..xdr.types import ExtensionPoint
+from ..util.xdr_stream import read_record, write_record
+from .archive import (CHECKPOINT_FREQUENCY, HAS_PATH, HistoryArchive,
+                      HistoryArchiveState, bucket_path, checkpoint_containing,
+                      file_path, first_ledger_in_checkpoint,
+                      is_checkpoint_ledger, note_archive_failure, read_gz,
+                      write_gz)
+
+log = get_logger("History")
+
+
+class QueuedCheckpoint:
+    """One queued-but-unpublished checkpoint: the seq AND the
+    HistoryArchiveState captured at queue time. A delayed or retried
+    publish must record checkpoint N's own bucket levels — rebuilding
+    the HAS from the live bucket list at publish time would capture a
+    LATER ledger's arrangement, disagreeing with checkpoint N's header
+    bucketListHash and failing catchup's hash verification (reference:
+    the reference snapshots the HAS into the publish queue at queue
+    time)."""
+
+    __slots__ = ("seq", "has")
+
+    def __init__(self, seq: int, has: HistoryArchiveState):
+        self.seq = seq
+        self.has = has
+
+
+class HistoryManager:
+    def __init__(self, app):
+        self.app = app
+        self.archives: List[HistoryArchive] = [
+            HistoryArchive(name, cmds.get("get", ""), cmds.get("put", ""),
+                           cmds.get("mkdir", ""))
+            for name, cmds in app.config.HISTORY.items()
+        ]
+        self._publish_queue: List[QueuedCheckpoint] = []
+        # queue is appended on the closing thread and drained by either
+        # the completion worker or a publish timer; serialize drains
+        self._publish_lock = threading.Lock()
+        self._publish_timers: List[object] = []
+        self.published_count = 0
+        # durable queue (reference: the publishqueue table) — a crash
+        # between queue and publish must not lose the checkpoint, and
+        # the re-queued publish must record the queue-time HAS
+        self._load_publish_queue()
+
+    def _load_publish_queue(self) -> None:
+        db = getattr(self.app, "database", None)
+        if db is None:
+            return
+        for seq, has_json in db.query_all(
+                "SELECT ledgerseq, has FROM publishqueue "
+                "ORDER BY ledgerseq"):
+            with self._publish_lock:
+                self._publish_queue.append(QueuedCheckpoint(
+                    seq, HistoryArchiveState.from_json(has_json)))
+        if self._publish_queue:
+            log.info("reloaded %d queued checkpoint(s) from the "
+                     "publish queue", len(self._publish_queue))
+
+    # ----------------------------------------------------------- queueing --
+    def snapshot_checkpoint(self, ledger_seq: int) \
+            -> Optional[QueuedCheckpoint]:
+        """Called during ledger close, INSIDE the close transaction
+        (reference: maybeQueueHistoryCheckpoint, LedgerManagerImpl
+        .cpp:933). Snapshots the HistoryArchiveState NOW — by seal time
+        every level is resolved, so this is a few hash-hex copies, not
+        a merge wait — and writes the durable publishqueue row so it
+        commits (or rolls back) atomically with the header: a crash can
+        never leave a durable checkpoint ledger without its queue row.
+        The in-memory queue is only appended by adopt_checkpoint, after
+        COMMIT."""
+        if not is_checkpoint_ledger(ledger_seq):
+            return None
+        if not self.has_any_writable_archive():
+            return None
+        bm = self.app.bucket_manager
+        has = HistoryArchiveState.from_bucket_list(
+            ledger_seq, bm.bucket_list, self.app.config.NETWORK_PASSPHRASE,
+            hot_archive=bm.hot_archive)
+        db = getattr(self.app, "database", None)
+        if db is not None:
+            db.execute(
+                "INSERT OR REPLACE INTO publishqueue (ledgerseq, has) "
+                "VALUES (?,?)", (ledger_seq, has.to_json()))
+        return QueuedCheckpoint(ledger_seq, has)
+
+    def adopt_checkpoint(self, item: QueuedCheckpoint) -> None:
+        """Second half of queueing: in-memory adoption once the close
+        transaction has committed (the in-memory queue must not outrun
+        a rollback). Appends happen on the closing thread while the
+        completion worker may be draining — same lock as the drains."""
+        with self._publish_lock:
+            self._publish_queue.append(item)
+
+    def has_any_writable_archive(self) -> bool:
+        return any(a.has_put() for a in self.archives)
+
+    def publish_queue_length(self) -> int:
+        return len(self._publish_queue)
+
+    def publish_delay(self) -> float:
+        return self.app.config.PUBLISH_TO_ARCHIVE_DELAY
+
+    def queued_bucket_hashes(self) -> Set[bytes]:
+        """Every bucket hash (live + hot) a queued-but-unpublished
+        checkpoint still references — bucket GC must not unlink these
+        (reference: forgetUnreferencedBuckets' publish-queue refs)."""
+        out: Set[bytes] = set()
+        for item in list(self._publish_queue):
+            for hx in item.has.bucket_hashes():
+                out.add(bytes.fromhex(hx))
+        return out
+
+    # ---------------------------------------------------------- publishing --
+    def publish_after_delay(self) -> None:
+        """Publish now, or after PUBLISH_TO_ARCHIVE_DELAY seconds
+        (reference: Config.h PUBLISH_TO_ARCHIVE_DELAY — operators
+        stagger archive uploads). Each timer publishes only the
+        checkpoints queued when it was armed, so a later checkpoint
+        never rides an earlier checkpoint's (shorter) wait."""
+        delay = self.app.config.PUBLISH_TO_ARCHIVE_DELAY
+        if delay <= 0:
+            self.publish_queued_history()
+            return
+        from ..util.timer import VirtualTimer
+        queued_now = len(self._publish_queue)
+        t = VirtualTimer(self.app.clock)
+        t.expires_from_now(delay)
+
+        def fire():
+            self._publish_timers.remove(t)   # fired: drop the ref
+            self.publish_queued_history(limit=queued_now)
+
+        t.async_wait(fire)
+        self._publish_timers.append(t)   # keep pending timers alive
+
+    def publish_queued_history(self,
+                               on_done: Optional[Callable[[bool], None]]
+                               = None,
+                               limit: Optional[int] = None) -> int:
+        """Publish every queued checkpoint — or the first `limit`
+        (reference: publishQueuedHistory → PublishWork)."""
+        n = 0
+        with self._publish_lock:
+            while self._publish_queue and (limit is None or n < limit):
+                item = self._publish_queue[0]
+                targs = {"checkpoint": item.seq} if tracing.ENABLED \
+                    else None
+                with self.app.perf.zone("history.publish", targs=targs):
+                    ok = self._publish_checkpoint(item)
+                if not ok:
+                    log.error("publish of checkpoint %d failed", item.seq)
+                    if on_done is not None:
+                        on_done(False)
+                    return n
+                self._publish_queue.pop(0)
+                db = getattr(self.app, "database", None)
+                if db is not None:
+                    db.execute(
+                        "DELETE FROM publishqueue WHERE ledgerseq=?",
+                        (item.seq,))
+                self.published_count += 1
+                n += 1
+        if on_done is not None and n:
+            on_done(True)
+        return n
+
+    def _publish_checkpoint(self, item: QueuedCheckpoint) -> bool:
+        snapshot = self._write_snapshot_files(item.seq, item.has)
+        ok = True
+        for archive in self.archives:
+            if not archive.has_put():
+                continue
+            for local, remote in snapshot:
+                cmd = archive.put_file_cmd(local, remote)
+                if os.system(cmd) != 0:  # publish is off the hot path
+                    log.error("put failed: %s", cmd)
+                    note_archive_failure(self.app)
+                    ok = False
+        return ok
+
+    def _write_snapshot_files(self, checkpoint: int,
+                              has: HistoryArchiveState) -> List[tuple]:
+        """Write the checkpoint's files to a tmp dir; returns
+        [(local, remote_path)] (reference: StateSnapshot::writeFiles)."""
+        db = self.app.database
+        tmp = tempfile.mkdtemp(prefix="publish-")
+        first = first_ledger_in_checkpoint(checkpoint)
+        out = []
+
+        # ledger headers
+        import io
+        hdr_buf = io.BytesIO()
+        txs_buf = io.BytesIO()
+        res_buf = io.BytesIO()
+        for seq in range(first, checkpoint + 1):
+            row = db.query_one(
+                "SELECT ledgerhash, data FROM ledgerheaders "
+                "WHERE ledgerseq=?", (seq,))
+            if row is None:
+                raise RuntimeError(f"missing header {seq} for publish")
+            header = LedgerHeader.from_bytes(row[1])
+            hhe = LedgerHeaderHistoryEntry(
+                hash=bytes(row[0]), header=header, ext=ExtensionPoint(0))
+            write_record(hdr_buf, hhe.to_bytes())
+
+            # the exact wire tx set preserves the hashed form; every
+            # ledger gets an entry so replay never reconstructs hashes
+            set_row = db.query_one(
+                "SELECT isgeneralized, txset FROM txsethistory "
+                "WHERE ledgerseq=?", (seq,))
+            if set_row is not None:
+                if set_row[0]:
+                    from ..xdr.ledger import GeneralizedTransactionSet
+                    gts = GeneralizedTransactionSet.from_bytes(
+                        bytes(set_row[1]))
+                    the = TransactionHistoryEntry(
+                        ledgerSeq=seq,
+                        txSet=TransactionSet(
+                            previousLedgerHash=header.previousLedgerHash,
+                            txs=[]),
+                        ext=_TxHistoryEntryExt(1, gts))
+                else:
+                    the = TransactionHistoryEntry(
+                        ledgerSeq=seq,
+                        txSet=TransactionSet.from_bytes(bytes(set_row[1])),
+                        ext=_TxHistoryEntryExt(0))
+                write_record(txs_buf, the.to_bytes())
+            tx_rows = db.query_all(
+                "SELECT txbody, txresult FROM txhistory WHERE ledgerseq=? "
+                "ORDER BY txindex", (seq,))
+            if tx_rows:
+                results = [TransactionResultPair.from_bytes(bytes(r[1]))
+                           for r in tx_rows]
+                tre = TransactionHistoryResultEntry(
+                    ledgerSeq=seq,
+                    txResultSet=TransactionResultSet(results=results),
+                    ext=ExtensionPoint(0))
+                write_record(res_buf, tre.to_bytes())
+
+        # SCP history (reference: HerderPersistence::copySCPHistoryToStream)
+        scp_buf = io.BytesIO()
+        from ..xdr.scp import (LedgerSCPMessages, SCPEnvelope,
+                               SCPHistoryEntry, SCPHistoryEntryV0,
+                               SCPQuorumSet)
+        for seq in range(first, checkpoint + 1):
+            env_rows = db.query_all(
+                "SELECT envelope FROM scphistory WHERE ledgerseq=?",
+                (seq,))
+            if not env_rows:
+                continue
+            qset_rows = db.query_all(
+                "SELECT qset FROM scpquorums WHERE lastledgerseq>=?",
+                (seq,))
+            entry = SCPHistoryEntry(0, SCPHistoryEntryV0(
+                quorumSets=[SCPQuorumSet.from_bytes(bytes(r[0]))
+                            for r in qset_rows],
+                ledgerMessages=LedgerSCPMessages(
+                    ledgerSeq=seq,
+                    messages=[SCPEnvelope.from_bytes(bytes(r[0]))
+                              for r in env_rows])))
+            write_record(scp_buf, entry.to_bytes())
+
+        for category, buf in (("ledger", hdr_buf),
+                              ("transactions", txs_buf),
+                              ("results", res_buf),
+                              ("scp", scp_buf)):
+            remote = file_path(category, checkpoint)
+            local = os.path.join(tmp, f"{category}-{checkpoint:08x}.xdr.gz")
+            write_gz(local, buf.getvalue())
+            out.append((local, remote))
+
+        # bucket files + HAS — the snapshot captured at QUEUE time, so
+        # a delayed/retried publish records checkpoint N's own levels
+        # (live list, plus the hot archive once the state-archival
+        # protocol has evicted anything — its buckets are
+        # content-addressed into the same bucket/ namespace)
+        bm = self.app.bucket_manager
+        for hex_hash in has.live_bucket_hashes():
+            bucket = bm.get_bucket_by_hash(bytes.fromhex(hex_hash))
+            if bucket is None:
+                raise RuntimeError(f"missing bucket {hex_hash}")
+            local = os.path.join(tmp, f"bucket-{hex_hash}.xdr.gz")
+            write_gz(local, bucket.raw_bytes())
+            out.append((local, bucket_path(hex_hash)))
+        for hex_hash in has.hot_bucket_hashes():
+            raw = bm.get_hot_bucket_raw(bytes.fromhex(hex_hash))
+            if raw is None:
+                raise RuntimeError(f"missing hot-archive bucket {hex_hash}")
+            local = os.path.join(tmp, f"bucket-{hex_hash}.xdr.gz")
+            write_gz(local, raw)
+            out.append((local, bucket_path(hex_hash)))
+
+        has_local = os.path.join(tmp, "stellar-history.json")
+        with open(has_local, "w") as f:
+            f.write(has.to_json())
+        out.append((has_local, HAS_PATH))
+        out.append((has_local, file_path("history", checkpoint, ".json")))
+        return out

@@ -43,11 +43,13 @@ mesh on one card (the CPU tests, and chip_smoke.py's stand-in), whose
 shards share that card's stream and run one after another.
 
 The reference's `make_sharded_verify`, its per-active-set LRU of
-compiled programs (`_program`, `_compile`) and its bucket sizing
-(`_min_bucket_for`, `_bucket_size`) have no counterpart: XLA needs
-static shapes and one compiled program per mesh, while a CUDA launch
-takes any n on any card, so no row is padded and nothing is compiled
-per active set.
+compiled programs (`_program`, `_compile`) and `_min_bucket_for` have
+no counterpart: XLA needs static shapes and one compiled program per
+mesh, while a CUDA launch takes any n on any card, so no row is padded
+and nothing is compiled per active set. `_bucket_size` and
+`prevalidate_coalesce` are the reference's all the same: catchup's
+pipeline fuses checkpoints by the reference's padding arithmetic, so
+that both packages dispatch the same checkpoints together.
 
 `host_prepare` is the reference's v1 host prep (k, -A and the strict
 flags on the host, for ed25519_kernel.verify_kernel).
@@ -88,6 +90,49 @@ def _device_min_batch_default(explicit):
     if env is not None:
         return int(env)
     return DEVICE_MIN_BATCH if explicit is None else int(explicit)
+
+
+MIN_BUCKET = 8
+
+
+def _bucket_size(n: int, minimum: int = MIN_BUCKET) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def prevalidate_coalesce(counts: Sequence[int], max_fuse: int,
+                         minimum: int = MIN_BUCKET) -> int:
+    """How many pending checkpoints' signature batches the catchup
+    pipeline should fuse into ONE device dispatch (catchup/pipeline.py's
+    prevalidation stage sizing its batch from the ahead-window).
+
+    `counts[i]` is checkpoint i's signature-tuple count, in replay
+    order. The reference's device batches pad to a power-of-two bucket
+    (`_bucket_size`); this verifier pads nothing, but the rule keeps
+    the reference's arithmetic unchanged, so both packages fuse the same
+    checkpoints into the same dispatches. Fusing is accepted greedily
+    while it wastes no padding slots versus separate dispatches: e.g.
+    300+300 fused costs bucket(600)=1024 = 512+512 separate (equal
+    slots, one launch saved - fuse), while 512+10 fused costs
+    bucket(522)=1024 > 512+16 (reject). Zero-count checkpoints fuse for
+    free. Deterministic and pure."""
+    if not counts:
+        return 0
+    k = 1
+    total = counts[0]
+    while k < min(len(counts), max_fuse):
+        nxt = counts[k]
+        if nxt:
+            fused = _bucket_size(total + nxt, minimum)
+            separate = (_bucket_size(total, minimum) if total else 0) \
+                + _bucket_size(nxt, minimum)
+            if fused > separate:
+                break
+            total += nxt
+        k += 1
+    return k
 
 
 def resolve_device(device=None) -> torch.device:

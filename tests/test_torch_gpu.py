@@ -331,3 +331,23 @@ def test_close_on_card(card):
     except SystemExit as e:
         pytest.fail(str(e))
     assert launches == {"msg32": 2, "k": 0, "ladder": 2}
+
+
+def test_catchup_on_card(card):
+    """chip_smoke.py phase 14 at a small size, with its checks: a
+    port-published archive of two checkpoints (200 accounts, 59 closes
+    of 5 and 65 of 100 payments) replayed by StreamingCatchupWork (run
+    A1) and the sequential CatchupWork to ledger 80 (run A2), each
+    checkpoint's signatures in one dispatch through
+    BackendSupervisor(CudaBatchVerifier()) on the card: launches equal
+    to the dispatches, hits equal to the publisher's signature checks,
+    0 misses, 0 fallback calls, the native verdicts, the supervisor
+    CLOSED."""
+    import chip_smoke as cs
+    try:
+        launches, _ = cs.catchup_phase(str(card), accounts=200, txs=100,
+                                       ledgers=65, quiet=59, quiet_txs=5)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches["k"] == 0
+    assert 3 <= launches["msg32"] == launches["ladder"] <= 4

@@ -388,7 +388,10 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "bucket.bucket_list", "bucket.hot_archive", "bucket.manager",
              "history", "history.archive", "herder.upgrades",
              "ledger.completion", "ledger.parallel_apply",
-             "ledger.ledger_manager"):
+             "ledger.ledger_manager", "process", "process.process_manager",
+             "work", "work.basic_work", "work.work", "history.manager",
+             "catchup", "catchup.catchup_work", "catchup.apply_buckets",
+             "catchup.pipeline", "catchup.manager"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
@@ -417,6 +420,16 @@ assert [led["tag"] for led in run["ledgers"]] == \
     ["upgrade", "create", "measured", "control"], run["ledgers"]
 assert chip_smoke.close_reload(work, wl["passphrase"])[:2] == \
     (True, run["lcl"])
+shutil.rmtree(work)
+work = tempfile.mkdtemp()
+wl = chip_smoke.catchup_workload(accounts=8, txs=4, ledgers=0, quiet=61,
+                                 quiet_txs=2)
+pub = chip_smoke.catchup_publish(wl, work)
+assert pub["published"] == 1 and pub["has"].current_ledger == 63
+run = chip_smoke.catchup_run(pub["root"], wl["passphrase"], work + "/node",
+                             True, 0,
+                             lambda app: chip_smoke.NativeBatchVerifier())
+assert chip_smoke.catchup_problems(run, wl, pub, 63) == []
 shutil.rmtree(work)
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
