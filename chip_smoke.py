@@ -177,7 +177,7 @@ Phases (any failure exits non-zero; nothing is caught):
    catchup-complete replay), each checkpoint's signatures verified on
    the card in one dispatch: a publisher node (phase 13's close_node
    with the port's HistoryManager, on a stand-in for the Application,
-   CatchupApp) closes ledger 2 (the maxTxSetSize vote), 3-4 (2000
+   NodeApp) closes ledger 2 (the maxTxSetSize vote), 3-4 (2000
    accounts), 5-63 (10 one-Payment transactions each on disjoint pairs)
    and 64-127 (1000 one-Payment transactions each in phase 13's mix,
    staged apply) and publishes checkpoints 63 and 127 to a tmpdir
@@ -200,13 +200,47 @@ Phases (any failure exits non-zero; nothing is caught):
    calls, replayed ledgers per second, the collector's passes, A1's
    PipelineStats report, and both kernels timed on the largest
    dispatch's rows (held against their plain versions there first).
-The oracle verdicts of the live tuples and of phase 5's tuples are
-computed in worker processes while phase 2 builds, those of phases 9
-to 12 while their runs go, those of phase 13 before its runs. It prints one `kernels` JSON line
-(launches by path: verifier, live, sharded, hybrid, txset, classic,
-soroban, wasm, close, catchup; the msg32 prep and the ladder also carry
-their phase 14 times under "catchup"), the card line, and last {"ok":
-true, "device": {...}}.
+15. consensus and flood admission (the first slice of BASELINE.json
+   config #5, without the overlay): the four validators of the JAX
+   package's topologies.core(4) (one flat quorum set, threshold 3), each
+   the port's Herder on phase 14's NodeApp, with the config stand-in at
+   the reference's defaults and the simulation's overrides, on one
+   virtual clock, joined by a loopback stand-in for the overlay. Slot 2
+   votes maxTxSetSize 1000, slots 3-4 create 2000 accounts, slots 5-9
+   carry 1000 one-Payment transactions each in phase 13's mix, which
+   every node admits through recv_transactions in bursts of 200 (the
+   burst the JAX package's overlay hands its herder most often at 1000
+   payments per ledger, counted by tests/node_mix.py); the nodes close
+   on their own trigger timers. Before run A, both kernels are held
+   against their plain versions on one burst's rows (200 signatures,
+   whose last block of 32 holds 8) and timed there. Run A gives each
+   node its own VerifyService(BackendSupervisor(CudaBatchVerifier())) at
+   phase 7's defaults, run B none (native). Fails unless every node
+   externalizes the same values and lands on run B's LCL with equal
+   headers, results and metas; bad_sig is true exactly on the flipped
+   transactions; every flood verdict equals the oracle; each burst's
+   flushes, dispatches and launches are those its size gives; every
+   consensus verify is counted by route (device, native bypass, the
+   node's service cache) with prep k launches equal to the consensus
+   flushes that reach the cutoff; txset validation probes and
+   dispatches nothing; the supervisors end CLOSED with 0 failures and 0
+   skips and the services with 0 fallbacks. It prints the mix per node
+   per ledger, the flushes' walls, each slot's wall from trigger to
+   every node closed, the ledger.close.* zones and the collector's
+   passes.
+From phase 13 on, the nodes run with the garbage collector policy the
+Application installs (util/gcpolicy.py: the heap frozen, automatic full
+passes off), and every eighth node shutdown runs the full pass the
+Application's shutdown runs; each phase from 13 on prints the process's
+peak resident set size. The oracle verdicts of the live tuples and of phase 5's
+tuples are computed in worker processes while phase 2 builds, those of
+phases 9 to 12 while their runs go, those of phases 13 and 15 before
+their runs. It prints one `kernels` JSON line (launches by path:
+verifier, live, sharded, hybrid, txset, classic, soroban, wasm, close,
+catchup, consensus; the msg32 prep and the ladder also carry their
+times on phase 14's and phase 15's rows under "catchup" and
+"consensus"), the card line, and last {"ok": true,
+"device": {...}}.
 """
 
 import atexit
@@ -304,6 +338,20 @@ CATCHUP_LEDGERS = 64     # phase 14: ledgers 64-127 of CLOSE_TXS payments
 CATCHUP_SEED = 14        # phase 14's permutations, mix and flipped bytes
 CATCHUP_TO = 80          # run A2's target ledger
 CATCHUP_GRACE_S = 60.0   # batch_grace, as the reference's tests set it
+CONSENSUS_NODES = 4      # phase 15: topologies.core(4)'s validators, one
+#                          flat quorum set of threshold (2n + 2) // 3
+CONSENSUS_LEDGERS = 5    # phase 15: measured ledgers of CLOSE_TXS payments
+CONSENSUS_BURST = 200    # phase 15: transactions per recv_transactions call:
+#                          the burst the JAX package's overlay hands its
+#                          herder most often at 1000 payments per ledger
+#                          (tests/node_mix.py --load 1000 --service: 16-17
+#                          of each peer's 27 calls; PEER_FLOOD_READING_
+#                          CAPACITY caps it)
+CONSENSUS_SEED = 15      # phase 15's permutations, mix and flipped bytes
+CONSENSUS_TIMEOUT_S = 120.0   # virtual seconds a slot may take
+# simulation/topologies.py:41-42: core()'s network and its node seeds
+# (:23-25, sha256(b"topo-core-%d" % i))
+CORE_PASSPHRASE = "(V) (;,,;) (V)"
 CHUNK = 32               # tuples per flush in leg C
 FLUSH_REPS = 30          # timed flushes per size for the fixed cost
 STAND_IN = 4             # positions of phase 8's stand-in mesh on one card
@@ -2590,14 +2638,21 @@ def close_modules():
         ("persistent_state", "main.persistent_state"),
         ("timer", "util.timer"), ("tracing", "util.tracing"),
         ("history", "history"), ("process", "process"), ("work", "work"),
-        ("catchup", "catchup"))})
+        ("catchup", "catchup"), ("gcpolicy", "util.gcpolicy"),
+        ("herder", "herder.herder"), ("upgrades", "herder.upgrades"),
+        ("checker", "tx.signature_checker"), ("metrics", "util.metrics"),
+        ("scp_xdr", "xdr.scp"), ("types", "xdr.types"),
+        ("pending_envelopes", "herder.pending_envelopes"),
+        ("scp_driver", "herder.scp_driver"))})
 
 
 def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
                    ledgers=CLOSE_LEDGERS, seed=CLOSE_SEED, quiet=0,
-                   quiet_txs=0, control=True):
+                   quiet_txs=0, control=True, flooded=False):
     """Phase 13's closes as XDR bytes, built with the port only, for a
-    node whose genesis is at protocol 21 on the standalone network:
+    node whose genesis is at protocol 21 on the standalone network, or,
+    `flooded`, for validators that admit every transaction by flood on
+    core's network (CORE_PASSPHRASE):
     - a close with no transaction that votes LEDGER_UPGRADE_MAX_TX_SET_SIZE
       = CLOSE_MAX_TX_SET (genesis admits 100 operations per set);
     - closes that create `accounts` accounts with CreateAccount ops, 100
@@ -2614,7 +2669,9 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
       another ("pair") transaction of the ledger instead of their own,
       which puts one of the two in a second stage, and its "flipped"
       ones carry one flipped signature byte (txBAD_AUTH at apply, the fee
-      charged);
+      charged; `flooded`, where flood admission rejects them, they leave
+      their source's sequence number where it was, so its next
+      transaction takes the same one);
     - with `control`, one close in the load generator's PAY chain,
       order[i] paying order[i + 1] over a seeded permutation: one
       conflict component, so every stage has width 1 and nothing is
@@ -2638,7 +2695,8 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
         raise ValueError(f"close_workload: {accounts} accounts hold no "
                          f"{max(txs, quiet_txs)} disjoint pairs")
     rng = np.random.default_rng(seed)
-    network_id = sha256(CLOSE_PASSPHRASE.encode())
+    passphrase = CORE_PASSPHRASE if flooded else CLOSE_PASSPHRASE
+    network_id = sha256(passphrase.encode())
     master = SecretKey.from_seed(network_id)
     keys = [SecretKey.from_seed(sha256(b"loadgen-%d-%d"
                                        % (i, CLOSE_PEER_PORT)))
@@ -2713,6 +2771,8 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
                 else perm[2 * j + 1]
             envs.append(envelope(keys[perm[2 * j]], *pay(perm[2 * j], dst),
                                  flip=kind == "flipped"))
+            if flooded and kind == "flipped":
+                seqs[perm[2 * j]] -= 1
         closes.append(dict(tag="measured", envelopes=envs, upgrades=[],
                            kinds=kinds))
     if control:
@@ -2720,7 +2780,7 @@ def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
         closes.append(dict(tag="control", upgrades=[], envelopes=[
             envelope(keys[chain[i]], *pay(chain[i], chain[i + 1]))
             for i in range(txs)]))
-    return {"network_id": network_id, "passphrase": CLOSE_PASSPHRASE,
+    return {"network_id": network_id, "passphrase": passphrase,
             "closes": closes}
 
 
@@ -2760,7 +2820,15 @@ def close_node(pkg, directory, passphrase, meta=None):
     """A LedgerManager over a sqlite Database and a BucketManager in
     `directory` (new ones, or those a run left there), with the
     persistent state and network passphrase the Application gives it;
-    its own perf zone registry."""
+    its own perf zone registry. Installs the package's garbage collector
+    policy first, as the Application does when it is built. The install
+    is process-wide and happens once per package (each keeps its own
+    flag): a process that builds nodes of both packages, as the parity
+    tests do, collects and freezes its heap at each package's first
+    node. Whoever builds a node here ends its teardown with the
+    package's gcpolicy.teardown_collect() (a full pass every eighth
+    call), as Application.shutdown does."""
+    pkg.gcpolicy.install()
     db = pkg.database.Database(os.path.join(directory, "node.db"))
     db.upgrade_to_current_schema()
     bm = pkg.bucket_manager.BucketManager(os.path.join(directory, "buckets"))
@@ -2813,7 +2881,8 @@ def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
     bucket files' names with the sha256 of their bytes. `on_close(i,
     tag)` runs just before close i. `pkg` holds the modules of the
     package to run, by `close_modules()`'s names (the port's by
-    default)."""
+    default). The node's teardown ends with the package's
+    gcpolicy.teardown_collect(), as Application.shutdown does."""
     pkg = pkg or close_modules()
     metas = []
     lm = close_node(pkg, directory, wl["passphrase"], metas.append)
@@ -2876,6 +2945,7 @@ def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
         lm.join_completion(reraise=False)
         lm.bucket_manager.shutdown()
         lm.db.close()
+        pkg.gcpolicy.teardown_collect()
     bdir = os.path.join(directory, "buckets")
     files = {}
     for f in sorted(os.listdir(bdir)):
@@ -2888,7 +2958,7 @@ def close_run(wl, directory, pkg=None, verify_service=None, staged=True,
 def close_reload(directory, passphrase, pkg=None):
     """A fresh LedgerManager over the database and bucket directory a
     close run left in `directory`: (load_last_known_ledger(), its LCL
-    hash, its LCL sequence)."""
+    hash, its LCL sequence). Its teardown ends as close_run's does."""
     pkg = pkg or close_modules()
     lm = close_node(pkg, directory, passphrase)
     try:
@@ -2898,6 +2968,7 @@ def close_reload(directory, passphrase, pkg=None):
     finally:
         lm.bucket_manager.shutdown()
         lm.db.close()
+        pkg.gcpolicy.teardown_collect()
 
 
 def close_expected(widths, max_batch, min_batch):
@@ -3149,90 +3220,151 @@ def close_phase(card, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
     return launches
 
 
-def catchup_config(passphrase, history=None, jitter_seed=0):
-    """The Config fields catchup, the history manager and the catchup
-    manager read, at the JAX package's defaults (main/config.py, by
-    line): LEDGER_PROTOCOL_VERSION :82, HISTORY :124, CATCHUP_PIPELINE
+def quorum_set_config(pkg, threshold=0, validators=()):
+    """The reference's QuorumSetConfig (main/config.py:28-46) for a flat
+    quorum set: `threshold` of `validators` (raw ed25519 keys), whose
+    to_scp_quorum_set() builds `pkg`'s own SCPQuorumSet."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        threshold=threshold, validators=list(validators), inner_sets=[],
+        to_scp_quorum_set=lambda: pkg.scp_xdr.SCPQuorumSet(
+            threshold=threshold,
+            validators=[pkg.types.PublicKey.ed25519(v) for v in validators],
+            innerSets=[]))
+
+
+def node_config(pkg, passphrase, jitter_seed=0, **overrides):
+    """The Config fields a node stand-in's ledger manager, herder, SCP
+    driver, catchup, history manager and catchup manager read, at the
+    JAX package's defaults (main/config.py, by line): NODE_SEED and
+    NODE_IS_VALIDATOR :53-54, RUN_STANDALONE and MANUAL_CLOSE :58-59,
+    MODE_DOES_CATCHUP :63, FORCE_SCP :68, LEDGER_PROTOCOL_VERSION,
+    EXPECTED_LEDGER_CLOSE_TIME and MAX_TX_SET_SIZE :82-84, QUORUM_SET
+    (quorum_set_config), QUORUM_INTERSECTION_CHECKER and the
+    TRANSACTION_QUEUE_* fields :114-121, HISTORY :124, CATCHUP_PIPELINE
     :132, its window, byte budget and prevalidate window :134-140,
-    APPLY_PARALLEL and APPLY_PARALLEL_MIN_TXS :190-192,
-    CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING :265,
+    ARTIFICIALLY_SET_CLOSE_TIME_FOR_TESTING :160, APPLY_PARALLEL and
+    APPLY_PARALLEL_MIN_TXS :190-192, MAX_SLOTS_TO_REMEMBER :200,
+    LIMIT_TX_QUEUE_SOURCE_ACCOUNT :226, the FLOOD_* periods and rates
+    :232-235, CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING :265,
     PUBLISH_TO_ARCHIVE_DELAY :280, MAX_CONCURRENT_SUBPROCESSES :288,
     ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING :294,
-    RETRY_SUPPRESSION_SECONDS :479; network_id() :489, jitter_seed()
-    :498 (here the seed given) and mode_does_catchup() :521."""
+    RETRY_SUPPRESSION_SECONDS :479; network_id() :489, node_id() :494,
+    jitter_seed() :498 (here the seed given) and mode_does_catchup()
+    :521. `overrides` set fields on top, as a node's configuration
+    file or the simulation (SIMULATION_NODE) does."""
     from types import SimpleNamespace
     cfg = SimpleNamespace(
-        NETWORK_PASSPHRASE=passphrase, LEDGER_PROTOCOL_VERSION=21,
-        HISTORY={k: dict(v) for k, v in (history or {}).items()},
+        NETWORK_PASSPHRASE=passphrase, NODE_SEED=None,
+        NODE_IS_VALIDATOR=False, RUN_STANDALONE=False, MANUAL_CLOSE=False,
+        MODE_DOES_CATCHUP=True, FORCE_SCP=False, LEDGER_PROTOCOL_VERSION=21,
+        EXPECTED_LEDGER_CLOSE_TIME=5.0, MAX_TX_SET_SIZE=1000,
+        QUORUM_SET=quorum_set_config(pkg), QUORUM_INTERSECTION_CHECKER=True,
+        TRANSACTION_QUEUE_SIZE_MULTIPLIER=2, TRANSACTION_QUEUE_BAN_DEPTH=10,
+        TRANSACTION_QUEUE_PENDING_DEPTH=4, HISTORY={},
         CATCHUP_PIPELINE=True, CATCHUP_PIPELINE_AHEAD_CHECKPOINTS=8,
         CATCHUP_PIPELINE_BYTE_BUDGET=64 * 1024 * 1024,
         CATCHUP_PIPELINE_PREVALIDATE_AHEAD=4,
+        ARTIFICIALLY_SET_CLOSE_TIME_FOR_TESTING=0,
         APPLY_PARALLEL=APPLY_PARALLEL,
         APPLY_PARALLEL_MIN_TXS=APPLY_PARALLEL_MIN_TXS,
+        MAX_SLOTS_TO_REMEMBER=12, LIMIT_TX_QUEUE_SOURCE_ACCOUNT=False,
+        FLOOD_TX_PERIOD_MS=0, FLOOD_OP_RATE_PER_LEDGER=2.0,
+        FLOOD_SOROBAN_TX_PERIOD_MS=0, FLOOD_SOROBAN_RATE_PER_LEDGER=2.0,
         CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING=False,
         PUBLISH_TO_ARCHIVE_DELAY=0.0, MAX_CONCURRENT_SUBPROCESSES=16,
         ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING=0.0,
-        RETRY_SUPPRESSION_SECONDS=300.0, MODE_DOES_CATCHUP=True)
+        RETRY_SUPPRESSION_SECONDS=300.0)
+    vars(cfg).update(overrides)
     network_id = hashlib.sha256(passphrase.encode()).digest()
     cfg.network_id = lambda: network_id
+    cfg.node_id = lambda: cfg.NODE_SEED.public_key().raw
     cfg.jitter_seed = lambda: jitter_seed
     cfg.mode_does_catchup = lambda: cfg.MODE_DOES_CATCHUP
     return cfg
 
 
-class CatchupApp:
-    """A stand-in for the Application (the port has none yet) holding
-    what catchup, the history manager and the catchup manager read from
-    `app`: `config` (catchup_config), a virtual clock, perf zones, an
-    idle flight recorder, a LedgerManager over a sqlite Database and a
-    BucketManager in `directory` (close_node) with its persistent state,
-    the process manager, a work scheduler, the history manager and
-    `batch_verifier` (None until catchup_run sets it). Wired as main/application.py of the
-    JAX package wires them: the staged apply from the config, the
-    history manager's queued buckets kept from bucket GC and the ledger
-    manager's history manager set (:271-277). Genesis at the config's
-    protocol unless the files hold a ledger, or `genesis` is False (the
-    node ApplyBucketsWork fills)."""
+# the simulation's validator (simulation/simulation.py:59-69 of the JAX
+# package): standalone with FORCE_SCP, closing on its own timers
+SIMULATION_NODE = dict(NODE_IS_VALIDATOR=True, RUN_STANDALONE=True,
+                       FORCE_SCP=True, MANUAL_CLOSE=False,
+                       EXPECTED_LEDGER_CLOSE_TIME=1.0, MAX_TX_SET_SIZE=1000)
 
-    def __init__(self, directory, passphrase, history=None, genesis=True):
-        pkg = close_modules()
-        self.config = catchup_config(passphrase, history)
-        self.clock = pkg.timer.VirtualClock(pkg.timer.ClockMode.VIRTUAL_TIME)
+
+class NodeApp:
+    """A stand-in for the Application (the port has none yet) holding
+    what the herder, catchup, the history manager and the catchup
+    manager read from `app`: `config` (node_config), a clock (`clock`,
+    else its own virtual clock), perf zones, an idle flight recorder, a
+    LedgerManager over a sqlite Database and a BucketManager in
+    `directory` (close_node, with `meta` as its LedgerCloseMeta stream)
+    with its persistent state, metrics, `verify_service` and
+    `batch_verifier` (None unless given; catchup_run sets the latter),
+    the package's Herder, the process manager, a work scheduler and the
+    history manager, of `pkg` (close_modules() by default). Wired as
+    main/application.py of the JAX package wires them (:200-277): the
+    staged apply from the config, the manager's verify service, the
+    herder's metrics, verify (default_verify), batch verifier, verify
+    service, perf zones and clock, the history manager's queued buckets
+    kept from bucket GC and the ledger manager's history manager set.
+    Genesis at the config's protocol unless the files hold a ledger, or
+    `genesis` is False (the node ApplyBucketsWork fills). `shutdown`
+    tears down as Application.shutdown does, ending with the package's
+    gcpolicy.teardown_collect() (:551-557)."""
+
+    def __init__(self, directory, config, pkg=None, clock=None,
+                 genesis=True, meta=None, verify_service=None,
+                 batch_verifier=None):
+        pkg = self.pkg = pkg or close_modules()
+        self.config = config
+        self.clock = clock or pkg.timer.VirtualClock(
+            pkg.timer.ClockMode.VIRTUAL_TIME)
         self.perf = pkg.perf.ZoneRegistry()
         self.flight_recorder = pkg.tracing.FlightRecorder()
         self.perf.tracer = self.flight_recorder
+        self.metrics = pkg.metrics.MetricsRegistry()
         os.makedirs(directory, exist_ok=True)
-        lm = close_node(pkg, directory, passphrase)
+        lm = close_node(pkg, directory, config.NETWORK_PASSPHRASE, meta)
         lm.perf = self.perf
-        lm.apply_parallel = self.config.APPLY_PARALLEL
-        lm.apply_parallel_min_txs = self.config.APPLY_PARALLEL_MIN_TXS
+        lm.apply_parallel = config.APPLY_PARALLEL
+        lm.apply_parallel_min_txs = config.APPLY_PARALLEL_MIN_TXS
+        lm.verify_service = self.verify_service = verify_service
         self.ledger_manager, self.database = lm, lm.db
         self.bucket_manager = lm.bucket_manager
         self.bucket_manager.bucket_list.perf = self.perf
         self.persistent_state = lm.persistent_state
-        self.batch_verifier = None
+        self.batch_verifier = batch_verifier
+        self.herder = pkg.herder.Herder(
+            config, lm, metrics=self.metrics,
+            verify=pkg.checker.default_verify,
+            batch_verifier=batch_verifier, verify_service=verify_service)
+        self.herder.perf = self.perf
+        self.herder.set_clock(self.clock)
         self.process_manager = pkg.process.ProcessManager(
-            self, max_concurrent=self.config.MAX_CONCURRENT_SUBPROCESSES)
+            self, max_concurrent=config.MAX_CONCURRENT_SUBPROCESSES)
         self.work_scheduler = pkg.work.WorkScheduler(self)
         self.history_manager = pkg.history.HistoryManager(self)
         self.bucket_manager.gc_ref_providers.append(
             self.history_manager.queued_bucket_hashes)
         lm.history_manager = self.history_manager
         entry = pkg.persistent_state.StateEntry
-        self.persistent_state.set(entry.NETWORK_PASSPHRASE, passphrase)
+        self.persistent_state.set(entry.NETWORK_PASSPHRASE,
+                                  config.NETWORK_PASSPHRASE)
         if genesis and not lm.load_last_known_ledger():
-            lm.start_new_ledger(self.config.network_id(),
-                                self.config.LEDGER_PROTOCOL_VERSION)
+            lm.start_new_ledger(config.network_id(),
+                                config.LEDGER_PROTOCOL_VERSION)
             self.persistent_state.set(
                 entry.LAST_CLOSED_LEDGER,
                 lm.get_last_closed_ledger_hash().hex())
 
     def shutdown(self):
+        self.herder.shutdown()
         self.work_scheduler.shutdown()
         self.process_manager.shutdown()
         self.ledger_manager.join_completion(reraise=False)
         self.bucket_manager.shutdown()
         self.database.close()
+        self.pkg.gcpolicy.teardown_collect()
 
 
 def archive_commands(root):
@@ -3273,7 +3405,7 @@ def catchup_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
 
 
 def catchup_publish(wl, directory):
-    """Phase 14's publisher: a CatchupApp in `directory`/publisher whose
+    """Phase 14's publisher: a NodeApp in `directory`/publisher whose
     history manager publishes every checkpoint to the tmpdir archive
     `directory`/archive; genesis, then every close of `wl` (close_data,
     close_ledger, join_completion, as close_run makes them). Returns the
@@ -3282,8 +3414,8 @@ def catchup_publish(wl, directory):
     close), the published checkpoint count and the archive's HAS."""
     pkg = close_modules()
     root = os.path.join(directory, "archive")
-    app = CatchupApp(os.path.join(directory, "publisher"), wl["passphrase"],
-                     history=archive_commands(root))
+    app = NodeApp(os.path.join(directory, "publisher"), node_config(
+        pkg, wl["passphrase"], HISTORY=archive_commands(root)), pkg)
     lm, nid = app.ledger_manager, wl["network_id"]
     hashes, checks = {}, {}
     undo = counted_verify_cache(pkg.keys)
@@ -3360,7 +3492,7 @@ def work_batches(work, streaming):
 
 def catchup_run(archive_root, passphrase, directory, streaming, to_ledger,
                 verifier):
-    """One catchup of a fresh CatchupApp in `directory` from the tmpdir
+    """One catchup of a fresh NodeApp in `directory` from the tmpdir
     archive at `archive_root`: StreamingCatchupWork (the node's default,
     CATCHUP_PIPELINE) or the sequential CatchupWork, complete, to
     `to_ledger` (0: the archive's last), holding the archived results
@@ -3377,7 +3509,7 @@ def catchup_run(archive_root, passphrase, directory, streaming, to_ledger,
     from stellar_core_tpu_torch.tx import signature_checker as sigchk
     pkg = close_modules()
     cu = pkg.catchup
-    app = CatchupApp(directory, passphrase)
+    app = NodeApp(directory, node_config(pkg, passphrase), pkg)
     rec = app.batch_verifier = RecordingVerifier(verifier(app))
     fallbacks = []
 
@@ -3471,13 +3603,14 @@ def catchup_problems(run, wl, pub, last):
     return p
 
 
-def catchup_kernels(items, imad_per_s):
-    """Both msg32-path kernels on the rows of one catchup dispatch
-    (`items`), on the card: each held byte for byte against its plain
-    version once, then timed (CUDA events, median of 25 launches after
-    3), beside its bound, as phase 3 does at n = N. Returns
-    {"prep": ..., "ladder": ...} with n, ms, plain_ms, bound_ms,
-    bound_by, max_abs_err."""
+def held_kernels(items, imad_per_s, tag):
+    """Both msg32-path kernels on the rows of one dispatch of a path
+    (`items`, the tuples in dispatch order), on the card: each held byte
+    for byte (K, -A and OK of prep; x and y of the ladder) against its
+    plain version once, then timed (CUDA events, median of 25 launches
+    after 3), beside its bound, as phase 3 does at n = N. Exits, naming
+    `tag`, on a mismatch. Returns {"prep": ..., "ladder": ...} with n,
+    ms, plain_ms, bound_ms, bound_by, max_abs_err."""
     from stellar_core_tpu_torch.ops import ed25519_kernel as EK
     from stellar_core_tpu_torch.ops import ladder as LD
     dev = torch.device("cuda", 0)
@@ -3516,7 +3649,7 @@ def catchup_kernels(items, imad_per_s):
         bound_by="operations" if b_ops >= b_mem else "bytes")
     for name, e in out.items():
         if not e["match"]:
-            raise SystemExit(f"catchup: {name} disagrees with its plain "
+            raise SystemExit(f"{tag}: {name} disagrees with its plain "
                              f"version at n={n}")
     return out
 
@@ -3543,8 +3676,8 @@ def catchup_phase(card, imad_per_s=None, accounts=CLOSE_ACCOUNTS,
     calls, the native verdicts), prep msg32 launches equal ladder
     launches equal the device dispatches equal the batches, with no k
     launch, and the supervisor ends CLOSED with 0 failures, 0 skips and
-    dispatches equal to the batches. With `imad_per_s`, catchup_kernels
-    times both kernels on the largest dispatch's rows. Prints the
+    dispatches equal to the batches. With `imad_per_s`, held_kernels
+    holds and times both kernels on the largest dispatch's rows. Prints the
     publisher, each run (batches, dispatch to landing, the coalesce
     calls, replayed ledgers per second, the collector's passes) and A1's
     PipelineStats report. Returns the launches of both runs by kernel
@@ -3614,7 +3747,7 @@ def catchup_phase(card, imad_per_s=None, accounts=CLOSE_ACCOUNTS,
                 launches[k] += got[k]
         big = max((d for run, _ in runs.values() for d in run["dispatches"]),
                   key=lambda d: len(d[0]))
-        kernels = catchup_kernels(big[0], imad_per_s) \
+        kernels = held_kernels(big[0], imad_per_s, "catchup") \
             if imad_per_s else None
     finally:
         tempfile.tempdir = tempdir
@@ -3655,10 +3788,585 @@ def catchup_phase(card, imad_per_s=None, accounts=CLOSE_ACCOUNTS,
     return launches, kernels
 
 
+def consensus_loopback(pkg, herders, clock, corrupt_first=False):
+    """The overlay's stand-in among `herders` on one clock. Each herder's
+    broadcast_cb keeps the envelope's bytes and posts, for every other
+    herder, its delivery on the next crank: the sender's tx sets the
+    statement names and its quorum set, each made anew from its XDR bytes
+    and handed over through recv_tx_set and recv_scp_quorum_set where the
+    receiver lacks it (in place of the overlay's fetch), then the envelope
+    from its bytes through recv_scp_envelope. With `corrupt_first`, the
+    first envelope of the first herder reaches each other herder once
+    more, with its last signature byte flipped, before the intact one.
+    Returns each herder's broadcast envelopes, as bytes, in order."""
+    pe = pkg.pending_envelopes
+    nid = herders[0].network_id
+    emitted = [[] for _ in herders]
+
+    def deliver(j, raw, bad, txsets, qset):
+        h = herders[j]
+        for th, cls, b in txsets:
+            if h.pending_envelopes.get_tx_set(th) is None:
+                h.recv_tx_set(th, pkg.tx_set.TxSetFrame(cls.from_bytes(b),
+                                                        nid))
+        if qset is not None and h.pending_envelopes.get_qset(qset[0]) is None:
+            h.recv_scp_quorum_set(
+                qset[0], pkg.scp_xdr.SCPQuorumSet.from_bytes(qset[1]))
+        for b in ((bad, raw) if bad else (raw,)):
+            h.recv_scp_envelope(pkg.scp_xdr.SCPEnvelope.from_bytes(b))
+
+    def broadcast(i, env):
+        raw = env.to_bytes()
+        emitted[i].append(raw)
+        src = herders[i].pending_envelopes
+        txsets = []
+        for th in sorted(pe._statement_txset_hashes(env.statement)):
+            f = src.get_tx_set(th)
+            if f is not None:
+                x = f.to_xdr()
+                txsets.append((th, type(x), x.to_bytes()))
+        qh = pe._statement_qset_hash(env.statement)
+        q = None if qh is None else src.get_qset(qh)
+        qset = None if q is None else (qh, q.to_bytes())
+        bad = None
+        if corrupt_first and i == 0 and len(emitted[0]) == 1:
+            bad = raw[:-1] + bytes([raw[-1] ^ 1])
+        for j in range(len(herders)):
+            if j != i:
+                clock.post(lambda j=j: deliver(j, raw, bad, txsets, qset))
+
+    for i, h in enumerate(herders):
+        h.broadcast_cb = lambda env, i=i: broadcast(i, env)
+    return emitted
+
+
+def consensus_run(wl, directory, pkg=None, services=None,
+                  nodes=CONSENSUS_NODES, burst=CONSENSUS_BURST,
+                  corrupt_first=False, snapshot=None):
+    """Phase 15's network: `nodes` validators (each a NodeApp in
+    `directory`/node<i> of node_config on the workload's passphrase with
+    topologies.core's seed and quorum set and SIMULATION_NODE, whose
+    herder's Upgrades vote maxTxSetSize CLOSE_MAX_TX_SET from the first
+    slot) on one VirtualClock in VIRTUAL_TIME,
+    joined by consensus_loopback, started as the Application starts a
+    FORCE_SCP validator (Herder.start, then bootstrap). `services(i,
+    clock)` gives node i's (verify service, batch verifier); None: both
+    None, all native. For each close of `wl` (close_workload's; close k
+    is slot k + 2, its upgrades voted by the herders instead), every
+    node admits the close's envelopes, each node its own frames made
+    from the bytes, through recv_transactions(frames, bad_sig=...) in
+    bursts of `burst`, burst by burst and node by node; then the clock
+    is cranked until every node has closed the slot (the nodes trigger
+    on their own timers). `snapshot(i)`, where given, is taken of node i
+    before and after each burst and each slot. Records per node: the
+    broadcast envelopes (bytes), the externalized (slot, value) pairs,
+    the AddResult names and bad_sig lists per burst, the verdict of
+    every verify_envelope (slot, signer, verdict, signed message's
+    length) and of every verify_stellar_value_signature (the node's next
+    slot, verdict); per close the header, its hash, the result pairs and
+    the LedgerCloseMeta as bytes; per slot the wall from the first
+    trigger to every node closed, the crank's wall, node by node the
+    ledger.close.* zones and the collector's passes; the
+    _LazyBatchPrevalidator's verify cache probes (hits, misses); every
+    node's LCL hash."""
+    pkg = pkg or close_modules()
+    clock = pkg.timer.VirtualClock(pkg.timer.ClockMode.VIRTUAL_TIME)
+    seeds = [hashlib.sha256(b"topo-core-%d" % i).digest()
+             for i in range(nodes)]
+    validators = [pkg.keys.SecretKey.from_seed(s).public_key().raw
+                  for s in seeds]
+    herders, metas = [], []
+    rec = dict(externalized=[[] for _ in seeds], envelopes=[[] for _ in seeds],
+               values=[[] for _ in seeds], triggers={}, bursts=[], slots=[],
+               probes=[0, 0])
+
+    def wrap(i, h):
+        ext, verify_env = h.value_externalized_from_scp, h.verify_envelope
+        verify_sv, trigger = (h.verify_stellar_value_signature,
+                              h.trigger_next_ledger_scp)
+
+        def externalized(slot, value):
+            rec["externalized"][i].append((slot, bytes(value)))
+            return ext(slot, value)
+
+        def envelope(env):
+            ok = verify_env(env)
+            rec["envelopes"][i].append((
+                env.statement.slotIndex,
+                validators.index(bytes(env.statement.nodeID.value)), ok,
+                len(pkg.scp_driver.scp_envelope_sign_bytes(
+                    h.network_id, env.statement))))
+            return ok
+
+        def value(sv):
+            ok = verify_sv(sv)
+            rec["values"][i].append(
+                (h.ledger_manager.get_last_closed_ledger_num() + 1, ok))
+            return ok
+
+        def triggered():
+            slot = h.ledger_manager.get_last_closed_ledger_num() + 1
+            rec["triggers"].setdefault(slot, time.perf_counter())
+            return trigger()
+        h.value_externalized_from_scp = externalized
+        h.verify_envelope = envelope
+        h.verify_stellar_value_signature = value
+        h.trigger_next_ledger_scp = triggered
+
+    qset = quorum_set_config(pkg, (2 * nodes + 2) // 3, validators)
+    apps = []
+    for i, seed in enumerate(seeds):
+        cfg = node_config(pkg, wl["passphrase"],
+                          NODE_SEED=pkg.keys.SecretKey.from_seed(seed),
+                          QUORUM_SET=qset, **SIMULATION_NODE)
+        svc, bv = services(i, clock) if services else (None, None)
+        metas.append([])
+        apps.append(NodeApp(os.path.join(directory, f"node{i}"), cfg, pkg,
+                            clock, meta=metas[i].append, verify_service=svc,
+                            batch_verifier=bv))
+        h = apps[i].herder
+        h.upgrades.set_parameters(pkg.upgrades.UpgradeParameters(
+            upgrade_time=0, max_tx_set_size=CLOSE_MAX_TX_SET))
+        wrap(i, h)
+        herders.append(h)
+    emitted = consensus_loopback(pkg, herders, clock, corrupt_first)
+    probe = pkg.keys.probe_verify_cache
+
+    def counted_probe(*t):
+        hit = probe(*t)
+        rec["probes"][hit is None] += 1
+        return hit
+    pkg.keys.probe_verify_cache = counted_probe
+    pauses, undo_gc = collector_pauses()
+    snap = snapshot or (lambda i: None)
+    nid = wl["network_id"]
+    try:
+        for h in herders:
+            h.start()
+            h.bootstrap()
+        for k, c in enumerate(wl["closes"]):
+            slot = k + 2
+            frames = [[pkg.frame.make_frame(
+                pkg.transaction.TransactionEnvelope.from_bytes(b), nid)
+                for b in c["envelopes"]] for _ in herders]
+            for b0 in range(0, len(c["envelopes"]), burst):
+                for i, h in enumerate(herders):
+                    bad, before = [], snap(i)
+                    t0 = time.perf_counter()
+                    res = h.recv_transactions(frames[i][b0:b0 + burst],
+                                              bad_sig=bad)
+                    rec["bursts"].append(dict(
+                        slot=slot, node=i, at=b0,
+                        n=len(frames[i][b0:b0 + burst]),
+                        wall_s=time.perf_counter() - t0,
+                        adds=[r.name for r in res], bad_sig=bad,
+                        before=before, after=snap(i)))
+            before = [snap(i) for i in range(len(herders))]
+            zones = [h.ledger_manager.perf.report() for h in herders]
+            gc0 = len(pauses)
+            t0 = time.perf_counter()
+            done = clock.crank_until(lambda: all(
+                h.ledger_manager.get_last_closed_ledger_num() >= slot
+                for h in herders), CONSENSUS_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            for h in herders:
+                h.ledger_manager.join_completion()
+            if not done:
+                raise SystemExit(f"consensus: slot {slot} did not close on "
+                                 "every node within "
+                                 f"{CONSENSUS_TIMEOUT_S} virtual seconds")
+            after = [h.ledger_manager.perf.report() for h in herders]
+            rec["slots"].append(dict(
+                slot=slot, tag=c["tag"], wall_s=wall,
+                from_trigger_s=time.perf_counter()
+                - rec["triggers"].get(slot, t0),
+                before=before, after=[snap(i) for i in range(len(herders))],
+                gc_s=sum(t for _, t in pauses[gc0:]),
+                gc_full=sum(g == 2 for g, _ in pauses[gc0:]),
+                zones_ms=[{z: a.get(f"ledger.close.{z}", {}).get(
+                    "total_ms", 0.0) - b.get(f"ledger.close.{z}", {}).get(
+                    "total_ms", 0.0) for z in CLOSE_ZONES}
+                    for a, b in zip(after, zones)]))
+        closes = [[dict(
+            header=m.value.ledgerHeader.header.to_bytes(),
+            hash=bytes(m.value.ledgerHeader.hash),
+            results=[t.result.to_bytes() for t in m.value.txProcessing],
+            meta=m.to_bytes()) for m in ms] for ms in metas]
+        lcl = [h.ledger_manager.get_last_closed_ledger_hash()
+               for h in herders]
+    finally:
+        undo_gc()
+        pkg.keys.probe_verify_cache = probe
+        for app in apps:
+            app.shutdown()
+    rec.update(emitted=emitted, closes=closes, lcl=lcl, gc=pauses,
+               validators=validators)
+    return rec
+
+
+def consensus_expected(n, max_batch, min_batch):
+    """What one flood burst of `n` single-signature transactions, none
+    already in the node's verify service, must do: floor(n / max_batch)
+    `batch_full` flushes, then one `demand` flush of the remainder when
+    recv_transactions awaits its first future; each flush of at least
+    `min_batch` a device dispatch with one prep msg32 and one ladder
+    launch, each smaller one the verifier's native bypass."""
+    flushes = [max_batch] * (n // max_batch) + \
+        ([n % max_batch] if n % max_batch else [])
+    device = sum(f >= min_batch for f in flushes)
+    return dict(batch_full=n // max_batch, demand=int(bool(n % max_batch)),
+                device=device, bypass=len(flushes) - device,
+                launches={"msg32": device, "k": 0, "ladder": device})
+
+
+def consensus_phase(card, imad_per_s, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
+                    ledgers=CONSENSUS_LEDGERS):
+    """Phase 15: consensus and flood admission (the first slice of
+    BASELINE.json config #5, without the overlay and the simulation):
+    CONSENSUS_NODES validators of topologies.core on one VirtualClock,
+    each a port Herder over its own LedgerManager (consensus_run), on
+    core's network. The closes are close_workload's, `flooded` (slot 2
+    votes maxTxSetSize CLOSE_MAX_TX_SET through the herders'
+    Upgrades, slots 3-4 create `accounts` accounts, then `ledgers`
+    measured slots of `txs` one-Payment transactions in phase 13's mix),
+    each admitted by every node in bursts of CONSENSUS_BURST. Before the
+    runs, held_kernels holds both kernels against their plain versions
+    on the rows of the first measured burst, in the order the burst
+    submits them, and times them there. Run A gives each
+    node its own VerifyService(BackendSupervisor(CudaBatchVerifier()))
+    at phase 7's defaults as its verify service, and the supervisor as
+    its batch verifier; run B gives none (all native).
+    The oracle verdicts of every admitted signature come from worker
+    processes before the runs; the launch counters are set to 0 just
+    before run A and read just after. Fails unless every node
+    externalizes the same value in every slot, once; every node lands on
+    one LCL hash, equal to run B's; every close's header, hash, result
+    pairs and LedgerCloseMeta are equal on every node and in both runs;
+    the emitted envelopes, externalized values and every verify_envelope
+    and StellarValue verdict are equal in both runs, and all true; each
+    bad_sig list is true exactly on the flipped transactions, which
+    alone fail admission; every flood flush equals the oracle; each
+    burst's flushes by reason, device dispatches, bypasses and launches
+    are those consensus_expected gives; every consensus verify goes to a
+    flush of its own or is a hit of the node's service (counted by
+    route: device, native bypass, hit), and prep k launches equal the
+    consensus flushes that reach the cutoff; the staged apply's prewarm
+    flushes nothing (every tuple a hit of the node's service); txset
+    validation's _LazyBatchPrevalidator probes the verify cache no time
+    and dispatches nothing (each node's own proposal seeds its validity
+    cache, and all four build the same txset); the measured closes apply every admitted transaction with
+    txSUCCESS; each supervisor ends CLOSED with 0 failures and 0 skips
+    and each service with 0 fallbacks. Prints the mix per node per
+    measured ledger (tx-hash, StellarValue and envelope signatures, the
+    envelopes' signed sizes), the flushes' walls, each slot's wall from
+    the first trigger to every node closed, each close's ledger.close.*
+    zones and the collector's passes. Returns the launches of run A by
+    kernel and held_kernels' result."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    from stellar_core_tpu_torch.ops.backend_supervisor import (
+        CLOSED, BackendSupervisor)
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    from stellar_core_tpu_torch.ops.verify_service import VerifyService
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.tx.signature_checker import \
+        collect_signature_tuples
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.perf import ZoneRegistry
+    from stellar_core_tpu_torch.xdr.results import (TransactionResultCode,
+                                                    TransactionResultPair)
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+
+    t0 = time.perf_counter()
+    wl = close_workload(accounts, txs, ledgers, CONSENSUS_SEED,
+                        control=False, flooded=True)
+    build_s = time.perf_counter() - t0
+    nid = wl["network_id"]
+    flood = sorted({t for c in wl["closes"] for t in collect_signature_tuples(
+        [make_frame(TransactionEnvelope.from_bytes(b), nid)
+         for b in c["envelopes"]])})
+    min_batch = LIVE["device_min_batch"]
+    burst = CONSENSUS_BURST
+    first = next(c for c in wl["closes"] if c["tag"] == "measured")
+    kernels = held_kernels(collect_signature_tuples([
+        make_frame(TransactionEnvelope.from_bytes(b), nid)
+        for b in first["envelopes"][:burst]]), imad_per_s, "consensus")
+    stacks = []
+
+    def services(i, clock):
+        reg, perf = MetricsRegistry(), ZoneRegistry()
+        sup = BackendSupervisor(
+            CudaBatchVerifier(perf=perf, metrics=reg,
+                              device_min_batch=min_batch),
+            clock=clock, metrics=reg, perf=perf,
+            dispatch_deadline_ms=LIVE["dispatch_deadline_ms"],
+            canary_batch=LIVE["canary_batch"])
+        rec = RecordingVerifier(sup)
+        svc = VerifyService(rec, clock=clock, metrics=reg, perf=perf,
+                            max_batch=LIVE["max_batch"],
+                            deadline_ms=LIVE["deadline_ms"])
+        batch = RecordingVerifier(sup)
+        stacks.append(dict(sup=sup, rec=rec, svc=svc, batch=batch, reg=reg,
+                           perf=perf))
+        return svc, batch
+
+    def snapshot(i):
+        s = stacks[i]
+        st = s["svc"].stats()
+        return dict(
+            reasons=dict(st["flush_reasons"]), calls=len(s["rec"].calls),
+            device=s["reg"].to_json()["crypto.verify.dispatch.batch"][
+                "count"],
+            bypass=s["perf"].report().get("crypto.batchVerify.native",
+                                          {"count": 0})["count"],
+            launches=launch_counts())
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-consensus-")
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    try:
+        t0 = time.perf_counter()
+        want = dict(zip(flood, pool.starmap(ref.verify, flood,
+                                            chunksize=64)))
+        oracle_s = time.perf_counter() - t0
+        pool.close()
+        clear_verify_cache()
+        zero_launches()
+        t0 = time.perf_counter()
+        a = consensus_run(wl, os.path.join(work, "a"), services=services,
+                          snapshot=snapshot)
+        a_s = time.perf_counter() - t0
+        launches = launch_counts()
+        clear_verify_cache()
+        zero_launches()
+        t0 = time.perf_counter()
+        b = consensus_run(wl, os.path.join(work, "b"))
+        b_s = time.perf_counter() - t0
+        b_launches = launch_counts()
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(work, ignore_errors=True)
+    sts = [s["sup"].status() for s in stacks]
+    stats = [s["svc"].stats() for s in stacks]
+    for s in stacks:
+        s["sup"].shutdown()
+
+    problems = []
+    n = len(stacks)
+    slots = [k + 2 for k in range(len(wl["closes"]))]
+    for i in range(n):
+        if a["externalized"][i] != a["externalized"][0] or \
+                [sl for sl, _ in a["externalized"][i]] != slots:
+            problems.append(f"node {i} externalized slots "
+                            f"{[sl for sl, _ in a['externalized'][i]]}, not "
+                            f"node 0's values once each in {slots}")
+        if a["closes"][i] != a["closes"][0]:
+            problems.append(f"node {i}'s closes differ from node 0's")
+    if len(set(a["lcl"])) != 1 or a["lcl"] != b["lcl"]:
+        problems.append(f"LCL A {[h.hex()[:16] for h in a['lcl']]} B "
+                        f"{[h.hex()[:16] for h in b['lcl']]}")
+    for key in ("closes", "emitted", "externalized", "envelopes", "values"):
+        if a[key] != b[key]:
+            problems.append(f"runs A and B differ in {key}")
+    bad_verdicts = sum(not e[2] for es in a["envelopes"] for e in es) + \
+        sum(not v for vs in a["values"] for _, v in vs)
+    if bad_verdicts:
+        problems.append(f"{bad_verdicts} consensus signatures rejected")
+    if any(b_launches.values()):
+        problems.append(f"run B launched {b_launches}")
+    flipped = [[j for j, kind in enumerate(c.get("kinds", ()))
+                if kind == "flipped"] for c in wl["closes"]]
+    want_launch = {"msg32": 0, "k": 0, "ladder": 0}
+    for bu in a["bursts"]:
+        k = bu["slot"] - 2
+        want_bad = [bu["at"] + j in flipped[k] for j in range(bu["n"])]
+        if bu["bad_sig"] != want_bad or [r != "ADD_STATUS_PENDING"
+                                         for r in bu["adds"]] != want_bad:
+            problems.append(f"slot {bu['slot']} node {bu['node']} burst at "
+                            f"{bu['at']}: bad_sig {sum(bu['bad_sig'])}, "
+                            f"adds {collections.Counter(bu['adds'])}, "
+                            f"flipped {sum(want_bad)}")
+        exp = consensus_expected(bu["n"], LIVE["max_batch"], min_batch)
+        s0, s1 = bu["before"], bu["after"]
+        got = dict(batch_full=s1["reasons"]["batch_full"]
+                   - s0["reasons"]["batch_full"],
+                   demand=s1["reasons"]["demand"] - s0["reasons"]["demand"],
+                   device=s1["device"] - s0["device"],
+                   bypass=s1["bypass"] - s0["bypass"],
+                   launches={m: s1["launches"][m] - s0["launches"][m]
+                             for m in s0["launches"]})
+        if got != exp or any(r != "batch_full" and r != "demand" and
+                             s1["reasons"][r] != s0["reasons"][r]
+                             for r in s0["reasons"]):
+            problems.append(f"slot {bu['slot']} node {bu['node']} burst at "
+                            f"{bu['at']} of {bu['n']}: {got}, expected {exp}")
+        for m in want_launch:
+            want_launch[m] += exp["launches"][m]
+    # each node's flushes by kind: flood (32-byte tx hashes, inside a
+    # burst), StellarValue (76 bytes), envelope (the rest)
+    mix, flood_off = [], 0
+    for i, s in enumerate(stacks):
+        in_burst = set()
+        for bu in a["bursts"]:
+            if bu["node"] == i:
+                in_burst.update(range(bu["before"]["calls"],
+                                      bu["after"]["calls"]))
+        route = {(kd, r): 0 for kd in ("value", "envelope")
+                 for r in ("device", "bypass")}
+        k_flushes = 0
+        for c, (items, got, _) in enumerate(s["rec"].calls):
+            lens = {len(m) for _, _, m in items}
+            if c in in_burst:
+                if lens != {32}:
+                    problems.append(f"node {i}: a flood flush holds a "
+                                    f"message of {sorted(lens)} bytes")
+                flood_off += sum(g != want.get(t) for t, g in zip(items, got))
+                continue
+            if lens == {32}:
+                problems.append(f"node {i}: a flush of {len(items)} tx "
+                                "hashes outside the bursts (the prewarm)")
+                continue
+            k_flushes += len(items) >= min_batch
+            for (_, _, m), g in zip(items, got):
+                kd = "value" if len(m) == 76 else "envelope"
+                route[(kd, "device" if len(items) >= min_batch
+                       else "bypass")] += 1
+        calls = {"value": len(a["values"][i]),
+                 "envelope": len(a["envelopes"][i])}
+        hits = {kd: calls[kd] - route[(kd, "device")]
+                - route[(kd, "bypass")] for kd in calls}
+        if any(h < 0 for h in hits.values()):
+            problems.append(f"node {i}: more consensus verifies flushed "
+                            f"than called: {route}, calls {calls}")
+        want_launch["k"] += k_flushes
+        mix.append(dict(route=route, hits=hits, calls=calls,
+                        k_flushes=k_flushes))
+        if s["batch"].calls:
+            problems.append(f"node {i}: txset validation dispatched "
+                            f"{[len(c[0]) for c in s['batch'].calls]}")
+    want_launch["ladder"] = want_launch["msg32"] + want_launch["k"]
+    if flood_off:
+        problems.append(f"{flood_off} flood verdicts differ from the oracle")
+    if launches != want_launch:
+        problems.append(f"run A launched {launches}, the bursts and "
+                        f"consensus flushes give {want_launch}")
+    if a["probes"] != [0, 0]:
+        problems.append(f"txset validation's prevalidator: {a['probes'][0]} "
+                        f"hits, {a['probes'][1]} misses (every node's own "
+                        "proposal seeds its validity cache, and all build "
+                        "the same txset: 0 probes)")
+    for i, (st, sv) in enumerate(zip(sts, stats)):
+        if st["state"] != CLOSED or any(st["failures"].values()) or \
+                st["skips"] or st["transitions"] or sv["fallbacks"]:
+            problems.append(f"node {i} supervisor: {st['state']}, failures "
+                            f"{st['failures']}, skips {st['skips']}, "
+                            f"transitions {st['transitions']}; service "
+                            f"fallbacks {sv['fallbacks']}")
+    for k, c in enumerate(wl["closes"]):
+        if c["tag"] != "measured":
+            continue
+        codes = collections.Counter(
+            TransactionResultPair.from_bytes(r).result.result.disc
+            for r in a["closes"][0][k]["results"])
+        if codes != {TransactionResultCode.txSUCCESS:
+                     len(c["envelopes"]) - len(flipped[k])}:
+            problems.append(f"slot {k + 2}: results {dict(codes)}")
+    if problems:
+        raise SystemExit("consensus: " + "; ".join(problems))
+
+    measured = [k + 2 for k, c in enumerate(wl["closes"])
+                if c["tag"] == "measured"]
+    print(f"consensus: {n} validators of topologies.core (threshold "
+          f"{(2 * n + 2) // 3}) on one virtual clock, {accounts} accounts, "
+          f"{ledgers} measured slots of {txs} one-Payment transactions "
+          f"(chosen mix {dict(CLOSE_MIX)}), admitted by every node in "
+          f"bursts of {burst}; built in {build_s:.3f} s; the oracle of "
+          f"{len(flood)} signatures in {oracle_s:.3f} s before the runs; "
+          f"run A (verify service, supervisor and kernels per node) "
+          f"{a_s:.3f} s, run B (native) {b_s:.3f} s [{card}]", flush=True)
+    for i, m in enumerate(mix):
+        sizes = collections.Counter(e[3] for e in a["envelopes"][i]
+                                    if e[0] in measured)
+        values = sum(sl in measured for sl, _ in a["values"][i])
+        per = len(measured)
+        print(f"  node {i} mix per measured ledger: tx-hash signatures "
+              f"{txs}, StellarValue {values / per:.2f}, envelope "
+              f"{sum(sizes.values()) / per:.2f}; envelope signed sizes "
+              f"{dict(sorted(sizes.items()))}; consensus verifies by route "
+              f"(device, bypass, service hit): StellarValue "
+              f"{m['route'][('value', 'device')]}/"
+              f"{m['route'][('value', 'bypass')]}/{m['hits']['value']}, "
+              f"envelope {m['route'][('envelope', 'device')]}/"
+              f"{m['route'][('envelope', 'bypass')]}/"
+              f"{m['hits']['envelope']}; consensus flushes reaching "
+              f"{min_batch}: {m['k_flushes']}", flush=True)
+    walls = {kd: [] for kd in ("flood", "consensus")}
+    for i, s in enumerate(stacks):
+        for bu in a["bursts"]:
+            if bu["node"] == i:
+                walls["flood"] += [w for _, _, w in s["rec"].calls[
+                    bu["before"]["calls"]:bu["after"]["calls"]]]
+        walls["consensus"] += [w for items, _, w in s["rec"].calls
+                               if {len(m) for _, _, m in items} != {32}]
+    for kd, ws in walls.items():
+        if ws:
+            print(f"  {kd} flushes: {len(ws)}, dispatch to collected min "
+                  f"{min(ws) * 1e3:.3f} / median "
+                  f"{statistics.median(ws) * 1e3:.3f} / max "
+                  f"{max(ws) * 1e3:.3f} ms [{card}]", flush=True)
+    bursts = [bu["wall_s"] for bu in a["bursts"] if bu["n"] == burst]
+    if bursts:
+        print(f"  recv_transactions of {burst}: {len(bursts)} bursts, min "
+              f"{min(bursts) * 1e3:.1f} / median "
+              f"{statistics.median(bursts) * 1e3:.1f} / max "
+              f"{max(bursts) * 1e3:.1f} ms (run A)", flush=True)
+    for sa, sb in zip(a["slots"], b["slots"]):
+        print(f"  slot {sa['slot']} {sa['tag']}: trigger to every node "
+              f"closed A {sa['from_trigger_s'] * 1e3:.1f} ms B "
+              f"{sb['from_trigger_s'] * 1e3:.1f} ms (crank A "
+              f"{sa['wall_s'] * 1e3:.1f} B {sb['wall_s'] * 1e3:.1f}); "
+              f"collector A {sa['gc_s'] * 1e3:.1f} ms ({sa['gc_full']} "
+              f"full) B {sb['gc_s'] * 1e3:.1f} ms ({sb['gc_full']} full); "
+              f"node 0's zones A " + " ".join(
+                  f"{z}={v:.1f}" for z, v in sa["zones_ms"][0].items())
+              + " B " + " ".join(f"{z}={v:.1f}"
+                                 for z, v in sb["zones_ms"][0].items()),
+              flush=True)
+    print(f"consensus: launches prep msg32 {launches['msg32']} = ladder "
+          f"{launches['ladder']} - k {launches['k']} = the bursts' device "
+          f"dispatches; prep k {launches['k']} = consensus flushes reaching "
+          f"the cutoff; txset validation probes hits {a['probes'][0]} "
+          f"misses {a['probes'][1]}, dispatches 0; supervisors CLOSED, 0 "
+          f"failures, 0 skips; services' flushes by reason "
+          f"{[s['flush_reasons'] for s in stats]}, fallbacks 0; collector "
+          f"passes A {len(a['gc'])} ({sum(g == 2 for g, _ in a['gc'])} "
+          f"full, {sum(t for _, t in a['gc']):.3f} s) B {len(b['gc'])} "
+          f"({sum(g == 2 for g, _ in b['gc'])} full); every node and both "
+          f"runs at LCL {a['lcl'][0].hex()[:16]} [{card}]", flush=True)
+    for name, e in kernels.items():
+        print(f"consensus {name}[msg32] on one burst's rows, n={e['n']}: "
+              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.1f} ms, matches; "
+              f"bound {e['bound_ms']:.4f} ms = "
+              f"{e['bound_ms'] / e['ms']:.4f} of the time) [{card}]",
+              flush=True)
+    return launches, kernels
+
+
+def peak_rss(phase, started):
+    """Print the process's peak resident set size (getrusage's
+    ru_maxrss, KiB on Linux) once phase `phase` has passed."""
+    import resource
+    kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(f"peak RSS after phase {phase}: {kib / 1024:.1f} MiB at "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stellar_core_tpu_torch.crypto import ed25519_ref as ref
     from stellar_core_tpu_torch.crypto.keys import SecretKey
@@ -3999,19 +4707,26 @@ def main():
 
     # --- 12. wasm contracts on the card's txset path --------------------
     wasm = wasm_phase(card)
+    peak_rss(12, started)
 
     # --- 13. persistence and ledger close, the stage prewarm on the card -
     close = close_phase(card)
+    peak_rss(13, started)
 
     # --- 14. catchup, each checkpoint's signatures in one dispatch -------
     catchup, catchup_times = catchup_phase(card, imad_per_s)
+    peak_rss(14, started)
+
+    # --- 15. consensus and flood admission, four validators -------------
+    consensus, consensus_times = consensus_phase(card, imad_per_s)
+    peak_rss(15, started)
 
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
     # of phase 10 (classic), run A of phase 11 (soroban), run A of
-    # phase 12 (wasm), run A of phase 13 (close) and runs A1 and A2 of
-    # phase 14 (catchup)
+    # phase 12 (wasm), run A of phase 13 (close), runs A1 and A2 of
+    # phase 14 (catchup) and run A of phase 15 (consensus)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -4021,23 +4736,31 @@ def main():
             "hybrid": mesh["hybrid"].get(kind, 0),
             "txset": txset[kind], "classic": classic[kind],
             "soroban": soroban[kind], "wasm": wasm[kind],
-            "close": close[kind], "catchup": catchup[kind]}
+            "close": close[kind], "catchup": catchup[kind],
+            "consensus": consensus[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
-        timed = catchup_times.get({"msg32": "prep", "ladder": "ladder"}
-                                  .get(kind))
-        if timed:
-            # the same kernel on the largest catchup dispatch's rows
-            e["catchup"] = {k: timed[k] for k in (
-                "n", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        held = {"msg32": "prep", "ladder": "ladder"}.get(kind)
+        if held:
+            # the same kernel on the largest catchup dispatch's rows and
+            # on one flood burst's rows
+            for path, times in (("catchup", catchup_times),
+                                ("consensus", consensus_times)):
+                e[path] = {k: times[held][k] for k in (
+                    "n", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}
             print(f"{e['name']}: {e['ms']:.4f} ms at n={e['n']} (phase 3), "
-                  f"{timed['ms']:.4f} ms at n={timed['n']} (phase 14) "
-                  f"[{card}]", flush=True)
+                  f"{e['catchup']['ms']:.4f} ms at n={e['catchup']['n']} "
+                  f"(phase 14), {e['consensus']['ms']:.4f} ms at "
+                  f"n={e['consensus']['n']} (phase 15) [{card}]",
+                  flush=True)
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)
                 and count.get("ladder", 0)):
             raise SystemExit(f"{path} path launched a kernel no time: "
                              f"{count}")
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))
     print(card)

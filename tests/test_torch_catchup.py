@@ -5,7 +5,7 @@ The JAX package's own publishing node (tests/test_history_catchup.py
 make_publishing_app: 130 ledgers with scattered payments, checkpoints 63
 and 127 published to a tmpdir archive through `cp`) is built once per
 module. The port has no Application yet, so its side runs on
-chip_smoke.CatchupApp, a stand-in holding what catchup reads from `app`
+chip_smoke.NodeApp, a stand-in holding what catchup reads from `app`
 (the JAX package's config defaults, a virtual clock, a LedgerManager
 over a sqlite file and a bucket directory in tmp_path, the history and
 process managers, a work scheduler, the batch verifier). Held equal:
@@ -134,8 +134,9 @@ def node_state(app):
 
 
 def port_node(published, directory, genesis=True, history=None):
-    return cs.CatchupApp(str(directory), published.passphrase,
-                         history=history, genesis=genesis)
+    return cs.NodeApp(str(directory), cs.node_config(
+        cs.close_modules(), published.passphrase, HISTORY=history or {}),
+        genesis=genesis)
 
 
 def run_catchup(root, app, archive_root, mode, to_ledger=0, **work_kw):
@@ -514,7 +515,8 @@ def manager_scenario(root, tmp_path):
     hist, wk = mod(root, "history"), mod(root, "work")
     herder, clock, lcl = StandInHerder(), StandInClock(), [1]
     app = SimpleNamespace(
-        config=cs.catchup_config("catchup manager", jitter_seed=0x5eed),
+        config=cs.node_config(cs.close_modules(), "catchup manager",
+                              jitter_seed=0x5eed),
         herder=herder, clock=clock,
         history_manager=SimpleNamespace(archives=[
             hist.HistoryArchive("a", get_cmd="cp a/{0} {1}"),

@@ -5,8 +5,9 @@ stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
 on a stand-in mesh of four positions, the v1 entry against the oracle, and
 the txset validation path (chip_smoke.py phase 9 at 64 transactions),
 the classic operation families on it (phase 10 at 64 transactions), the
-contract auth-entry batches of phase 11 at 200 transactions and the wasm
-contracts of phase 12 at 200 transactions.
+contract auth-entry batches of phase 11 at 200 transactions, the wasm
+contracts of phase 12 at 200 transactions, and phases 13-15 (the close,
+catchup, consensus and flood admission) at small sizes.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -351,3 +352,28 @@ def test_catchup_on_card(card):
         pytest.fail(str(e))
     assert launches["k"] == 0
     assert 3 <= launches["msg32"] == launches["ladder"] <= 4
+
+
+def test_consensus_on_card(card):
+    """chip_smoke.py phase 15 at 2 measured slots of 100 payments over
+    200 accounts, with its checks: four port validators on one virtual
+    clock, each admitting every transaction in one burst of 100 through
+    its own VerifyService(BackendSupervisor(CudaBatchVerifier())) on the
+    card (one device dispatch per node per measured slot), every flood
+    verdict equal to the oracle and bad_sig true exactly on the flipped
+    ones, every consensus verify counted by route, the same value
+    externalized everywhere and the LCL equal to the native run's, the
+    supervisors CLOSED with 0 failures and 0 skips; before the runs, both
+    kernels held against their plain versions on that burst's 100 rows."""
+    import chip_smoke as cs
+    rate = (torch.cuda.get_device_properties(card).multi_processor_count
+            * cs.IMAD_PER_SM_CLK
+            * float(cs.smi("clocks.max.sm").split()[0]) * 1e6)
+    try:
+        launches, kernels = cs.consensus_phase(str(card), rate, accounts=200,
+                                               txs=100, ledgers=2)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches == {"msg32": 8, "k": 0, "ladder": 8}
+    assert {k: e["n"] for k, e in kernels.items()} == {"prep": 100,
+                                                       "ladder": 100}

@@ -16,8 +16,7 @@ directory per run, `pg_uri` a stub server per run. SecretKey.random
 draws the same seeded keys in both runs.
 
 Left out, because they need a module the port does not have yet (named
-in ROADMAP.md Queue 1): the TransactionQueue tests of test_ledger_close
-(herder/tx_queue.py), the Application and simulation tests of
+in ROADMAP.md Queue 1): the Application and simulation tests of
 test_parallel_apply, test_close_pipeline and test_postgres, and
 test_close_pipeline's DNS-cache test (overlay/manager.py).
 """
@@ -41,11 +40,6 @@ from torch_tx_parity import J, P, clear_caches
 
 # reference test -> the unported module it needs
 LEFT_OUT = {
-    "test_ledger_close": {
-        "test_tx_queue_lifecycle": "herder/tx_queue.py",
-        "test_tx_queue_eviction_by_fee": "herder/tx_queue.py",
-        "test_tx_queue_two_phase_eviction_no_partial_drop":
-            "herder/tx_queue.py"},
     "test_parallel_apply": {
         "test_app_differential_with_soroban_and_zipf":
             "main/application.py, simulation/",
@@ -203,7 +197,7 @@ def test_cases_cover_every_reference_test_but_the_left_out():
             if n.startswith("test_"):
                 left = LEFT_OUT.get(module.__name__, {})
                 assert ((module.__name__, n) in names) != (n in left), n
-    assert len(CASES) == 148
+    assert len(CASES) == 151
 
 
 def test_the_runs_record_closes_and_commits():
@@ -237,18 +231,17 @@ def test_rebinding_reaches_the_port_modules():
 
 
 def test_unported_names_raise_only_when_used():
-    """TransactionQueue and AddResult (herder/tx_queue.py) and
-    Application (main/application.py) have no port module yet: they
-    rebind to stand-ins that raise NotImplementedError when called or
-    read, not when rebound."""
+    """Application (main/application.py) has no port module yet: it
+    rebinds to a stand-in that raises NotImplementedError when called or
+    read, not when rebound. TransactionQueue and AddResult
+    (herder/tx_queue.py), ported since, rebind to the port's."""
+    from stellar_core_tpu_torch.herder import tx_queue
     g = rebound(ref_ledger_close)
-    assert isinstance(g["TransactionQueue"], Unported)
-    with pytest.raises(NotImplementedError, match="tx_queue"):
-        g["TransactionQueue"]()
-    with pytest.raises(NotImplementedError, match="tx_queue"):
-        g["AddResult"].ADD_STATUS_PENDING
+    assert g["TransactionQueue"] is tx_queue.TransactionQueue
+    assert g["AddResult"] is tx_queue.AddResult
     app = rebound(ref_close_pipeline)["Application"]
+    assert isinstance(app, Unported)
     with pytest.raises(NotImplementedError, match="application"):
         app.create(None, None)
-    with pytest.raises(NotImplementedError):
-        port_case(ref_ledger_close, None, "test_tx_queue_lifecycle")()
+    with pytest.raises(NotImplementedError, match="application"):
+        app.APP_SYNCED_STATE

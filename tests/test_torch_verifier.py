@@ -391,7 +391,12 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "ledger.ledger_manager", "process", "process.process_manager",
              "work", "work.basic_work", "work.work", "history.manager",
              "catchup", "catchup.catchup_work", "catchup.apply_buckets",
-             "catchup.pipeline", "catchup.manager"):
+             "catchup.pipeline", "catchup.manager", "util.gcpolicy",
+             "scp", "scp.driver", "scp.local_node", "scp.quorum_set_utils",
+             "scp.nomination", "scp.ballot", "scp.slot", "scp.scp",
+             "herder", "herder.tx_queue", "herder.pending_envelopes",
+             "herder.scp_driver", "herder.quorum_tracker",
+             "herder.quorum_intersection", "crypto"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
@@ -420,6 +425,13 @@ assert [led["tag"] for led in run["ledgers"]] == \
     ["upgrade", "create", "measured", "control"], run["ledgers"]
 assert chip_smoke.close_reload(work, wl["passphrase"])[:2] == \
     (True, run["lcl"])
+shutil.rmtree(work)
+work = tempfile.mkdtemp()
+wl = chip_smoke.close_workload(accounts=8, txs=4, ledgers=1, control=False,
+                               flooded=True)
+run = chip_smoke.consensus_run(wl, work, burst=4)
+assert len(set(run["lcl"])) == 1, run["lcl"]
+assert [s for s, _ in run["externalized"][3]] == [2, 3, 4]
 shutil.rmtree(work)
 work = tempfile.mkdtemp()
 wl = chip_smoke.catchup_workload(accounts=8, txs=4, ledgers=0, quiet=61,

@@ -11,9 +11,10 @@ package's, on the CPU, with exact bytes.
   over each package's own classes) encode to equal bytes, and each
   package decodes the other's bytes back to them: the Soroban types of
   xdr/contract.py and the peer messages of xdr/overlay.py among them.
-- ROADMAP Queue 3 items 1 and 2 are pinned: a Soroban `_TxExt` (and an
-  envelope carrying it) decodes and re-encodes equal, and
-  `repr(PublicKey(bytes(32)))` is the StrKey in both.
+- ROADMAP Queue 3 items 1, 2 and 5 are pinned: a Soroban `_TxExt` (and
+  an envelope carrying it) decodes and re-encodes equal,
+  `repr(PublicKey(bytes(32)))` is the StrKey in both, and the crypto,
+  herder and scp packages export the reference's names in both.
 - StrKey, SipHash-2-4 under fixed keys and record-marked XDR streams
   agree between the packages.
 """
@@ -331,6 +332,42 @@ def test_public_key_repr_is_strkey_in_both():
         == want
     raw = np.random.default_rng(4).bytes(32)
     assert repr(pk.PublicKey(raw)) == repr(jk.PublicKey(raw))
+
+
+# Queue 3 item 5: the port's crypto/__init__.py exported nothing
+EXPORTS = {
+    "crypto": ["PublicKey", "SecretKey", "PubKeyUtils", "sha256", "sha512",
+               "hmac_sha256", "hkdf_extract", "hkdf_expand", "StrKey"],
+    "herder": ["ApplicableTxSet", "TxSetFrame",
+               "make_tx_set_from_transactions", "TransactionQueue",
+               "AddResult", "Upgrades", "SurgePricingLaneConfig",
+               "surge_pricing_filter"],
+    "scp": ["SCP", "SCPDriver", "Slot", "LocalNode", "EnvelopeState",
+            "ValidationLevel"],
+}
+
+
+@pytest.mark.parametrize("package", sorted(EXPORTS))
+@pytest.mark.parametrize("root", [JAX_ROOT, PORT_ROOT])
+def test_package_exports_are_the_reference_s(root, package):
+    """Each package's __init__ exports the same names in both, each bound
+    to its own package's object."""
+    mod = _mod(root, package)
+    assert mod.__all__ == EXPORTS[package]
+    for name in EXPORTS[package]:
+        obj = getattr(mod, name)
+        assert obj.__module__.startswith(f"{root}.{package}."), name
+
+
+def test_crypto_and_herder_names_import_from_the_port():
+    from stellar_core_tpu_torch.crypto import PublicKey, StrKey
+    from stellar_core_tpu_torch.crypto.keys import PublicKey as keys_pk
+    from stellar_core_tpu_torch.herder import AddResult, TransactionQueue
+    from stellar_core_tpu_torch.herder.tx_queue import TransactionQueue as tq
+    assert PublicKey is keys_pk and TransactionQueue is tq
+    assert StrKey.decode_ed25519_public(StrKey.encode_ed25519_public(
+        bytes(32))) == bytes(32)
+    assert AddResult.ADD_STATUS_PENDING.name == "ADD_STATUS_PENDING"
 
 
 # ------------------------------------------------------- crypto leaves --

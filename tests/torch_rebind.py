@@ -1,11 +1,13 @@
-"""Shared by tests/test_torch_{xdr_leaves,wasm,persistence}.py: the JAX
-package's own tests run a second time on the port, with every name they
-import from the JAX package rebound to the port's module of the same path
-and imports inside their function bodies redirected there. The helpers
-they take from the reference test modules in HELPER_MODULES run on the
-port too, in those modules' own rebound globals. A name whose port module
-does not exist yet binds to an `Unported` stand-in, which raises
-NotImplementedError when it is used, not when it is rebound."""
+"""Shared by tests/test_torch_{xdr_leaves,wasm,persistence,scp,herder}.py:
+the JAX package's own tests run a second time on the port, with every
+name they import from the JAX package rebound to the port's module of the
+same path and imports inside their function bodies redirected there; the
+classes they define are rebuilt over the rebound globals, on the port's
+bases. The helpers they take from the reference test modules in
+HELPER_MODULES run on the port too, in those modules' own rebound
+globals. A name whose port module does not exist yet binds to an
+`Unported` stand-in, which raises NotImplementedError when it is used,
+not when it is rebound."""
 
 from __future__ import annotations
 
@@ -87,9 +89,12 @@ def _rebind_into(module, g):
               else _port_value(k, v)) for k, v in vars(module).items())
     g["__builtins__"] = dict(vars(builtins), __import__=port_import)
     for k, v in vars(module).items():        # the module's own helpers
-        if isinstance(v, types.FunctionType) and \
-                v.__module__ == module.__name__:
+        if getattr(v, "__module__", None) != module.__name__:
+            continue
+        if isinstance(v, types.FunctionType):
             g[k] = port_function(v, g)
+        elif isinstance(v, type):           # in definition order
+            g[k] = port_class(v, g)
     return g
 
 
@@ -106,21 +111,45 @@ def helper_module(module):
     out = _HELPERS.get(module.__name__)
     if out is None:
         out = _HELPERS[module.__name__] = types.ModuleType(module.__name__)
-        g = _rebind_into(module, vars(out))
-        for k, v in vars(module).items():
-            if isinstance(v, type) and v.__module__ == module.__name__:
-                g[k] = type(k, v.__bases__, {
-                    a: port_function(f, g)
-                    if isinstance(f, types.FunctionType) else f
-                    for a, f in vars(v).items()
-                    if a not in ("__dict__", "__weakref__")})
+        _rebind_into(module, vars(out))
     return out
 
 
-def port_function(fn, g):
+def port_function(fn, g, class_cell=None):
+    """`fn` over the globals `g`; with `class_cell`, the cell its
+    zero-argument super() reads (`__class__`) is that one."""
+    closure = fn.__closure__
+    if class_cell is not None and "__class__" in fn.__code__.co_freevars:
+        closure = tuple(class_cell if name == "__class__" else c
+                        for name, c in zip(fn.__code__.co_freevars, closure))
     out = types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
-                             fn.__closure__)
+                             closure)
     out.__kwdefaults__ = fn.__kwdefaults__
+    return out
+
+
+def port_class(cls, g):
+    """`cls`, a class of a reference test module, rebuilt over the globals
+    `g`: its functions (also under staticmethod, classmethod and
+    property) run there, super() finds the new class, and each base is
+    the port's (a base of the same module: its rebuilt class in `g`)."""
+    cell = types.CellType()
+
+    def port(f):
+        if isinstance(f, types.FunctionType):
+            return port_function(f, g, cell)
+        if isinstance(f, (staticmethod, classmethod)):
+            return type(f)(port(f.__func__))
+        if isinstance(f, property):
+            return property(*(x and port(x) for x in
+                              (f.fget, f.fset, f.fdel)), f.__doc__)
+        return f
+    bases = tuple(g[b.__name__] if b.__module__ == cls.__module__
+                  else _port_value(b.__name__, b) for b in cls.__bases__)
+    out = type(cls)(cls.__name__, bases, {
+        a: port(f) for a, f in vars(cls).items()
+        if a not in ("__dict__", "__weakref__")})
+    cell.cell_contents = out
     return out
 
 

@@ -74,6 +74,17 @@ _MODULES = {
     "bucket": "bucket.bucket",
     "database": "db.database",
     "pg_stub": "db.pg_stub",
+    "gcpolicy": "util.gcpolicy",
+    "upgrades": "herder.upgrades",
+    "metrics": "util.metrics",
+    "timer": "util.timer",
+    "scp_xdr": "xdr.scp",
+    "pending_envelopes": "herder.pending_envelopes",
+    "scp_driver": "herder.scp_driver",
+    "tracing": "util.tracing",
+    "process": "process",
+    "work": "work",
+    "history": "history",
 }
 
 
