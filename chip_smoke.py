@@ -175,15 +175,15 @@ Phases (any failure exits non-zero; nothing is caught):
    prewarm's wall and the flushes' walls.
 14. catchup from a local history archive (BASELINE.json config #3,
    catchup-complete replay), each checkpoint's signatures verified on
-   the card in one dispatch: a publisher node (phase 13's close_node
-   with the port's HistoryManager, on a stand-in for the Application,
-   NodeApp) closes ledger 2 (the maxTxSetSize vote), 3-4 (2000
+   the card in one dispatch: a publisher node (the port's Application
+   over a sqlite file and a bucket directory, with a tmpdir archive in
+   its HISTORY) closes ledger 2 (the maxTxSetSize vote), 3-4 (2000
    accounts), 5-63 (10 one-Payment transactions each on disjoint pairs)
    and 64-127 (1000 one-Payment transactions each in phase 13's mix,
    staged apply) and publishes checkpoints 63 and 127 to a tmpdir
    archive through `cp`. Run A1: StreamingCatchupWork, complete (the
    node's default path); run A2: the sequential CatchupWork to ledger
-   80; each on a fresh node whose batch verifier is
+   80; each on a fresh Application whose batch verifier is
    BackendSupervisor(CudaBatchVerifier()) at the node's defaults, at
    batch_grace 60 s, holding every result to the archived results and
    every header to the hash chain. Fails unless each lands on the
@@ -203,9 +203,10 @@ Phases (any failure exits non-zero; nothing is caught):
 15. consensus and flood admission (the first slice of BASELINE.json
    config #5, without the overlay): the four validators of the JAX
    package's topologies.core(4) (one flat quorum set, threshold 3), each
-   the port's Herder on phase 14's NodeApp, with the config stand-in at
-   the reference's defaults and the simulation's overrides, on one
-   virtual clock, joined by a loopback stand-in for the overlay. Slot 2
+   the port's Application with the port's Config at its defaults and
+   the simulation's overrides, on one virtual clock, joined by a
+   loopback harness in place of the overlay that hands every node the
+   same fixed bursts. Slot 2
    votes maxTxSetSize 1000, slots 3-4 create 2000 accounts, slots 5-9
    carry 1000 one-Payment transactions each in phase 13's mix, which
    every node admits through recv_transactions in bursts of 200 (the
@@ -228,6 +229,29 @@ Phases (any failure exits non-zero; nothing is caught):
    per ledger, the flushes' walls, each slot's wall from trigger to
    every node closed, the ledger.close.* zones and the collector's
    passes.
+16. the node (BASELINE.json config #5, LoadGenerator max-TPS across a
+   multi-node topology): the port's simulation/topologies.core(4), four
+   Applications on one virtual clock joined by the overlay's
+   LoopbackPeerConnections (handshake, MAC, flow control, adverts and
+   demands), driven by Simulation.crank_until; node 0's LoadGenerator
+   (seed 42) creates 1000 accounts, then submits 1000 payments before
+   each of the next 5 ledgers, and every node votes maxTxSetSize 1000
+   (tests/node_mix.py --load 1000). Run A: SIGNATURE_VERIFY_BACKEND
+   "cuda" on every node's Config, so each Application builds its own
+   BackendSupervisor(CudaBatchVerifier()) and VerifyService at the
+   node's defaults; run B "native". Then self_check on node 0 of run A.
+   Fails unless every node externalizes the same values and lands on
+   run B's LCL with equal headers, results and metas; each node's
+   recv_transactions bursts, device dispatches, bypassed flushes,
+   flushes by reason, consensus verifies and the prevalidator's probes
+   are NODE_EXPECTED, the counts predicted on the CPU; every device
+   flush equals the oracle; launches equal the device dispatches plus
+   self_check's two batches; the supervisors end CLOSED with 0 failures
+   and 0 skips and the services with 0 fallbacks; self_check reports
+   ok. Both kernels are held against their plain versions on the first
+   device flush whose size is not a multiple of 32. It prints the
+   ledger walls, the bursts, the device flushes' walls, the overlay's
+   counters and self_check's device verifies per second.
 From phase 13 on, the nodes run with the garbage collector policy the
 Application installs (util/gcpolicy.py: the heap frozen, automatic full
 passes off), and every eighth node shutdown runs the full pass the
@@ -235,11 +259,12 @@ Application's shutdown runs; each phase from 13 on prints the process's
 peak resident set size. The oracle verdicts of the live tuples and of phase 5's
 tuples are computed in worker processes while phase 2 builds, those of
 phases 9 to 12 while their runs go, those of phases 13 and 15 before
-their runs. It prints one `kernels` JSON line (launches by path:
-verifier, live, sharded, hybrid, txset, classic, soroban, wasm, close,
-catchup, consensus; the msg32 prep and the ladder also carry their
-times on phase 14's and phase 15's rows under "catchup" and
-"consensus"), the card line, and last {"ok": true,
+their runs, those of phase 16 after its runs. It prints one `kernels`
+JSON line (launches by path: verifier, live, sharded, hybrid, txset,
+classic, soroban, wasm, close, catchup, consensus, node; the msg32 prep
+and the ladder also carry their times on phase 14's, phase 15's and
+phase 16's rows under "catchup", "consensus" and "node"), the card
+line, and last {"ok": true,
 "device": {...}}.
 """
 
@@ -361,6 +386,79 @@ HYBRID_N = 5000          # signatures of phase 8's hybrid batch
 HYBRID_RANKS = 2
 V1_N = 2048              # lanes of the v1 entry in phase 3
 SPAWN_TIMEOUT_S = 300
+NODE_LOAD = 1000         # phase 16: accounts, then payments per ledger, that
+                         # node 0's load generator submits (node_mix --load)
+NODE_LEDGERS = 6         # phase 16: ledgers after the first (node_mix's)
+NODE_LOAD_SEED = 42      # phase 16: the load generator's seed (node_mix's)
+NODE_TIMEOUT_S = 120.0   # virtual seconds a ledger may take (node_mix's)
+# phase 16's counts at NODE_LOAD and NODE_LEDGERS, as tests/node_mix.py
+# --load 1000 --backend gives them on the CPU in both packages (a
+# counting host verifier in place of the card's; tests/test_torch_node_mix.py
+# holds the two packages and this table equal): per node (node 0 runs
+# the load generator) every recv_transactions call's frames in order,
+# the verifier's dispatches (device by prep mode, bypassed, their
+# sizes), the service's flushes by reason and fallbacks, the consensus
+# verifies; the txset prevalidator's probes; every node's LCL
+NODE_EXPECTED = {'recv_transactions_calls': [[],
+                                             [178, 200, 122, 176, 200, 200,
+                                              200, 200, 24, 191, 199, 200,
+                                              200, 200, 10, 169, 200, 200,
+                                              200, 200, 31, 187, 200, 200,
+                                              200, 200, 13],
+                                             [178, 200, 122, 176, 200, 200,
+                                              200, 200, 24, 191, 200, 200,
+                                              200, 200, 9, 170, 200, 200, 200,
+                                              200, 30, 188, 200, 200, 200,
+                                              200, 12],
+                                             [178, 200, 122, 176, 200, 200,
+                                              200, 200, 24, 190, 200, 200,
+                                              200, 200, 10, 168, 200, 200,
+                                              200, 200, 32, 186, 200, 200,
+                                              200, 200, 14]],
+                 'verifier': [{'device': {'msg32': 0, 'k': 0},
+                               'bypass': 134,
+                               'device_sizes': [],
+                               'bypass_sizes': [[1, 134]],
+                               'flush_reasons': {'demand': 134},
+                               'fallbacks': 0,
+                               'consensus_calls': {'envelope': 126,
+                                                   'value': 26}},
+                              {'device': {'msg32': 25, 'k': 0},
+                               'bypass': 136,
+                               'device_sizes': [[24, 1], [31, 1], [122, 1],
+                                                [169, 1], [176, 1], [178, 1],
+                                                [187, 1], [191, 1], [199, 1],
+                                                [200, 16]],
+                               'bypass_sizes': [[1, 134], [10, 1], [13, 1]],
+                               'flush_reasons': {'demand': 161},
+                               'fallbacks': 0,
+                               'consensus_calls': {'envelope': 127,
+                                                   'value': 20}},
+                              {'device': {'msg32': 25, 'k': 0},
+                               'bypass': 135,
+                               'device_sizes': [[24, 1], [30, 1], [122, 1],
+                                                [170, 1], [176, 1], [178, 1],
+                                                [188, 1], [191, 1],
+                                                [200, 17]],
+                               'bypass_sizes': [[1, 133], [9, 1], [12, 1]],
+                               'flush_reasons': {'demand': 160},
+                               'fallbacks': 0,
+                               'consensus_calls': {'envelope': 126,
+                                                   'value': 19}},
+                              {'device': {'msg32': 25, 'k': 0},
+                               'bypass': 136,
+                               'device_sizes': [[24, 1], [32, 1], [122, 1],
+                                                [168, 1], [176, 1], [178, 1],
+                                                [186, 1], [190, 1],
+                                                [200, 17]],
+                               'bypass_sizes': [[1, 134], [10, 1], [14, 1]],
+                               'flush_reasons': {'demand': 161},
+                               'fallbacks': 0,
+                               'consensus_calls': {'envelope': 127,
+                                                   'value': 20}}],
+                 'prevalidator_probes': {'hits': 1506, 'misses': 0},
+                 'lcl': ['42f2f30b0af9544fccac2325bb213eca'
+                         '71afcbfc5247c26ce1284d612b1ef5a9']}
 
 
 def smi(query):
@@ -2643,7 +2741,8 @@ def close_modules():
         ("checker", "tx.signature_checker"), ("metrics", "util.metrics"),
         ("scp_xdr", "xdr.scp"), ("types", "xdr.types"),
         ("pending_envelopes", "herder.pending_envelopes"),
-        ("scp_driver", "herder.scp_driver"))})
+        ("scp_driver", "herder.scp_driver"),
+        ("application", "main.application"), ("config", "main.config"))})
 
 
 def close_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
@@ -3220,151 +3319,49 @@ def close_phase(card, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
     return launches
 
 
-def quorum_set_config(pkg, threshold=0, validators=()):
-    """The reference's QuorumSetConfig (main/config.py:28-46) for a flat
-    quorum set: `threshold` of `validators` (raw ed25519 keys), whose
-    to_scp_quorum_set() builds `pkg`'s own SCPQuorumSet."""
-    from types import SimpleNamespace
-    return SimpleNamespace(
-        threshold=threshold, validators=list(validators), inner_sets=[],
-        to_scp_quorum_set=lambda: pkg.scp_xdr.SCPQuorumSet(
-            threshold=threshold,
-            validators=[pkg.types.PublicKey.ed25519(v) for v in validators],
-            innerSets=[]))
+# the timers a node of this script leaves manual, as the JAX package's
+# get_test_config and Simulation._make_config do: on a virtual clock the
+# telemetry sampler and the adaptive controller would fire every virtual
+# second of a run (the controller re-tunes the verify knobs) and the
+# maintainer's hourly cron would let an idle crank leap an hour
+MANUAL_TIMERS = dict(TELEMETRY_SAMPLE_PERIOD=0.0, CONTROLLER_TICK_PERIOD=0.0,
+                     AUTOMATIC_MAINTENANCE_PERIOD=0.0)
 
 
-def node_config(pkg, passphrase, jitter_seed=0, **overrides):
-    """The Config fields a node stand-in's ledger manager, herder, SCP
-    driver, catchup, history manager and catchup manager read, at the
-    JAX package's defaults (main/config.py, by line): NODE_SEED and
-    NODE_IS_VALIDATOR :53-54, RUN_STANDALONE and MANUAL_CLOSE :58-59,
-    MODE_DOES_CATCHUP :63, FORCE_SCP :68, LEDGER_PROTOCOL_VERSION,
-    EXPECTED_LEDGER_CLOSE_TIME and MAX_TX_SET_SIZE :82-84, QUORUM_SET
-    (quorum_set_config), QUORUM_INTERSECTION_CHECKER and the
-    TRANSACTION_QUEUE_* fields :114-121, HISTORY :124, CATCHUP_PIPELINE
-    :132, its window, byte budget and prevalidate window :134-140,
-    ARTIFICIALLY_SET_CLOSE_TIME_FOR_TESTING :160, APPLY_PARALLEL and
-    APPLY_PARALLEL_MIN_TXS :190-192, MAX_SLOTS_TO_REMEMBER :200,
-    LIMIT_TX_QUEUE_SOURCE_ACCOUNT :226, the FLOOD_* periods and rates
-    :232-235, CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING :265,
-    PUBLISH_TO_ARCHIVE_DELAY :280, MAX_CONCURRENT_SUBPROCESSES :288,
-    ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING :294,
-    RETRY_SUPPRESSION_SECONDS :479; network_id() :489, node_id() :494,
-    jitter_seed() :498 (here the seed given) and mode_does_catchup()
-    :521. `overrides` set fields on top, as a node's configuration
-    file or the simulation (SIMULATION_NODE) does."""
-    from types import SimpleNamespace
-    cfg = SimpleNamespace(
-        NETWORK_PASSPHRASE=passphrase, NODE_SEED=None,
-        NODE_IS_VALIDATOR=False, RUN_STANDALONE=False, MANUAL_CLOSE=False,
-        MODE_DOES_CATCHUP=True, FORCE_SCP=False, LEDGER_PROTOCOL_VERSION=21,
-        EXPECTED_LEDGER_CLOSE_TIME=5.0, MAX_TX_SET_SIZE=1000,
-        QUORUM_SET=quorum_set_config(pkg), QUORUM_INTERSECTION_CHECKER=True,
-        TRANSACTION_QUEUE_SIZE_MULTIPLIER=2, TRANSACTION_QUEUE_BAN_DEPTH=10,
-        TRANSACTION_QUEUE_PENDING_DEPTH=4, HISTORY={},
-        CATCHUP_PIPELINE=True, CATCHUP_PIPELINE_AHEAD_CHECKPOINTS=8,
-        CATCHUP_PIPELINE_BYTE_BUDGET=64 * 1024 * 1024,
-        CATCHUP_PIPELINE_PREVALIDATE_AHEAD=4,
-        ARTIFICIALLY_SET_CLOSE_TIME_FOR_TESTING=0,
-        APPLY_PARALLEL=APPLY_PARALLEL,
-        APPLY_PARALLEL_MIN_TXS=APPLY_PARALLEL_MIN_TXS,
-        MAX_SLOTS_TO_REMEMBER=12, LIMIT_TX_QUEUE_SOURCE_ACCOUNT=False,
-        FLOOD_TX_PERIOD_MS=0, FLOOD_OP_RATE_PER_LEDGER=2.0,
-        FLOOD_SOROBAN_TX_PERIOD_MS=0, FLOOD_SOROBAN_RATE_PER_LEDGER=2.0,
-        CATCHUP_WAIT_MERGES_TX_APPLY_FOR_TESTING=False,
-        PUBLISH_TO_ARCHIVE_DELAY=0.0, MAX_CONCURRENT_SUBPROCESSES=16,
-        ARTIFICIALLY_DELAY_BUCKET_APPLICATION_FOR_TESTING=0.0,
-        RETRY_SUPPRESSION_SECONDS=300.0)
-    vars(cfg).update(overrides)
-    network_id = hashlib.sha256(passphrase.encode()).digest()
-    cfg.network_id = lambda: network_id
-    cfg.node_id = lambda: cfg.NODE_SEED.public_key().raw
-    cfg.jitter_seed = lambda: jitter_seed
-    cfg.mode_does_catchup = lambda: cfg.MODE_DOES_CATCHUP
+def app_config(pkg, passphrase, directory, **overrides):
+    """`pkg`'s Config (main/config.py) at its defaults for a node whose
+    sqlite database and bucket directory are in `directory`, on the
+    network `passphrase`, with MANUAL_TIMERS and then `overrides` set on
+    top, as a node's configuration file or the simulation sets them."""
+    cfg = pkg.config.Config()
+    cfg.NETWORK_PASSPHRASE = passphrase
+    cfg.DATABASE = "sqlite3://" + os.path.join(directory, "node.db")
+    cfg.BUCKET_DIR_PATH = os.path.join(directory, "buckets")
+    for k, v in dict(MANUAL_TIMERS, **overrides).items():
+        setattr(cfg, k, v)
     return cfg
 
 
-# the simulation's validator (simulation/simulation.py:59-69 of the JAX
+def start_app(pkg, cfg, clock=None, start=True):
+    """`pkg`'s Application (main/application.py) of `cfg` on `clock` (a
+    virtual clock of its own when None), on a new database, started
+    (genesis at the config's protocol, the herder, and for a FORCE_SCP
+    validator its bootstrap) unless `start` is False: the node
+    ApplyBucketsWork fills."""
+    clock = clock or pkg.timer.VirtualClock(pkg.timer.ClockMode.VIRTUAL_TIME)
+    os.makedirs(os.path.dirname(cfg.DATABASE[len("sqlite3://"):]),
+                exist_ok=True)
+    app = pkg.application.Application.create(clock, cfg)
+    if start:
+        app.start()
+    return app
+
+
+# the simulation's validator (simulation/simulation.py:59-75 of the JAX
 # package): standalone with FORCE_SCP, closing on its own timers
 SIMULATION_NODE = dict(NODE_IS_VALIDATOR=True, RUN_STANDALONE=True,
                        FORCE_SCP=True, MANUAL_CLOSE=False,
                        EXPECTED_LEDGER_CLOSE_TIME=1.0, MAX_TX_SET_SIZE=1000)
-
-
-class NodeApp:
-    """A stand-in for the Application (the port has none yet) holding
-    what the herder, catchup, the history manager and the catchup
-    manager read from `app`: `config` (node_config), a clock (`clock`,
-    else its own virtual clock), perf zones, an idle flight recorder, a
-    LedgerManager over a sqlite Database and a BucketManager in
-    `directory` (close_node, with `meta` as its LedgerCloseMeta stream)
-    with its persistent state, metrics, `verify_service` and
-    `batch_verifier` (None unless given; catchup_run sets the latter),
-    the package's Herder, the process manager, a work scheduler and the
-    history manager, of `pkg` (close_modules() by default). Wired as
-    main/application.py of the JAX package wires them (:200-277): the
-    staged apply from the config, the manager's verify service, the
-    herder's metrics, verify (default_verify), batch verifier, verify
-    service, perf zones and clock, the history manager's queued buckets
-    kept from bucket GC and the ledger manager's history manager set.
-    Genesis at the config's protocol unless the files hold a ledger, or
-    `genesis` is False (the node ApplyBucketsWork fills). `shutdown`
-    tears down as Application.shutdown does, ending with the package's
-    gcpolicy.teardown_collect() (:551-557)."""
-
-    def __init__(self, directory, config, pkg=None, clock=None,
-                 genesis=True, meta=None, verify_service=None,
-                 batch_verifier=None):
-        pkg = self.pkg = pkg or close_modules()
-        self.config = config
-        self.clock = clock or pkg.timer.VirtualClock(
-            pkg.timer.ClockMode.VIRTUAL_TIME)
-        self.perf = pkg.perf.ZoneRegistry()
-        self.flight_recorder = pkg.tracing.FlightRecorder()
-        self.perf.tracer = self.flight_recorder
-        self.metrics = pkg.metrics.MetricsRegistry()
-        os.makedirs(directory, exist_ok=True)
-        lm = close_node(pkg, directory, config.NETWORK_PASSPHRASE, meta)
-        lm.perf = self.perf
-        lm.apply_parallel = config.APPLY_PARALLEL
-        lm.apply_parallel_min_txs = config.APPLY_PARALLEL_MIN_TXS
-        lm.verify_service = self.verify_service = verify_service
-        self.ledger_manager, self.database = lm, lm.db
-        self.bucket_manager = lm.bucket_manager
-        self.bucket_manager.bucket_list.perf = self.perf
-        self.persistent_state = lm.persistent_state
-        self.batch_verifier = batch_verifier
-        self.herder = pkg.herder.Herder(
-            config, lm, metrics=self.metrics,
-            verify=pkg.checker.default_verify,
-            batch_verifier=batch_verifier, verify_service=verify_service)
-        self.herder.perf = self.perf
-        self.herder.set_clock(self.clock)
-        self.process_manager = pkg.process.ProcessManager(
-            self, max_concurrent=config.MAX_CONCURRENT_SUBPROCESSES)
-        self.work_scheduler = pkg.work.WorkScheduler(self)
-        self.history_manager = pkg.history.HistoryManager(self)
-        self.bucket_manager.gc_ref_providers.append(
-            self.history_manager.queued_bucket_hashes)
-        lm.history_manager = self.history_manager
-        entry = pkg.persistent_state.StateEntry
-        self.persistent_state.set(entry.NETWORK_PASSPHRASE,
-                                  config.NETWORK_PASSPHRASE)
-        if genesis and not lm.load_last_known_ledger():
-            lm.start_new_ledger(config.network_id(),
-                                config.LEDGER_PROTOCOL_VERSION)
-            self.persistent_state.set(
-                entry.LAST_CLOSED_LEDGER,
-                lm.get_last_closed_ledger_hash().hex())
-
-    def shutdown(self):
-        self.herder.shutdown()
-        self.work_scheduler.shutdown()
-        self.process_manager.shutdown()
-        self.ledger_manager.join_completion(reraise=False)
-        self.bucket_manager.shutdown()
-        self.database.close()
-        self.pkg.gcpolicy.teardown_collect()
 
 
 def archive_commands(root):
@@ -3405,8 +3402,9 @@ def catchup_workload(accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
 
 
 def catchup_publish(wl, directory):
-    """Phase 14's publisher: a NodeApp in `directory`/publisher whose
-    history manager publishes every checkpoint to the tmpdir archive
+    """Phase 14's publisher: an Application in `directory`/publisher
+    (app_config, start_app) whose history manager publishes every
+    checkpoint to the tmpdir archive
     `directory`/archive; genesis, then every close of `wl` (close_data,
     close_ledger, join_completion, as close_run makes them). Returns the
     archive's root, each ledger's header hash, the signature checks each
@@ -3414,8 +3412,9 @@ def catchup_publish(wl, directory):
     close), the published checkpoint count and the archive's HAS."""
     pkg = close_modules()
     root = os.path.join(directory, "archive")
-    app = NodeApp(os.path.join(directory, "publisher"), node_config(
-        pkg, wl["passphrase"], HISTORY=archive_commands(root)), pkg)
+    app = start_app(pkg, app_config(
+        pkg, wl["passphrase"], os.path.join(directory, "publisher"),
+        HISTORY=archive_commands(root)))
     lm, nid = app.ledger_manager, wl["network_id"]
     hashes, checks = {}, {}
     undo = counted_verify_cache(pkg.keys)
@@ -3492,7 +3491,8 @@ def work_batches(work, streaming):
 
 def catchup_run(archive_root, passphrase, directory, streaming, to_ledger,
                 verifier):
-    """One catchup of a fresh NodeApp in `directory` from the tmpdir
+    """One catchup of a fresh Application in `directory` (app_config at
+    the native backend, start_app) from the tmpdir
     archive at `archive_root`: StreamingCatchupWork (the node's default,
     CATCHUP_PIPELINE) or the sequential CatchupWork, complete, to
     `to_ledger` (0: the archive's last), holding the archived results
@@ -3509,7 +3509,7 @@ def catchup_run(archive_root, passphrase, directory, streaming, to_ledger,
     from stellar_core_tpu_torch.tx import signature_checker as sigchk
     pkg = close_modules()
     cu = pkg.catchup
-    app = NodeApp(directory, node_config(pkg, passphrase), pkg)
+    app = start_app(pkg, app_config(pkg, passphrase, directory))
     rec = app.batch_verifier = RecordingVerifier(verifier(app))
     fallbacks = []
 
@@ -3843,16 +3843,21 @@ def consensus_loopback(pkg, herders, clock, corrupt_first=False):
 def consensus_run(wl, directory, pkg=None, services=None,
                   nodes=CONSENSUS_NODES, burst=CONSENSUS_BURST,
                   corrupt_first=False, snapshot=None):
-    """Phase 15's network: `nodes` validators (each a NodeApp in
-    `directory`/node<i> of node_config on the workload's passphrase with
-    topologies.core's seed and quorum set and SIMULATION_NODE, whose
-    herder's Upgrades vote maxTxSetSize CLOSE_MAX_TX_SET from the first
-    slot) on one VirtualClock in VIRTUAL_TIME,
-    joined by consensus_loopback, started as the Application starts a
-    FORCE_SCP validator (Herder.start, then bootstrap). `services(i,
-    clock)` gives node i's (verify service, batch verifier); None: both
-    None, all native. For each close of `wl` (close_workload's; close k
-    is slot k + 2, its upgrades voted by the herders instead), every
+    """Phase 15's network: `nodes` validators (each `pkg`'s Application
+    in `directory`/node<i> of app_config on the workload's passphrase
+    with topologies.core's seed and quorum set and SIMULATION_NODE, at
+    the native backend, whose herder's Upgrades vote maxTxSetSize
+    CLOSE_MAX_TX_SET from the first slot) on one VirtualClock in
+    VIRTUAL_TIME, joined by consensus_loopback in place of the overlay
+    (each herder's broadcast goes to it, and no overlay peer is ever
+    connected), then started (Application.start: genesis, Herder.start,
+    then bootstrap). `services(i, clock)` gives node i's (verify
+    service, batch verifier), set where the Application sets those of
+    the device backend (the app, its herder, its ledger manager's
+    prewarm); None: both None, all native. Each close's LedgerCloseMeta
+    is kept from the ledger manager's meta stream. For each close of
+    `wl` (close_workload's; close k is slot k + 2, its upgrades voted by
+    the herders instead), every
     node admits the close's envelopes, each node its own frames made
     from the bytes, through recv_transactions(frames, bad_sig=...) in
     bursts of `burst`, burst by burst and node by node; then the clock
@@ -3913,18 +3918,23 @@ def consensus_run(wl, directory, pkg=None, services=None,
         h.verify_stellar_value_signature = value
         h.trigger_next_ledger_scp = triggered
 
-    qset = quorum_set_config(pkg, (2 * nodes + 2) // 3, validators)
+    qset = pkg.config.QuorumSetConfig(threshold=(2 * nodes + 2) // 3,
+                                      validators=validators)
     apps = []
     for i, seed in enumerate(seeds):
-        cfg = node_config(pkg, wl["passphrase"],
-                          NODE_SEED=pkg.keys.SecretKey.from_seed(seed),
-                          QUORUM_SET=qset, **SIMULATION_NODE)
+        cfg = app_config(pkg, wl["passphrase"],
+                         os.path.join(directory, f"node{i}"),
+                         NODE_SEED=pkg.keys.SecretKey.from_seed(seed),
+                         QUORUM_SET=qset, **SIMULATION_NODE)
+        app = start_app(pkg, cfg, clock, start=False)
+        apps.append(app)
         svc, bv = services(i, clock) if services else (None, None)
         metas.append([])
-        apps.append(NodeApp(os.path.join(directory, f"node{i}"), cfg, pkg,
-                            clock, meta=metas[i].append, verify_service=svc,
-                            batch_verifier=bv))
-        h = apps[i].herder
+        app.ledger_manager.meta_stream = metas[i].append
+        app.verify_service = app.herder.verify_service = \
+            app.ledger_manager.verify_service = svc
+        app.batch_verifier = app.herder.batch_verifier = bv
+        h = app.herder
         h.upgrades.set_parameters(pkg.upgrades.UpgradeParameters(
             upgrade_time=0, max_tx_set_size=CLOSE_MAX_TX_SET))
         wrap(i, h)
@@ -3941,9 +3951,8 @@ def consensus_run(wl, directory, pkg=None, services=None,
     snap = snapshot or (lambda i: None)
     nid = wl["network_id"]
     try:
-        for h in herders:
-            h.start()
-            h.bootstrap()
+        for app in apps:
+            app.start()
         for k, c in enumerate(wl["closes"]):
             slot = k + 2
             frames = [[pkg.frame.make_frame(
@@ -4353,6 +4362,350 @@ def consensus_phase(card, imad_per_s, accounts=CLOSE_ACCOUNTS, txs=CLOSE_TXS,
     return launches, kernels
 
 
+def node_run(backend, load=NODE_LOAD, ledgers=NODE_LEDGERS, after=None):
+    """Phase 16's network, as tests/node_mix.py --load runs it: the
+    port's simulation/topologies.core(CONSENSUS_NODES) (seeds
+    sha256("topo-core-i"), one flat quorum set of threshold 3, network
+    CORE_PASSPHRASE, one VirtualClock in virtual time, a
+    LoopbackPeerConnection for every pair of nodes through the overlay's
+    handshake, MAC and flow control), every node's Config voting
+    TESTING_UPGRADE_MAX_TX_SET_SIZE max(load, 100) and selecting
+    SIGNATURE_VERIFY_BACKEND `backend`; the Application builds what that
+    backend needs. Node 0's LoadGenerator(seed=NODE_LOAD_SEED) submits
+    the creation of `load` accounts before the first ledger after
+    start, then `load` payments before each of the next `ledgers` - 1;
+    Simulation.crank_until drives the network until every node has
+    closed each ledger. `after(apps)` runs once the last ledger closed,
+    before the nodes stop. Records per node: the externalized (slot,
+    value) pairs, each recv_transactions call's frames and wall in
+    order, the verify_envelope and StellarValue verifies, the service's
+    and the supervisor's state (None on the native backend), the
+    overlay's peers report; per close the header, its hash, the result
+    pairs and the LedgerCloseMeta as bytes; each ledger's wall; the
+    txset prevalidator's verify-cache probes; every node's LCL hash; and
+    what `after` returns."""
+    from stellar_core_tpu_torch.crypto import keys
+    from stellar_core_tpu_torch.simulation import topologies
+    from stellar_core_tpu_torch.simulation.load_generator import \
+        LoadGenerator
+
+    def configure(cfg):
+        cfg.TESTING_UPGRADE_MAX_TX_SET_SIZE = max(load, 100)
+        cfg.SIGNATURE_VERIFY_BACKEND = backend
+    sim = topologies.core(CONSENSUS_NODES, configure=configure)
+    apps = sim.apps()
+    n = len(apps)
+    rec = dict(externalized=[[] for _ in apps], bursts=[[] for _ in apps],
+               consensus=[collections.Counter() for _ in apps],
+               metas=[[] for _ in apps], ledgers=[], probes=[0, 0])
+
+    def wrap(i, h):
+        ext, recv = h.value_externalized_from_scp, h.recv_transactions
+        verify_env, verify_sv = (h.verify_envelope,
+                                 h.verify_stellar_value_signature)
+
+        def externalized(slot, value):
+            rec["externalized"][i].append((slot, bytes(value)))
+            return ext(slot, value)
+
+        def received(frames, bad_sig=None):
+            t0 = time.perf_counter()
+            out = recv(frames, bad_sig)
+            rec["bursts"][i].append((len(frames), time.perf_counter() - t0))
+            return out
+
+        def envelope(env):
+            rec["consensus"][i]["envelope"] += 1
+            return verify_env(env)
+
+        def value(sv):
+            rec["consensus"][i]["value"] += 1
+            return verify_sv(sv)
+        h.value_externalized_from_scp = externalized
+        h.recv_transactions = received
+        h.verify_envelope = envelope
+        h.verify_stellar_value_signature = value
+    for i, app in enumerate(apps):
+        app.ledger_manager.meta_stream = rec["metas"][i].append
+        wrap(i, app.herder)
+    probe = keys.probe_verify_cache
+
+    def counted_probe(*t):
+        hit = probe(*t)
+        rec["probes"][hit is None] += 1
+        return hit
+    keys.probe_verify_cache = counted_probe
+    try:
+        sim.start_all_nodes()
+        first = min(a.ledger_manager.get_last_closed_ledger_num()
+                    for a in apps)
+        gen = LoadGenerator(apps[0], seed=NODE_LOAD_SEED)
+        gen.generate_accounts(load)
+        for seq in range(first + 1, first + 1 + ledgers):
+            if seq > first + 1:
+                gen.sync_account_seqs()
+                gen.generate_payments(load)
+            t0 = time.perf_counter()
+            if not sim.crank_until(lambda: sim.have_all_externalized(seq),
+                                   NODE_TIMEOUT_S):
+                raise SystemExit(f"node: ledger {seq} did not close on "
+                                 f"every node within {NODE_TIMEOUT_S} "
+                                 "virtual seconds")
+            rec["ledgers"].append((seq, time.perf_counter() - t0))
+        for a in apps:
+            a.ledger_manager.join_completion()
+        keys.probe_verify_cache = probe
+        rec["submitted"], rec["failed"] = gen.submitted, gen.failed
+        rec["lcl"] = [a.ledger_manager.get_last_closed_ledger_hash()
+                      for a in apps]
+        rec["closes"] = [[dict(
+            header=m.value.ledgerHeader.header.to_bytes(),
+            hash=bytes(m.value.ledgerHeader.hash),
+            results=[t.result.to_bytes() for t in m.value.txProcessing],
+            meta=m.to_bytes()) for m in ms] for ms in rec.pop("metas")]
+        rec["peers"] = [a.overlay_manager.peers_json() for a in apps]
+        rec["services"] = [a.verify_service and a.verify_service.stats()
+                           for a in apps]
+        rec["supervisors"] = [a.batch_verifier and a.batch_verifier.status()
+                              for a in apps]
+        rec["after"] = after(apps) if after else None
+    finally:
+        keys.probe_verify_cache = probe
+        sim.stop_all_nodes()
+    rec["nodes"] = n
+    return rec
+
+
+def node_counts(rec, calls, inner, min_batch):
+    """Phase 16's counts in NODE_EXPECTED's shape from run A's record
+    (node_run's) and the verifier calls it made (`calls`: [verifier id,
+    tuples, verdicts, wall] in dispatch order; `inner[i]` node i's
+    verifier id), as tests/node_mix.py --backend counts them."""
+    out = {"recv_transactions_calls": [[f for f, _ in b]
+                                       for b in rec["bursts"]],
+           "verifier": [], "prevalidator_probes": {
+               "hits": rec["probes"][0], "misses": rec["probes"][1]},
+           "lcl": sorted({h.hex() for h in rec["lcl"]})}
+    for i in range(rec["nodes"]):
+        sizes = [(len(items), "bypass" if len(items) < min_batch else
+                  "msg32" if all(len(m) == 32 for _, _, m in items)
+                  else "k")
+                 for v, items, _, _ in calls if v == inner[i]]
+        by_mode = collections.Counter(mode for _, mode in sizes)
+        st = rec["services"][i]
+        out["verifier"].append({
+            "device": {"msg32": by_mode["msg32"], "k": by_mode["k"]},
+            "bypass": by_mode["bypass"],
+            "device_sizes": [list(x) for x in sorted(collections.Counter(
+                s for s, mode in sizes if mode != "bypass").items())],
+            "bypass_sizes": [list(x) for x in sorted(collections.Counter(
+                s for s, mode in sizes if mode == "bypass").items())],
+            "flush_reasons": {r: c for r, c in sorted(
+                st["flush_reasons"].items()) if c},
+            "fallbacks": st["fallbacks"],
+            "consensus_calls": dict(sorted(rec["consensus"][i].items()))})
+    return out
+
+
+def node_phase(card, imad_per_s, expected=NODE_EXPECTED, load=NODE_LOAD,
+               ledgers=NODE_LEDGERS):
+    """Phase 16: the node (BASELINE.json config #5, LoadGenerator
+    max-TPS across a multi-node topology): node_run's four port
+    validators, run A with SIGNATURE_VERIFY_BACKEND "cuda" (each
+    Application builds its BackendSupervisor(CudaBatchVerifier()) and
+    VerifyService at the node's defaults; nothing here wires a verifier
+    into a node), run B "native". While run A runs, every call of
+    CudaBatchVerifier.verify_tuples_async is recorded (tuples, verdicts,
+    dispatch to collected); once its last ledger closed, self_check
+    runs on node 0 (two 1,024-signature batches on a CudaBatchVerifier
+    of its own, the service warm-up of max(4, device cutoff) signatures,
+    the supervisor's state). The launch counters are set to 0 just
+    before run A and read just after self_check. Fails unless every
+    node externalizes the same value in every slot, once each; every
+    node lands on one LCL, equal to run B's; every close's header,
+    hash, result pairs and LedgerCloseMeta are equal on every node and
+    in both runs; the counts (node_counts) are `expected`; every device
+    flush equals the oracle (worker processes); prep msg32 and ladder
+    launches each equal the device dispatches plus self_check's two
+    batches, with no k launch unless a device flush held a long
+    message; every supervisor ends CLOSED with 0 failures and 0 skips
+    and every service with 0 fallbacks; self_check reports ok. Then
+    held_kernels holds both kernels against their plain versions on
+    the rows of run A's first device flush whose size is not a multiple
+    of 32, and times them there. Prints the ledger walls, the bursts'
+    walls, the overlay's counters, the bursts per node and self_check's
+    device verifies per second beside the card. Returns the launches of
+    run A by kernel and held_kernels' result."""
+    from stellar_core_tpu_torch.crypto import ed25519_ref as ref
+    from stellar_core_tpu_torch.crypto.keys import clear_verify_cache
+    from stellar_core_tpu_torch.main.self_check import self_check
+    from stellar_core_tpu_torch.ops.backend_supervisor import CLOSED
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+
+    calls, inner = [], []
+    dispatch = CudaBatchVerifier.verify_tuples_async
+
+    def recorded(self, items):
+        entry = [id(self), list(items), None, None]
+        calls.append(entry)
+        t0 = time.perf_counter()
+        collect = dispatch(self, items)
+
+        def done():
+            got = collect()
+            entry[2], entry[3] = list(got), time.perf_counter() - t0
+            return got
+        return done
+
+    def after(apps):
+        inner.extend(id(a.batch_verifier._inner) for a in apps)
+        phase_calls = len(calls)
+        t0 = time.perf_counter()
+        ok, report = self_check(apps[0])
+        return dict(ok=ok, report=report, wall_s=time.perf_counter() - t0,
+                    phase_calls=phase_calls)
+
+    min_batch = LIVE["device_min_batch"]
+    clear_verify_cache()
+    zero_launches()
+    CudaBatchVerifier.verify_tuples_async = recorded
+    t0 = time.perf_counter()
+    try:
+        a = node_run("cuda", load, ledgers, after)
+    finally:
+        CudaBatchVerifier.verify_tuples_async = dispatch
+    a_s = time.perf_counter() - t0
+    launches = launch_counts()
+    clear_verify_cache()
+    zero_launches()
+    t0 = time.perf_counter()
+    b = node_run("native", load, ledgers)
+    b_s = time.perf_counter() - t0
+    b_launches = launch_counts()
+
+    sc = a["after"]
+    phase_calls, warm = calls[:sc["phase_calls"]], calls[sc["phase_calls"]:]
+    got = node_counts(a, phase_calls, inner, min_batch)
+    device = [c for c in calls if len(c[1]) >= min_batch]
+    flood = sorted({t for c in device for t in c[1]})
+    pool = multiprocessing.get_context("spawn").Pool(
+        max(1, min(7, (os.cpu_count() or 2) - 1)))
+    try:
+        t0 = time.perf_counter()
+        want = dict(zip(flood, pool.starmap(ref.verify, flood,
+                                            chunksize=64)))
+        oracle_s = time.perf_counter() - t0
+        pool.close()
+    finally:
+        pool.terminate()
+        pool.join()
+
+    problems = []
+    slots = [s for s, _ in a["externalized"][0]]
+    if sorted(set(slots)) != slots or not slots:
+        problems.append(f"node 0 externalized slots {slots}")
+    for i in range(a["nodes"]):
+        if a["externalized"][i] != a["externalized"][0]:
+            problems.append(f"node {i} externalized other values or slots "
+                            "than node 0")
+        if a["closes"][i] != a["closes"][0]:
+            problems.append(f"node {i}'s closes differ from node 0's")
+    if len(set(a["lcl"])) != 1 or a["lcl"] != b["lcl"]:
+        problems.append(f"LCL A {[h.hex()[:16] for h in a['lcl']]} B "
+                        f"{[h.hex()[:16] for h in b['lcl']]}")
+    for key in ("closes", "externalized"):
+        if a[key] != b[key]:
+            problems.append(f"runs A and B differ in {key}")
+    if got != expected:
+        diff = [k for k in expected if got.get(k) != expected[k]]
+        problems.append(f"counts off the prediction in {diff}: "
+                        + json.dumps({k: got.get(k) for k in diff}))
+    off = sum(g != want[t] for c in device for t, g in zip(c[1], c[2]))
+    if off:
+        problems.append(f"{off} device verdicts differ from the oracle")
+    dispatches = {"msg32": sum(all(len(m) == 32 for _, _, m in c[1])
+                               for c in device)}
+    dispatches["k"] = len(device) - dispatches["msg32"]
+    want_launch = {"msg32": dispatches["msg32"] + 2, "k": dispatches["k"],
+                   "ladder": len(device) + 2}
+    if launches != want_launch:
+        problems.append(f"run A launched {launches}; its device dispatches "
+                        f"{dispatches} and self_check's two batches give "
+                        f"{want_launch}")
+    if any(b_launches.values()):
+        problems.append(f"run B launched {b_launches}")
+    for i, (st, sv) in enumerate(zip(a["supervisors"], a["services"])):
+        if st["state"] != CLOSED or any(st["failures"].values()) or \
+                st["skips"] or st["transitions"] or sv["fallbacks"]:
+            problems.append(f"node {i} supervisor: {st['state']}, failures "
+                            f"{st['failures']}, skips {st['skips']}, "
+                            f"transitions {st['transitions']}; service "
+                            f"fallbacks {sv['fallbacks']}")
+    rep = sc["report"]
+    if not sc["ok"] or not rep.get("tpu_backend_ok") or \
+            not rep.get("verify_service_ok") or \
+            [len(c[1]) for c in warm] != [max(4, min_batch)]:
+        problems.append(f"self_check: ok {sc['ok']}, report {rep}, service "
+                        f"warm-up dispatches {[len(c[1]) for c in warm]}")
+    if problems:
+        raise SystemExit("node: " + "; ".join(problems))
+    first = next(c for c in device if len(c[1]) % 32)
+    kernels = held_kernels(first[1], imad_per_s, "node")
+
+    print(f"node: {a['nodes']} validators of the port's topologies.core on "
+          f"one virtual clock over loopback links; node 0's load generator "
+          f"submitted {a['submitted']} transactions ({a['failed']} not "
+          f"pending): {load} accounts, then {load} payments before each of "
+          f"{ledgers - 1} ledgers; run A (\"cuda\") {a_s:.3f} s, run B "
+          f"(\"native\") {b_s:.3f} s; the oracle of {len(flood)} signatures "
+          f"in {oracle_s:.3f} s after the runs [{card}]", flush=True)
+    for tag, r in (("A", a), ("B", b)):
+        print(f"  run {tag} ledger walls (crank_until, s): " + ", ".join(
+            f"{s}: {w:.3f}" for s, w in r["ledgers"]), flush=True)
+    for i, bursts in enumerate(a["bursts"]):
+        ws = [w for _, w in bursts]
+        print(f"  node {i}: {len(bursts)} recv_transactions calls, frames "
+              f"{[f for f, _ in bursts]}"
+              + (f"; walls min {min(ws) * 1e3:.1f} / median "
+                 f"{statistics.median(ws) * 1e3:.1f} / max "
+                 f"{max(ws) * 1e3:.1f} ms (run A)" if ws else "")
+              + f"; verifier {json.dumps(got['verifier'][i])}", flush=True)
+    walls = [c[3] for c in device]
+    print(f"  device flushes: {len(device)}, dispatch to collected min "
+          f"{min(walls) * 1e3:.3f} / median "
+          f"{statistics.median(walls) * 1e3:.3f} / max "
+          f"{max(walls) * 1e3:.3f} ms [{card}]", flush=True)
+    for i, peers in enumerate(a["peers"]):
+        links = peers["inbound"] + peers["outbound"]
+        flood_rep = peers.get("flood", {})
+        print(f"  node {i} overlay: " + json.dumps({
+            "links": [{k: p[k] for k in ("bytes_sent", "bytes_received",
+                                         "messages_sent",
+                                         "messages_received",
+                                         "duplicates", "demand")}
+                      for p in links],
+            "flood": {k: flood_rep[k] for k in flood_rep
+                      if k not in ("by_kind", "encode")},
+            "by_kind": flood_rep.get("by_kind")}), flush=True)
+    print(f"node: launches prep msg32 {launches['msg32']} = ladder "
+          f"{launches['ladder']} = {len(device)} device dispatches (the "
+          f"service warm-up's included) + self_check's 2; prep k "
+          f"{launches['k']}; txset prevalidator probes hits "
+          f"{a['probes'][0]} misses {a['probes'][1]}; supervisors CLOSED, "
+          f"0 failures, 0 skips; services' fallbacks 0; every node and "
+          f"both runs at LCL {a['lcl'][0].hex()[:16]}; self_check ok in "
+          f"{sc['wall_s']:.3f} s, verify_per_second_tpu_batch "
+          f"{rep['verify_per_second_tpu_batch']}, verify_per_second_cpu "
+          f"{rep['verify_per_second_cpu']} [{card}]", flush=True)
+    for name, e in kernels.items():
+        print(f"node {name}[msg32] on one flush's rows, n={e['n']}: "
+              f"{e['ms']:.4f} ms (plain {e['plain_ms']:.1f} ms, matches; "
+              f"bound {e['bound_ms']:.4f} ms = "
+              f"{e['bound_ms'] / e['ms']:.4f} of the time) [{card}]",
+              flush=True)
+    return launches, kernels
+
+
 def peak_rss(phase, started):
     """Print the process's peak resident set size (getrusage's
     ru_maxrss, KiB on Linux) once phase `phase` has passed."""
@@ -4721,12 +5074,17 @@ def main():
     consensus, consensus_times = consensus_phase(card, imad_per_s)
     peak_rss(15, started)
 
+    # --- 16. the node: four Applications over the overlay's loopback -----
+    node, node_times = node_phase(card, imad_per_s)
+    peak_rss(16, started)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
     # of phase 10 (classic), run A of phase 11 (soroban), run A of
     # phase 12 (wasm), run A of phase 13 (close), runs A1 and A2 of
-    # phase 14 (catchup) and run A of phase 15 (consensus)
+    # phase 14 (catchup), run A of phase 15 (consensus) and run A of
+    # phase 16 with node 0's self_check (node)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -4737,29 +5095,32 @@ def main():
             "txset": txset[kind], "classic": classic[kind],
             "soroban": soroban[kind], "wasm": wasm[kind],
             "close": close[kind], "catchup": catchup[kind],
-            "consensus": consensus[kind]}
+            "consensus": consensus[kind], "node": node[kind]}
         e["launches"] = sum(e["launches_by_path"].values())
         held = {"msg32": "prep", "ladder": "ladder"}.get(kind)
         if held:
-            # the same kernel on the largest catchup dispatch's rows and
-            # on one flood burst's rows
+            # the same kernel on the largest catchup dispatch's rows, on
+            # one flood burst's rows and on the node's first flush whose
+            # size is not a multiple of 32
             for path, times in (("catchup", catchup_times),
-                                ("consensus", consensus_times)):
+                                ("consensus", consensus_times),
+                                ("node", node_times)):
                 e[path] = {k: times[held][k] for k in (
                     "n", "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}
             print(f"{e['name']}: {e['ms']:.4f} ms at n={e['n']} (phase 3), "
                   f"{e['catchup']['ms']:.4f} ms at n={e['catchup']['n']} "
                   f"(phase 14), {e['consensus']['ms']:.4f} ms at "
-                  f"n={e['consensus']['n']} (phase 15) [{card}]",
-                  flush=True)
+                  f"n={e['consensus']['n']} (phase 15), "
+                  f"{e['node']['ms']:.4f} ms at n={e['node']['n']} "
+                  f"(phase 16) [{card}]", flush=True)
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)
                 and count.get("ladder", 0)):
             raise SystemExit(f"{path} path launched a kernel no time: "
                              f"{count}")
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s "
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))

@@ -1,12 +1,34 @@
-"""PyTorch/CUDA port of stellar_core_tpu, slice by slice.
+"""stellar_core_tpu_torch — the stellar-core validator of stellar_core_tpu,
+ported to PyTorch and CUDA on an NVIDIA card (written for the H100, sm_90a).
 
-The batch Ed25519 verifier (ops/verifier.py) runs two CUDA kernels
-written for sm_90a (ops/csrc/). The live verify path sits on it: the
-coalescing VerifyService (ops/verify_service.py) over the
-BackendSupervisor breaker and watchdog (ops/backend_supervisor.py),
-with copies of the util layer (util/) and the host C++ verifier
-(native/) under them. ShardedBatchVerifier (ops/verifier.py) splits a
-batch over several cards and HybridShardedVerifier (ops/multihost.py)
-over processes. This package imports torch and never jax, and nothing
-of stellar_core_tpu.
+A replicated state machine maintaining a cryptographic ledger in consensus
+with peers. The node logic (consensus, ledger, overlay, storage) is
+deterministic, single-logical-thread Python plus host C++ helpers, copied
+module by module from stellar_core_tpu. The one accelerated job, strict
+batch Ed25519 signature verification, runs two hand-written CUDA kernels
+(ops/csrc/) behind the same verify seam: `SIGNATURE_VERIFY_BACKEND =
+"cuda"` (or "tpu", the value the repo's config files write) selects it,
+with identical accept/reject semantics to the strict CPU path. On a CPU
+tensor every kernel wrapper runs its plain PyTorch version instead.
+
+This package imports torch and never jax, and nothing of stellar_core_tpu.
+
+Layer map:
+  util/    -> VirtualClock, Scheduler, logging, metrics, caches
+  crypto/  -> keys, hashing, strkey, curve25519, verify cache
+  ops/     -> CUDA kernels and their plain versions, batch verifiers
+              (one card, several cards, several processes), the verify
+              service, the backend supervisor, SLO watchdog, controller
+  native/  -> host C++ verifier and SHA-512
+  xdr/     -> XDR codec + protocol types
+  db/, bucket/ -> persistence
+  ledger/, tx/, invariant/, soroban/ -> ledger state machine
+  scp/, herder/ -> consensus
+  overlay/ -> p2p
+  work/, process/, history/, catchup/ -> history & catchup
+  query/   -> snapshot-consistent read serving
+  main/    -> Application, Config, CommandHandler
+  simulation/ -> in-process multi-node networks, LoadGenerator
 """
+
+__version__ = "0.1.0"

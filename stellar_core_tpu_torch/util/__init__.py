@@ -1,3 +1,17 @@
-"""Util layer the verify path needs: copies of the JAX package's util/
-modules (checks, logging, threads, timer, cache, tracing, perf, metrics,
-chaos), with the same names, metric names and chaos seam names."""
+"""Util / runtime layer (reference: src/util — SURVEY.md layer 1)."""
+
+from .timer import VirtualClock, VirtualTimer, ClockMode
+from .scheduler import Scheduler, ActionType
+from .cache import RandomEvictionCache
+from .checks import releaseAssert, AssertionFailed
+
+__all__ = [
+    "VirtualClock",
+    "VirtualTimer",
+    "ClockMode",
+    "Scheduler",
+    "ActionType",
+    "RandomEvictionCache",
+    "releaseAssert",
+    "AssertionFailed",
+]

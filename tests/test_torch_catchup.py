@@ -4,11 +4,10 @@ ops/verifier.prevalidate_coalesce) against the JAX package's, on the CPU.
 The JAX package's own publishing node (tests/test_history_catchup.py
 make_publishing_app: 130 ledgers with scattered payments, checkpoints 63
 and 127 published to a tmpdir archive through `cp`) is built once per
-module. The port has no Application yet, so its side runs on
-chip_smoke.NodeApp, a stand-in holding what catchup reads from `app`
-(the JAX package's config defaults, a virtual clock, a LedgerManager
-over a sqlite file and a bucket directory in tmp_path, the history and
-process managers, a work scheduler, the batch verifier). Held equal:
+module. The port's side runs on the port's Application
+(chip_smoke.app_config and start_app: the Config's defaults at the
+native backend, a virtual clock, a sqlite file and a bucket directory
+in tmp_path). Held equal:
 - prevalidate_coalesce on the reference's cases and on seeded count
   lists;
 - the work and process scenarios of test_history_catchup.py:53-121
@@ -134,9 +133,13 @@ def node_state(app):
 
 
 def port_node(published, directory, genesis=True, history=None):
-    return cs.NodeApp(str(directory), cs.node_config(
-        cs.close_modules(), published.passphrase, HISTORY=history or {}),
-        genesis=genesis)
+    """A port Application in `directory` (chip_smoke.app_config at the
+    native backend), started (genesis) unless `genesis` is False: the
+    node ApplyBucketsWork fills."""
+    pkg = cs.close_modules()
+    return cs.start_app(pkg, cs.app_config(
+        pkg, published.passphrase, str(directory), HISTORY=history or {}),
+        start=genesis)
 
 
 def run_catchup(root, app, archive_root, mode, to_ledger=0, **work_kw):
@@ -514,9 +517,12 @@ def manager_scenario(root, tmp_path):
     archive), the jittered suppression window and the drains."""
     hist, wk = mod(root, "history"), mod(root, "work")
     herder, clock, lcl = StandInHerder(), StandInClock(), [1]
+    config = cs.close_modules().config.Config()
+    config.NETWORK_PASSPHRASE = "catchup manager"
+    # a node without NODE_SEED draws its jitter seed once: fixed here
+    config._fallback_jitter_seed = 0x5eed
     app = SimpleNamespace(
-        config=cs.node_config(cs.close_modules(), "catchup manager",
-                              jitter_seed=0x5eed),
+        config=config,
         herder=herder, clock=clock,
         history_manager=SimpleNamespace(archives=[
             hist.HistoryArchive("a", get_cmd="cp a/{0} {1}"),

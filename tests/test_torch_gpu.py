@@ -6,8 +6,10 @@ on a stand-in mesh of four positions, the v1 entry against the oracle, and
 the txset validation path (chip_smoke.py phase 9 at 64 transactions),
 the classic operation families on it (phase 10 at 64 transactions), the
 contract auth-entry batches of phase 11 at 200 transactions, the wasm
-contracts of phase 12 at 200 transactions, and phases 13-15 (the close,
-catchup, consensus and flood admission) at small sizes.
+contracts of phase 12 at 200 transactions, phases 13-16 (the close,
+catchup, consensus and flood admission, the node) at small sizes, and
+the JAX package's north-star catchup test rebound to the port on the
+card.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -377,3 +379,93 @@ def test_consensus_on_card(card):
     assert launches == {"msg32": 8, "k": 0, "ladder": 8}
     assert {k: e["n"] for k, e in kernels.items()} == {"prep": 100,
                                                        "ladder": 100}
+
+
+def test_node_on_card(card):
+    """chip_smoke.py phase 16 at 2 ledgers, with its checks: four port
+    Applications of the port's topologies.core(4) over the overlay's
+    loopback links, node 0's load generator creating 1,000 accounts and
+    submitting 1,000 payments, run A on SIGNATURE_VERIFY_BACKEND "cuda"
+    (each Application builds its own supervisor and service on the card)
+    against run B "native", then self_check on node 0. The counts it is
+    held to come from tests/node_mix.py --backend on this machine's CPU
+    at the same depth (a counting host verifier in place of the card's)."""
+    import chip_smoke as cs
+    import node_mix
+    mix = node_mix.count(ledgers=2, load=cs.NODE_LOAD, port=True,
+                         backend=True)
+    expected = {k: mix[k] for k in cs.NODE_EXPECTED}
+    rate = (torch.cuda.get_device_properties(card).multi_processor_count
+            * cs.IMAD_PER_SM_CLK
+            * float(cs.smi("clocks.max.sm").split()[0]) * 1e6)
+    try:
+        launches, kernels = cs.node_phase(str(card), rate, expected,
+                                          ledgers=2)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    device = sum(v["device"]["msg32"] for v in expected["verifier"])
+    # the phase's device dispatches, self_check's service warm-up of 16
+    # and its two 1,024-signature batches
+    assert launches == {"msg32": device + 3, "k": 0, "ladder": device + 3}
+    assert kernels["prep"]["n"] % 32 and kernels["ladder"]["match"]
+
+
+def test_catchup_with_device_batch_prevalidation(card, tmp_path):
+    """The JAX package's north-star test (tests/test_history_catchup.py
+    ::test_catchup_with_tpu_batch_prevalidation) on the port with
+    SIGNATURE_VERIFY_BACKEND "cuda": the reference's publishing node,
+    rebound to the port, publishes checkpoints 63 and 127; a fresh port
+    Application catches up through CatchupWork with each checkpoint's
+    signatures batch-verified on the card before apply (the device cutoff
+    lowered to 1, so that every batch is a device dispatch): the same
+    chain, hits > 0, 0 misses, and kernel launches equal to the device
+    dispatches."""
+    import chip_smoke as cs
+    import test_history_catchup as ref_hc
+    from torch_rebind import helper_module
+    from stellar_core_tpu_torch.catchup import (CatchupConfiguration,
+                                                CatchupWork)
+    from stellar_core_tpu_torch.main import Application, get_test_config
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.work import State, run_work_to_completion
+    hc = helper_module(ref_hc)
+    app_a, archive, _ = hc.make_publishing_app(tmp_path)
+    try:
+        hash_a = bytes(app_a.database.query_one(
+            "SELECT ledgerhash FROM ledgerheaders WHERE ledgerseq=127")[0])
+        cfg_b = get_test_config()
+        cfg_b.NETWORK_PASSPHRASE = app_a.config.NETWORK_PASSPHRASE
+        cfg_b.SIGNATURE_VERIFY_BACKEND = "cuda"
+        # each of the publisher's checkpoints holds fewer signatures than
+        # the node's device cutoff (16), so at the default every batch
+        # would take the native bypass: here every batch goes to the card
+        cfg_b.VERIFY_DEVICE_MIN_BATCH = 1
+        app_b = Application.create(VirtualClock(ClockMode.VIRTUAL_TIME),
+                                   cfg_b)
+        app_b.start()
+        try:
+            work = CatchupWork(app_b, archive,
+                               CatchupConfiguration(to_ledger=0),
+                               batch_grace=60.0)
+            assert work.batch_verifier is app_b.batch_verifier
+            cs.zero_launches()
+            assert run_work_to_completion(app_b, work,
+                                          timeout_virtual=3000) == \
+                State.WORK_SUCCESS
+            launches = cs.launch_counts()
+            lm = app_b.ledger_manager
+            assert lm.get_last_closed_ledger_num() == 127
+            assert lm.get_last_closed_ledger_hash() == hash_a
+            pv = [cw.prevalidated for cw in work.applied_checkpoints
+                  if cw.prevalidated is not None]
+            assert sum(p.hits for p in pv) > 0
+            assert sum(p.misses for p in pv) == 0
+            dispatches = app_b.metrics.to_json()[
+                "crypto.verify.dispatch.batch"]["count"]
+            assert dispatches > 0
+            assert launches == {"msg32": dispatches, "k": 0,
+                                "ladder": dispatches}
+        finally:
+            app_b.shutdown()
+    finally:
+        app_a.shutdown()

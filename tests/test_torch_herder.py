@@ -15,14 +15,14 @@ flipped signature byte per slot, and one SCP envelope delivered once
 with a corrupted signature) runs from the same seeds and bytes: the
 AddResults and bad_sig lists, every node's emitted envelopes, the
 externalized values, the LCL hashes, every close's bytes and every
-verify_envelope and StellarValue verdict must be equal. Each node's
-verify service and batch verifier are its package's own, at a device
+verify_envelope and StellarValue verdict must be equal. Each node is
+its package's Application; its verify service and batch verifier are
+its package's own, at a device
 cutoff above every flush, so every verification is native and the JAX
 package compiles nothing. One case sends a burst of 20 through
 CudaBatchVerifier("cpu")'s plain kernels: its one plain dispatch.
 """
 
-import ast
 import contextlib
 import importlib
 from pathlib import Path
@@ -31,8 +31,8 @@ import pytest
 
 import chip_smoke as cs
 import test_tx_queue_sweep as ref_tqs
-from torch_rebind import jax_case, port_case, port_function, rebound, \
-    reference_cases
+from torch_rebind import jax_case, module_code, port_case, port_function, \
+    rebound, reference_cases
 from torch_tx_parity import J, P, clear_caches
 
 CASES = reference_cases(ref_tqs)
@@ -48,28 +48,10 @@ COPIED = ("util/gcpolicy.py", "scp/__init__.py", "scp/driver.py",
           "herder/__init__.py", "crypto/__init__.py")
 
 
-def _code(path, swap=False):
-    """The module's AST without its docstrings (comments never reach
-    it), the JAX package's name swapped for the port's with `swap`."""
-    text = path.read_text()
-    if swap:
-        text = text.replace("stellar_core_tpu", "stellar_core_tpu_torch")
-    tree = ast.parse(text)
-    for node in ast.walk(tree):
-        body = getattr(node, "body", None)
-        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
-                             ast.AsyncFunctionDef)) and body and \
-                isinstance(body[0], ast.Expr) and \
-                isinstance(body[0].value, ast.Constant) and \
-                isinstance(body[0].value.value, str):
-            node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
-
-
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_modules_equal_the_reference_on_the_ast(path):
-    assert _code(ROOT / "stellar_core_tpu_torch" / path) == \
-        _code(ROOT / "stellar_core_tpu" / path, swap=True)
+    assert module_code(ROOT / "stellar_core_tpu_torch" / path) == \
+        module_code(ROOT / "stellar_core_tpu" / path, swap=True)
 
 
 @pytest.fixture(autouse=True)

@@ -12,13 +12,14 @@ LedgerManager.close_ledger (the closed header's bytes and hash, or the
 error), and, as a multiset, the hash of every Bucket made (merges run on
 background threads); the two records must be equal. Fixtures get each
 package's own objects: `root` an in-memory or a SQL root, `tmp_path` a
-directory per run, `pg_uri` a stub server per run. SecretKey.random
+directory per run, `pg_uri` a stub server per run, `monkeypatch` one
+per run. SecretKey.random
 draws the same seeded keys in both runs.
 
-Left out, because they need a module the port does not have yet (named
-in ROADMAP.md Queue 1): the Application and simulation tests of
-test_parallel_apply, test_close_pipeline and test_postgres, and
-test_close_pipeline's DNS-cache test (overlay/manager.py).
+Every test of the seven modules runs: the Application and simulation
+tests of test_parallel_apply, test_close_pipeline and test_postgres, and
+test_close_pipeline's DNS-cache test (overlay/manager.py), were left out
+until main/, simulation/ and overlay/ were ported.
 """
 
 import contextlib
@@ -38,26 +39,8 @@ from torch_rebind import (Unported, helper_module, jax_case, port_case,
                           rebound, reference_cases)
 from torch_tx_parity import J, P, clear_caches
 
-# reference test -> the unported module it needs
-LEFT_OUT = {
-    "test_parallel_apply": {
-        "test_app_differential_with_soroban_and_zipf":
-            "main/application.py, simulation/",
-        "test_zipf_loadgen_is_seed_deterministic_and_hot":
-            "main/application.py, simulation/",
-        "test_sim_pair_with_thread_checks_and_parallel_apply":
-            "main/application.py, simulation/"},
-    "test_close_pipeline": {
-        "test_crash_mid_completion_restart": "main/application.py",
-        "test_publish_records_queue_time_has": "main/application.py",
-        "test_gc_keeps_buckets_of_queued_checkpoint": "main/application.py",
-        "test_dns_cache_ttl_and_no_failure_caching": "overlay/manager.py"},
-    "test_postgres": {
-        "test_factory_selects_backend": "main/config.py",
-        "test_node_boots_and_closes_ledgers_on_postgres":
-            "main/application.py",
-        "test_restart_recovers_lcl_on_postgres": "main/application.py"},
-}
+# reference test -> the unported module it needs: none is left out
+LEFT_OUT = {}
 MODULES = (ref_bucket, ref_ledger_txn, ref_ledger_txn_edges, ref_postgres,
            ref_ledger_close, ref_parallel_apply, ref_close_pipeline)
 
@@ -165,6 +148,9 @@ def _fixtures(pkg, fn, kw, tmp, stack):
         srv = pkg.pg_stub.PGStubServer().start()
         stack.callback(srv.stop)
         args["pg_uri"] = srv.url()
+    if "monkeypatch" in params:
+        args["monkeypatch"] = pytest.MonkeyPatch()
+        stack.callback(args["monkeypatch"].undo)
     return args
 
 
@@ -197,7 +183,8 @@ def test_cases_cover_every_reference_test_but_the_left_out():
             if n.startswith("test_"):
                 left = LEFT_OUT.get(module.__name__, {})
                 assert ((module.__name__, n) in names) != (n in left), n
-    assert len(CASES) == 151
+    assert not LEFT_OUT
+    assert len(CASES) == 161
 
 
 def test_the_runs_record_closes_and_commits():
@@ -231,17 +218,26 @@ def test_rebinding_reaches_the_port_modules():
 
 
 def test_unported_names_raise_only_when_used():
-    """Application (main/application.py) has no port module yet: it
+    """InputRecorder (replay/recorder.py) has no port module yet: it
     rebinds to a stand-in that raises NotImplementedError when called or
     read, not when rebound. TransactionQueue and AddResult
-    (herder/tx_queue.py), ported since, rebind to the port's."""
+    (herder/tx_queue.py) and Application (main/application.py), ported
+    since, rebind to the port's."""
+    import types
+
+    from stellar_core_tpu.replay.recorder import InputRecorder
     from stellar_core_tpu_torch.herder import tx_queue
+    from stellar_core_tpu_torch.main import application
     g = rebound(ref_ledger_close)
     assert g["TransactionQueue"] is tx_queue.TransactionQueue
     assert g["AddResult"] is tx_queue.AddResult
-    app = rebound(ref_close_pipeline)["Application"]
-    assert isinstance(app, Unported)
-    with pytest.raises(NotImplementedError, match="application"):
-        app.create(None, None)
-    with pytest.raises(NotImplementedError, match="application"):
-        app.APP_SYNCED_STATE
+    assert rebound(ref_close_pipeline)["Application"] is \
+        application.Application
+    uses_replay = types.ModuleType("uses_replay")
+    uses_replay.InputRecorder = InputRecorder
+    rec = rebound(uses_replay)["InputRecorder"]
+    assert isinstance(rec, Unported)
+    with pytest.raises(NotImplementedError, match="replay"):
+        rec(None)
+    with pytest.raises(NotImplementedError, match="replay"):
+        rec.begin

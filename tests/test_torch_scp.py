@@ -9,10 +9,9 @@ value it externalizes (node, slot, value) and every verdict of the
 quorum-intersection checker (the answer, or the error it raised, and the
 split it found); the two records must be equal.
 
-Left out, because they need a module the port does not have yet (named
-in ROADMAP.md Queue 1): the quorum-intersection tests that build their
-quorum maps with simulation/topologies.py or boot an Application
-(main/).
+Every test of the three modules runs: the four quorum-intersection
+tests that build their quorum maps with simulation/topologies.py or boot
+an Application (main/) were left out until those modules were ported.
 """
 
 import contextlib
@@ -25,17 +24,8 @@ import test_scp as ref_scp
 import test_scp_network as ref_scp_network
 from torch_rebind import jax_case, port_case, rebound, reference_cases
 
-# reference test -> the unported module it needs
-LEFT_OUT = {
-    "test_quorum_intersection": {
-        "test_tiered_generator_output_enjoys_intersection":
-            "simulation/topologies.py",
-        "test_tiered_under_thresholded_config_rejected_and_splits":
-            "simulation/topologies.py",
-        "test_hierarchical_generator_output_enjoys_intersection":
-            "simulation/topologies.py",
-        "test_admin_route_reports_intersection": "main/application.py"},
-}
+# reference test -> the unported module it needs: none is left out
+LEFT_OUT = {}
 MODULES = (ref_scp, ref_scp_network, ref_qi)
 CASES = [p for m in MODULES
          for p in reference_cases(m, LEFT_OUT.get(m.__name__, {}))]
@@ -106,8 +96,8 @@ def test_reference_consensus_tests_on_both_with_equal_records(case):
 
 def test_cases_cover_every_reference_test_but_the_left_out():
     """Every test of the three modules runs, or is named in LEFT_OUT with
-    the unported module it needs; LEFT_OUT names exactly the four tests
-    that import simulation/ or main/."""
+    the unported module it needs; LEFT_OUT is empty: the four tests that
+    import simulation/ or main/ run since those modules are ported."""
     names = {(c.values[0][0].__name__, c.values[0][2]) for c in CASES}
     for module in MODULES:
         tests = [n for n in vars(module) if n.startswith("test_")]
@@ -117,12 +107,13 @@ def test_cases_cover_every_reference_test_but_the_left_out():
         left = LEFT_OUT.get(module.__name__, {})
         for n in tests:
             assert ((module.__name__, n) in names) != (n in left), n
-    assert sorted(n for left in LEFT_OUT.values() for n in left) == [
+    assert not LEFT_OUT
+    assert len(CASES) == 45
+    assert {c.values[0][2] for c in CASES} >= {
         "test_admin_route_reports_intersection",
         "test_hierarchical_generator_output_enjoys_intersection",
         "test_tiered_generator_output_enjoys_intersection",
-        "test_tiered_under_thresholded_config_rejected_and_splits"]
-    assert len(CASES) == 41
+        "test_tiered_under_thresholded_config_rejected_and_splits"}
 
 
 def test_the_runs_record_envelopes_and_values():

@@ -396,7 +396,19 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "scp.nomination", "scp.ballot", "scp.slot", "scp.scp",
              "herder", "herder.tx_queue", "herder.pending_envelopes",
              "herder.scp_driver", "herder.quorum_tracker",
-             "herder.quorum_intersection", "crypto"):
+             "herder.quorum_intersection", "crypto", "util.rand",
+             "util.status", "util.scheduler", "util", "crypto.curve25519",
+             "overlay.wire", "overlay.flow_control", "overlay.floodgate",
+             "overlay.item_fetcher", "overlay.tx_advert",
+             "overlay.peer_auth", "overlay.peer", "overlay.loopback",
+             "overlay.tcp_peer", "overlay.peer_manager",
+             "overlay.propagation", "overlay.survey", "overlay.manager",
+             "overlay", "ops.slo", "util.timeseries", "ops.controller",
+             "query.snapshot", "query.tx_status", "query.service", "query",
+             "main.config", "main.maintainer", "main.self_check",
+             "main.command_handler", "main.application", "main",
+             "simulation.simulation", "simulation.topologies",
+             "simulation.load_generator", "simulation"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
@@ -443,6 +455,8 @@ run = chip_smoke.catchup_run(pub["root"], wl["passphrase"], work + "/node",
                              lambda app: chip_smoke.NativeBatchVerifier())
 assert chip_smoke.catchup_problems(run, wl, pub, 63) == []
 shutil.rmtree(work)
+run = chip_smoke.node_run("native", load=10, ledgers=2)
+assert len(set(run["lcl"])) == 1 and run["submitted"] > 10, run["lcl"]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m in ("jax", "jaxlib", "stellar_core_tpu")
              or m.startswith(("jax.", "jaxlib.", "stellar_core_tpu.")))

@@ -344,19 +344,36 @@ EXPORTS = {
                "surge_pricing_filter"],
     "scp": ["SCP", "SCPDriver", "Slot", "LocalNode", "EnvelopeState",
             "ValidationLevel"],
+    "main": ["Application", "AppState", "Config", "QuorumSetConfig",
+             "get_test_config", "PersistentState", "StateEntry"],
+    "util": ["VirtualClock", "VirtualTimer", "ClockMode", "Scheduler",
+             "ActionType", "RandomEvictionCache", "releaseAssert",
+             "AssertionFailed"],
+    "overlay": ["OverlayManager", "Peer", "PeerState", "PeerAuth",
+                "PeerRole", "LoopbackPeer", "LoopbackPeerConnection"],
+    "query": ["LedgerSnapshot", "SnapshotManager", "TxStatusStore",
+              "QueryService"],
+    "simulation": ["Simulation", "LoadGenerator", "topologies"],
 }
 
 
-@pytest.mark.parametrize("package", sorted(EXPORTS))
+@pytest.mark.parametrize("package", sorted(EXPORTS) + [""])
 @pytest.mark.parametrize("root", [JAX_ROOT, PORT_ROOT])
 def test_package_exports_are_the_reference_s(root, package):
     """Each package's __init__ exports the same names in both, each bound
-    to its own package's object."""
+    to its own package's object (a module by its own name); the top
+    level exports no list and carries the same __version__."""
+    if not package:
+        mod = importlib.import_module(root)
+        assert not hasattr(mod, "__all__")
+        assert mod.__version__ == "0.1.0"
+        return
     mod = _mod(root, package)
     assert mod.__all__ == EXPORTS[package]
     for name in EXPORTS[package]:
         obj = getattr(mod, name)
-        assert obj.__module__.startswith(f"{root}.{package}."), name
+        owner = getattr(obj, "__module__", None) or obj.__name__
+        assert owner.startswith(f"{root}.{package}."), name
 
 
 def test_crypto_and_herder_names_import_from_the_port():

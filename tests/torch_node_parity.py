@@ -1,0 +1,155 @@
+"""Shared by tests/test_torch_{overlay,app,control,history}.py: the JAX
+package's node tests (Application, Config, overlay, simulation, control
+plane, history) run on both packages, with what they close recorded.
+
+`run_both` runs one reference case (torch_rebind.reference_cases) as
+written and then rebound to the port (torch_rebind.run_case), each with
+its own tmp_path directory and monkeypatch, SecretKey.random drawing the
+same seeded keys in both runs, and where the test selects the device
+backend ("tpu"), the Application building a CountingVerifier
+(tests/node_mix.py: the bypass cutoff and dispatch accounting of the
+device verifier, verdicts from the host) in place of the device
+verifier, so neither package compiles or launches a kernel; the fixed
+localhost ports of the reference's TCP tests are moved to a range of the
+run's own (shifted_ports). Each run records, in order, every TransactionQueue.try_add result and every
+LedgerManager.close_ledger: the sequence number, the closed header's
+txSetResultHash (the hash of every transaction's result) and the
+header's hash.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import socket
+
+from pytest import MonkeyPatch
+
+from node_mix import CountingVerifier
+from torch_rebind import run_case
+from torch_tx_parity import J, P, clear_caches
+
+
+def counting_verifier(pkg, app):
+    return CountingVerifier(pkg.keys, app.config.VERIFY_DEVICE_MIN_BATCH,
+                            app.metrics)
+
+
+def plain_kernels(pkg, app):
+    """The port's CudaBatchVerifier on the CPU: its plain kernels (about
+    3 s per dispatch)."""
+    return pkg.verifier.CudaBatchVerifier(
+        perf=app.perf, device="cpu",
+        device_min_batch=app.config.VERIFY_DEVICE_MIN_BATCH,
+        metrics=app.metrics)
+
+
+@contextlib.contextmanager
+def host_device_backend(pkg, make_verifier=counting_verifier):
+    """`pkg`'s Application builds `make_verifier(pkg, app)` (by default a
+    CountingVerifier) where it builds the device verifier; yields the
+    list of those it built."""
+    cls = pkg.application.Application
+    make, made = cls._make_batch_verifier, []
+
+    def counting(app):
+        made.append(make_verifier(pkg, app))
+        return made[-1]
+    cls._make_batch_verifier = counting
+    try:
+        yield made
+    finally:
+        cls._make_batch_verifier = make
+
+
+@contextlib.contextmanager
+def recording(pkg):
+    """Record every try_add result and close_ledger of `pkg` (see the
+    module docstring), with SecretKey.random drawing seeded keys."""
+    out = []
+    lm_cls = pkg.ledger_manager.LedgerManager
+    tq_cls = pkg.tx_queue.TransactionQueue
+    sk_cls = pkg.keys.SecretKey
+    saved = (lm_cls.close_ledger, tq_cls.try_add, vars(sk_cls)["random"])
+    close_ledger, try_add, _ = saved
+    drawn = iter(range(1 << 30))
+
+    def recorded_close(self, lcd, *args, **kwargs):
+        try:
+            res = close_ledger(self, lcd, *args, **kwargs)
+        except Exception as e:
+            out.append(("close", type(e).__name__))
+            raise
+        h = self.get_last_closed_ledger_header()
+        out.append(("close", h.ledgerSeq, bytes(h.txSetResultHash),
+                    self.get_last_closed_ledger_hash()))
+        return res
+
+    def recorded_add(self, *args, **kwargs):
+        res = try_add(self, *args, **kwargs)
+        out.append(("add", res.name))
+        return res
+
+    def seeded(cls):
+        return cls.from_seed(hashlib.sha256(
+            b"rebound key %d" % next(drawn)).digest())
+    lm_cls.close_ledger = recorded_close
+    tq_cls.try_add = recorded_add
+    sk_cls.random = classmethod(seeded)
+    try:
+        yield out
+    finally:
+        lm_cls.close_ledger, tq_cls.try_add, sk_cls.random = saved
+
+
+# the localhost ports the reference's TCP tests bind and dial (34000-
+# 37999), which the reference suite binds too, perhaps at the same time
+# in another worker: each run here uses its own copy of the range
+TEST_PORTS = range(34000, 38000)
+PORT_SHIFT = {J.name: 10000, P.name: 20000}
+
+
+@contextlib.contextmanager
+def shifted_ports(offset):
+    """Every socket binds and dials a port of TEST_PORTS `offset` higher
+    (the packages' code and the test's own sockets alike)."""
+    cls = socket.socket
+    saved = cls.bind, cls.connect, cls.connect_ex
+
+    def shift(addr):
+        if isinstance(addr, tuple) and len(addr) >= 2 and \
+                addr[1] in TEST_PORTS:
+            return (addr[0], addr[1] + offset) + tuple(addr[2:])
+        return addr
+    cls.bind = lambda self, addr: saved[0](self, shift(addr))
+    cls.connect = lambda self, addr: saved[1](self, shift(addr))
+    cls.connect_ex = lambda self, addr: saved[2](self, shift(addr))
+    try:
+        yield
+    finally:
+        cls.bind, cls.connect, cls.connect_ex = saved
+
+
+def run_both(case, tmp_path, builtin=None,
+             port_verifier=counting_verifier):
+    """The case on the JAX package, then on the port: each run's record.
+    `builtin` adds pytest fixtures both runs share (caplog);
+    `port_verifier(pkg, app)` is the port's device verifier."""
+    runs = []
+    for pkg in (J, P):
+        clear_caches()
+        tmp = tmp_path / pkg.name
+        tmp.mkdir()
+        mp = MonkeyPatch()
+        make = port_verifier if pkg is P else counting_verifier
+        try:
+            with host_device_backend(pkg, make), \
+                    shifted_ports(PORT_SHIFT[pkg.name]), \
+                    recording(pkg) as out:
+                run_case(case, pkg is P, dict(
+                    builtin or {}, tmp_path=tmp, monkeypatch=mp))
+        finally:
+            mp.undo()
+        runs.append(out)
+    clear_caches()
+    return runs

@@ -11,8 +11,11 @@ not when it is rebound."""
 
 from __future__ import annotations
 
+import ast
 import builtins
+import contextlib
 import importlib
+import inspect
 import sys
 import types
 
@@ -21,7 +24,8 @@ import pytest
 JAX_ROOT, PORT_ROOT = "stellar_core_tpu", "stellar_core_tpu_torch"
 # reference test modules whose helpers other reference tests import
 HELPER_MODULES = ("txtest_utils", "test_bucket", "test_ledger_close",
-                  "test_ledger_txn")
+                  "test_ledger_txn", "test_standalone_app", "test_overlay",
+                  "test_flow_control_edges", "test_history_catchup")
 _HELPERS: dict = {}     # helper module name -> its rebound module
 
 
@@ -49,12 +53,30 @@ def port_name(name: str) -> str:
     return name
 
 
+def _cpu_verifier(*args, **kwargs):
+    """The JAX package's TpuBatchVerifier in a rebound test: the port's
+    CudaBatchVerifier on the CPU (its plain kernels)."""
+    from stellar_core_tpu_torch.ops.verifier import CudaBatchVerifier
+    return CudaBatchVerifier(*args, device="cpu", **kwargs)
+
+
+# names a reference test imports from a JAX module whose port module
+# calls them otherwise: (port module, name) -> the port's object
+RENAMED = {("stellar_core_tpu_torch.ops.verifier", "TpuBatchVerifier"):
+           _cpu_verifier}
+
+
 def port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if level == 0 and name in HELPER_MODULES:
         return helper_module(importlib.import_module(name))
     if level == 0:
         name = port_name(name)
-    return builtins.__import__(name, globals, locals, fromlist, level)
+    out = builtins.__import__(name, globals, locals, fromlist, level)
+    renamed = {a: RENAMED[(name, a)] for a in fromlist or ()
+               if (name, a) in RENAMED}
+    if renamed:
+        out = types.SimpleNamespace(**vars(out), **renamed)
+    return out
 
 
 def _port_module(name: str):
@@ -209,3 +231,71 @@ def reference_cases(module, skip=()):
                              id=f"{base}[{i}]" if len(params) > 1 else base)
                 for i, kw in enumerate(params)]
     return out
+
+
+def _module_fixtures(module):
+    """The pytest fixtures a reference test module defines, by name."""
+    out = {}
+    for n, obj in vars(module).items():
+        marker = getattr(obj, "_fixture_function_marker", None)
+        if marker is not None:
+            out[marker.name or n] = obj
+    return out
+
+
+def run_case(case, port, builtin):
+    """Run the reference case `case` (reference_cases' values) on the JAX
+    package, or rebound to the port with `port`. Its arguments are its
+    parameters, the fixtures its module defines (rebound with the test
+    for the port; a generator fixture's teardown runs after the test),
+    the module's autouse fixtures, and the values in `builtin` (pytest's
+    own fixtures, such as tmp_path, made for this run). Returns what the
+    test returns."""
+    module, owner, name, kw = case
+    fn = (port_case if port else jax_case)(module, owner, name)
+    fixtures = _module_fixtures(module)
+    g = rebound(module) if port else None
+    with contextlib.ExitStack() as stack:
+        made = {}
+
+        def value(n):
+            if n in made:
+                return made[n]
+            if n in builtin:
+                v = builtin[n]
+            else:
+                f = fixtures[n].__wrapped__
+                if port:
+                    f = port_function(f, g)
+                v = f(**{p: value(p)
+                         for p in inspect.signature(f).parameters})
+                if inspect.isgenerator(v):
+                    gen, v = v, next(v)
+                    stack.callback(next, gen, None)
+            made[n] = v
+            return v
+        for n, f in fixtures.items():
+            if f._fixture_function_marker.autouse:
+                value(n)
+        return fn(**{p: kw[p] if p in kw else value(p)
+                     for p in inspect.signature(fn).parameters})
+
+
+def module_code(path, swap=False):
+    """The module at `path` as an AST dump without its docstrings
+    (comments never reach it), the JAX package's name swapped for the
+    port's with `swap`: what the tests that hold a copied module equal
+    to the reference's compare."""
+    text = path.read_text()
+    if swap:
+        text = text.replace(JAX_ROOT, PORT_ROOT)
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and body and \
+                isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant) and \
+                isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)

@@ -85,6 +85,18 @@ _MODULES = {
     "process": "process",
     "work": "work",
     "history": "history",
+    "application": "main.application",
+    "config": "main.config",
+    "tx_queue": "herder.tx_queue",
+    "simulation": "simulation.simulation",
+    "topologies": "simulation.topologies",
+    "load_generator": "simulation.load_generator",
+    "loopback": "overlay.loopback",
+    "peer": "overlay.peer",
+    "curve25519": "crypto.curve25519",
+    "verify_service": "ops.verify_service",
+    "supervisor": "ops.backend_supervisor",
+    "verifier": "ops.verifier",
 }
 
 
