@@ -252,6 +252,59 @@ Phases (any failure exits non-zero; nothing is caught):
    device flush whose size is not a multiple of 32. It prints the
    ledger walls, the bursts, the device flushes' walls, the overlay's
    counters and self_check's device verifies per second.
+17. config #5 across processes (BASELINE.json config #5 in a
+   deployment's processes, on one card, nothing sharded): first the command line on
+   the card, `python -m stellar_core_tpu_torch --conf node.cfg
+   self-check` on a standalone node whose configuration selects the
+   "cuda" backend, which must report ok with the device backend. Then
+   the port's simulation/cluster.py: Cluster(4, 1), four
+   `python -m stellar_core_tpu_torch run` processes (four orgs of one
+   validator, the tiered quorum set, each node's own sqlite file and
+   bucket directory, real TCP on loopback ports the system hands out,
+   the controller's tick off so that no submission is shed, which a
+   deployment leaves on), driven
+   only through the admin API with the harness's methods, in three
+   legs: load (node 0's generateload creates 1000 accounts, then 5 pay
+   rounds of 1000, each followed by drain_pending and wait_slot on
+   every node); the bad-signature flood (run_cluster_scenario's chaos
+   leg: the last node floods, bad_sig_flood_schedule on the honest
+   nodes grows 6 forged twins on every body received from it; it
+   creates 8 accounts and pays 30); churn (a kill -9 of node 1 while
+   node 0 runs one more pay round of 1000, then a restart from its
+   data_dir and catchup over the wire). Run A with
+   SIGNATURE_VERIFY_BACKEND "cuda" in every node's file, so each node
+   process builds its own BackendSupervisor(CudaBatchVerifier()) and
+   VerifyService on the card from the kernel library this process
+   built; run B "native". Fails unless the headers agree on every node
+   after each leg, the restarted node included; every load transaction
+   is applied on every node and every applied transaction carries a
+   valid signature (no forged twin applied); each honest node's
+   bad-signature drops are 6 times the bursts its chaos engine injected
+   and some honest node dropped the flooder; in run A every node's
+   supervisor is CLOSED with 0 failures, 0 skips and 0 transitions on
+   its one device, every node but node 0 (which submits the load) and
+   any node whose service flushed 16 or more signatures dispatched to
+   the card; every node's metrics show 0 service fallbacks (node 1's
+   first life is held to these checks too, on its metrics, perf zones
+   and backendstatus read just before the kill, and its dispatches
+   count); every node's accounts (read from its sqlite file
+   after a graceful stop, exit code 0) are equal, and equal in both runs
+   on every account but the flooder's (whose payments apply or age out
+   of its queue as its links drop) in balance and transactions sent
+   (the seqNum's low 32 bits; its high bits, the ledger the account was
+   created in, differ between two native runs too); the build directory
+   is unchanged. Both kernels are then held against
+   their plain versions and timed on as many rows as the largest device
+   dispatch any node reports. It prints the legs' walls, the pay
+   rounds, each node's close timers after each leg, its device
+   dispatches, their sizes and walls, the service's flushes and the
+   backend rows. The node processes' launches are their device
+   dispatches (crypto.verify.dispatch.batch in each node's metrics
+   route, both of node 1's lives): one prep and one ladder each. The
+   metrics count dispatches, not prep modes, so the kernels line gives
+   them unsplit: under "cluster" in the ladder's launches by path and
+   as "cluster_prep_either_mode" on the two prep rows, which count only
+   the launches whose mode was measured.
 From phase 13 on, the nodes run with the garbage collector policy the
 Application installs (util/gcpolicy.py: the heap frozen, automatic full
 passes off), and every eighth node shutdown runs the full pass the
@@ -261,10 +314,11 @@ tuples are computed in worker processes while phase 2 builds, those of
 phases 9 to 12 while their runs go, those of phases 13 and 15 before
 their runs, those of phase 16 after its runs. It prints one `kernels`
 JSON line (launches by path: verifier, live, sharded, hybrid, txset,
-classic, soroban, wasm, close, catchup, consensus, node; the msg32 prep
-and the ladder also carry their times on phase 14's, phase 15's and
-phase 16's rows under "catchup", "consensus" and "node"), the card
-line, and last {"ok": true,
+classic, soroban, wasm, close, catchup, consensus, node, cluster (the
+ladder's; the prep's cluster launches unsplit, as above); the
+msg32 prep and the ladder also carry their times on phase 14's, 15's,
+16's and 17's rows under "catchup", "consensus", "node" and "cluster"),
+the card line, and last {"ok": true,
 "device": {...}}.
 """
 
@@ -391,6 +445,14 @@ NODE_LOAD = 1000         # phase 16: accounts, then payments per ledger, that
 NODE_LEDGERS = 6         # phase 16: ledgers after the first (node_mix's)
 NODE_LOAD_SEED = 42      # phase 16: the load generator's seed (node_mix's)
 NODE_TIMEOUT_S = 120.0   # virtual seconds a ledger may take (node_mix's)
+CLUSTER_ORGS = 4         # phase 17: Cluster(4, 1), four orgs of one validator
+CLUSTER_CLOSE_S = 1.0    # phase 17: the nodes' ledger close time (s)
+CLUSTER_ROUNDS = 5       # phase 17: leg 1's pay rounds of NODE_LOAD
+CLUSTER_FLOOD = (8, 30)  # phase 17: the flooder's accounts and payments
+CLUSTER_CHAOS_SEED = 9   # phase 17: run_cluster_scenario's chaos seed
+CLUSTER_BURST = 6        # phase 17: bad_sig_flood_schedule's forged twins
+                         # per body received from the flooder
+CLUSTER_BOOT_S = 120.0   # phase 17: the harness's start_all deadline
 # phase 16's counts at NODE_LOAD and NODE_LEDGERS, as tests/node_mix.py
 # --load 1000 --backend gives them on the CPU in both packages (a
 # counting host verifier in place of the card's; tests/test_torch_node_mix.py
@@ -4706,6 +4768,463 @@ def node_phase(card, imad_per_s, expected=NODE_EXPECTED, load=NODE_LOAD,
     return launches, kernels
 
 
+def cluster_labels(c, accounts=NODE_LOAD):
+    """Who each account of phase 17's ledger is, by its raw key: the
+    network root, node 0's load generator accounts ("load i") and the
+    flooder's ("flood i"), derived as LoadGenerator.generate_accounts
+    derives them from the node's PEER_PORT. The ports change from run to
+    run, so two runs are compared by these labels."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    labels = {SecretKey.from_seed(sha256(c.passphrase.encode()))
+              .public_key().raw: "root"}
+    for tag, node, n in (("load", c.nodes[0], accounts),
+                         ("flood", c.nodes[-1], CLUSTER_FLOOD[0])):
+        for i in range(n):
+            key = SecretKey.from_seed(sha256(b"loadgen-%d-%d"
+                                             % (i, node.peer_port)))
+            labels[key.public_key().raw] = f"{tag} {i}"
+    return labels
+
+
+def cluster_ledger(db_path, labels, network_id):
+    """A stopped node's sqlite file: every account as {label: (balance,
+    seqNum)}, and the applied transactions (txhistory) as a count by the
+    label of their source, with the number whose signature does not
+    verify against that source (a forged twin that applied would be
+    one)."""
+    import sqlite3
+    from stellar_core_tpu_torch.crypto.keys import PubKeyUtils
+    from stellar_core_tpu_torch.tx.frame import make_frame
+    from stellar_core_tpu_torch.xdr.ledger_entries import LedgerEntry
+    from stellar_core_tpu_torch.xdr.transaction import TransactionEnvelope
+    con = sqlite3.connect(f"file:{db_path}?mode=ro", uri=True)
+    try:
+        rows = con.execute("SELECT entry FROM accounts").fetchall()
+        txs = con.execute("SELECT txbody FROM txhistory").fetchall()
+    finally:
+        con.close()
+    accounts = {}
+    for (blob,) in rows:
+        a = LedgerEntry.from_bytes(bytes(blob)).data.value
+        raw = bytes(a.accountID.value)
+        accounts[labels.get(raw, "other " + raw.hex()[:16])] = \
+            (a.balance, a.seqNum)
+    applied, forged = collections.Counter(), 0
+    for (blob,) in txs:
+        frame = make_frame(TransactionEnvelope.from_bytes(bytes(blob)),
+                           network_id)
+        raw = bytes(frame.source_id.value)
+        applied[labels.get(raw, "other").split()[0]] += 1
+        h = frame.contents_hash()
+        if not any(PubKeyUtils.verify_sig(raw, bytes(s.signature), h)
+                   for s in frame.signatures):
+            forged += 1
+    return accounts, dict(applied), forged
+
+
+def cluster_run(backend, root, accounts=NODE_LOAD, txs=NODE_LOAD,
+                rounds=CLUSTER_ROUNDS, cluster_cls=None):
+    """Phase 17's three legs on the port's simulation/cluster.py: one
+    `python -m stellar_core_tpu_torch run` process per validator of
+    Cluster(CLUSTER_ORGS, 1) (four orgs of one, the tiered quorum set,
+    real TCP on loopback ports the system hands out, each node's own
+    sqlite file and bucket directory), SIGNATURE_VERIFY_BACKEND `backend`
+    in every node's configuration, driven only through the admin API
+    with the harness's methods as run_cluster_scenario drives its legs.
+    Leg 1 (load): node 0's generateload creates `accounts` accounts, then
+    `rounds` pay rounds of `txs`, each followed by drain_pending on node
+    0 and wait_slot on every node. Leg 2 (bad-signature flood): the
+    scenario's chaos leg, the flooder the last node and
+    bad_sig_flood_schedule on the honest nodes; the flooder creates and
+    pays CLUSTER_FLOOD; then the schedule is cleared and the mesh
+    re-knit. Leg 3 (churn): a kill -9 of node 1 while node 0 runs one
+    more pay round among the survivors, a restart from its data_dir and
+    its catchup over the wire. After each leg the headers of every node
+    are compared (headers_agree). Just before the kill: node 1's
+    metrics, perf zones and backendstatus, under "<name> life 1" (its
+    counters die with it). Before the graceful stop: every node's
+    metrics, perf zones, chaos status and backendstatus, and each leg's
+    clusterstatus close timers. After it: each node's accounts and
+    applied transactions from its sqlite file (cluster_ledger).
+    `cluster_cls` stands in for Cluster (tests/cluster_mix.py)."""
+    from stellar_core_tpu_torch.crypto.sha import sha256
+    from stellar_core_tpu_torch.simulation.cluster import (
+        POLL_BASE_S, Cluster, ClusterError, bad_sig_flood_schedule)
+    c = (cluster_cls or Cluster)(
+        CLUSTER_ORGS, 1, root, close_time=CLUSTER_CLOSE_S,
+        extra_config={"SIGNATURE_VERIFY_BACKEND": backend,
+                      "CONTROLLER_TICK_PERIOD": 0.0})
+    nodes = c.nodes
+    node0, victim, flooder = nodes[0], nodes[1], nodes[-1]
+    honest = nodes[:-1]
+    rec = dict(backend=backend, nodes=[n.name for n in nodes],
+               flooder=flooder.name, victim=victim.name, rounds=[],
+               agree={}, close={}, submitted={})
+
+    def agree(leg):
+        upto = c.min_lcl()
+        st = c.collect_clusterstatus(30.0, headers=f"2-{upto}")
+        rec["agree"][leg] = (upto, c.headers_agree(upto, st,
+                                                   expected=len(nodes)))
+        rec["close"][leg] = {k: v and v.get("close") for k, v in st.items()}
+
+    def pay_round(leg, among):
+        lcl0, t0 = c.lcl(node0), time.perf_counter()
+        r = c.generate_load(node0, "pay", txs=txs)
+        if not c.drain_pending(node0, 90.0):
+            raise ClusterError(f"{leg}: node 0's queue never drained")
+        top = c.lcl(node0)
+        c.wait_slot(top, 90.0, nodes=among)
+        rec["rounds"].append(dict(leg=leg, submitted=int(r["submitted"]),
+                                  ledgers=[lcl0, top],
+                                  wall_s=time.perf_counter() - t0))
+
+    t_all = time.perf_counter()
+    with c:
+        c.start_all(CLUSTER_BOOT_S)
+        rec["boot_s"] = time.perf_counter() - t_all
+        c.wait_mesh(60.0 + 5.0 * len(nodes))
+        c.wait_slot(2, 60.0)
+        # ---- leg 1: load
+        t0 = time.perf_counter()
+        rec["submitted"]["create"] = int(c.generate_load(
+            node0, "create", accounts=accounts)["submitted"])
+        c.wait_slot(c.lcl(node0) + 2, 60.0)
+        rec["create_s"] = time.perf_counter() - t0
+        for _ in range(rounds):
+            pay_round("load", nodes)
+        agree("load")
+        # ---- leg 2: the bad-signature flood
+        t0 = time.perf_counter()
+        for node in honest:
+            c.install_chaos(node, CLUSTER_CHAOS_SEED, bad_sig_flood_schedule(
+                flooder.node_id.hex(), burst=CLUSTER_BURST))
+        rec["submitted"]["flood_create"] = int(c.generate_load(
+            flooder, "create", accounts=CLUSTER_FLOOD[0])["submitted"])
+        c.wait_slot(c.lcl(flooder) + 2, 60.0)
+        rec["submitted"]["flood_pay"] = int(c.generate_load(
+            flooder, "pay", txs=CLUSTER_FLOOD[1])["submitted"])
+        dropped_on, deadline = [], time.monotonic() + 60.0
+        while not dropped_on and time.monotonic() < deadline:
+            for node in honest:
+                try:
+                    cs = node.get("clusterstatus", timeout=1.0)
+                except (OSError, ValueError, ClusterError):
+                    continue
+                if cs.get("clusterstatus", {}).get("peers", {}).get(
+                        "drop_reasons", {}).get("bad sig flood", 0):
+                    dropped_on.append(node.name)
+            if not dropped_on:
+                honest[0].jittered_sleep(POLL_BASE_S * 3)
+        rec["dropped_on"] = dropped_on
+        if not c.drain_pending(flooder, 90.0):
+            raise ClusterError("flood: the flooder's queue never drained")
+        c.wait_slot(c.lcl(flooder), 90.0)
+        rec["chaos"] = {n.name: n.get("chaos")["chaos"] for n in honest}
+        rec["bad_sig"] = {n.name: n.get("metrics")["metrics"].get(
+            "overlay.peer.drop.bad_sig", {}).get("count", 0)
+            for n in honest}
+        for node in honest:
+            c.clear_chaos(node)
+        c.wait_mesh(60.0)
+        rec["flood_s"] = time.perf_counter() - t0
+        agree("flood")
+        # ---- leg 3: churn
+        t0 = time.perf_counter()
+        survivors = [n for n in nodes if n is not victim]
+        rec["lcl_at_kill"] = c.lcl(victim)
+        life1 = f"{victim.name} life 1"
+        rec["metrics"] = {life1: victim.get("metrics")["metrics"]}
+        rec["perf"] = {life1: victim.get("perf")["perf"]}
+        rec["backend"] = {life1: c.collect_backend(15.0)["per_node"][
+            victim.name]}
+        c.kill_node(victim)
+        pay_round("churn", survivors)
+        c.restart_node(victim, 90.0)
+        net = c.min_lcl(survivors)
+        rec["caught_up"] = victim.poll(
+            "info", deadline=time.monotonic() + 120.0,
+            ok=lambda d: d.get("info", {}).get("ledger", {}).get("num", 0)
+            >= net) is not None
+        rec["network_lcl_at_restart"] = net
+        c.wait_mesh(60.0)
+        rec["churn_s"] = time.perf_counter() - t0
+        agree("churn")
+        # ---- sweeps, then a graceful stop
+        rec["metrics"].update({n.name: n.get("metrics")["metrics"]
+                               for n in nodes})
+        rec["perf"].update({n.name: n.get("perf")["perf"] for n in nodes})
+        rec["backend"].update(c.collect_backend(15.0)["per_node"])
+        rec["lcl"] = {n.name: c.lcl(n) for n in nodes}
+        rec["rcs"] = c.stop_all(graceful=True)
+    rec["wall_s"] = time.perf_counter() - t_all
+    labels = cluster_labels(c, accounts)
+    network_id = sha256(c.passphrase.encode())
+    rec["ledger"] = {n.name: cluster_ledger(os.path.join(n.data_dir,
+                                                         "node.db"),
+                                            labels, network_id)
+                     for n in nodes}
+    return rec
+
+
+CLUSTER_STANDALONE = """RUN_STANDALONE = true
+MANUAL_CLOSE = true
+HTTP_PORT = 0
+NETWORK_PASSPHRASE = "Standalone Network ; February 2017"
+SIGNATURE_VERIFY_BACKEND = "cuda"
+DATABASE = "sqlite3://{dir}/node.db"
+BUCKET_DIR_PATH = "{dir}/buckets"
+"""
+
+
+def cluster_self_check(directory):
+    """The command line on the card: `python -m stellar_core_tpu_torch
+    --conf node.cfg new-db`, then `self-check`, on a standalone node
+    whose configuration selects the "cuda" backend. Returns the exit
+    code, the report (JSON on standard output) and the wall."""
+    conf = os.path.join(directory, "node.cfg")
+    with open(conf, "w") as f:
+        f.write(CLUSTER_STANDALONE.format(dir=directory))
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "stellar_core_tpu_torch", "--conf", conf]
+    res = subprocess.run(cmd + ["new-db"], cwd=root, capture_output=True,
+                         text=True, timeout=SPAWN_TIMEOUT_S)
+    if res.returncode:
+        raise SystemExit(f"cluster: new-db failed: {res.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["self-check"], cwd=root,
+                         capture_output=True, text=True,
+                         timeout=SPAWN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    try:
+        report = json.loads(res.stdout)
+    except ValueError:
+        report = {"stdout": res.stdout[-2000:], "stderr": res.stderr[-2000:]}
+    return res.returncode, report, wall
+
+
+def cluster_problems(a, b):
+    """Phase 17's verdicts on run A (`a`, the device backend) and run B
+    (`b`, native), cluster_run's records. Each node's metrics, perf and
+    backend checks cover the victim's first life too. Returns what
+    failed."""
+    problems = []
+    for tag, r in (("A", a), ("B", b)):
+        for leg, (upto, ok) in r["agree"].items():
+            if not ok:
+                problems.append(f"run {tag}: headers disagree after leg "
+                                f"{leg} (up to ledger {upto})")
+        if not r["caught_up"]:
+            problems.append(f"run {tag}: {r['victim']} never caught up")
+        if any(rc != 0 for rc in r["rcs"].values()):
+            problems.append(f"run {tag}: exit codes {r['rcs']}")
+        pays = sum(x["submitted"] for x in r["rounds"])
+        states = {n: s[0] for n, s in r["ledger"].items()}
+        if any(s != states[r["nodes"][0]] for s in states.values()):
+            problems.append(f"run {tag}: the nodes' accounts differ")
+        for n, (accounts, applied, forged) in r["ledger"].items():
+            load = {k: v for k, v in accounts.items()
+                    if k.startswith("load ")}
+            if len(load) != r["submitted"]["create"] or \
+                    applied.get("load") != pays or \
+                    sum(seq & 0xFFFFFFFF for _, seq in load.values()) \
+                    != pays:
+                problems.append(f"run {tag} {n}: {len(load)} load "
+                                f"accounts, {applied.get('load')} load "
+                                f"transactions applied of {pays}")
+            if forged:
+                problems.append(f"run {tag} {n}: {forged} applied "
+                                "transactions carry no valid signature")
+        if not r["dropped_on"]:
+            problems.append(f"run {tag}: no honest node dropped the "
+                            "flooder")
+        injected = {n: c.get("injected", {}).get(
+            "chaos.injected.bad_sig_flood", 0) for n, c in
+            r["chaos"].items()}
+        if not sum(injected.values()) or any(
+                r["bad_sig"][n] != CLUSTER_BURST * k
+                for n, k in injected.items()):
+            problems.append(f"run {tag}: bad-signature drops "
+                            f"{r['bad_sig']} for bursts injected "
+                            f"{injected} of {CLUSTER_BURST} twins")
+        fallbacks = {n: m.get("crypto.verify_service.fallback",
+                              {}).get("count", 0)
+                     for n, m in r["metrics"].items()}
+        if any(fallbacks.values()):
+            problems.append(f"run {tag}: service fallbacks {fallbacks}")
+    for n, st in a["backend"].items():
+        devices = (st or {}).get("devices") or []
+        if st is None or st["state"] != "CLOSED" or \
+                any(st["failures"].values()) or st["transition_count"] \
+                or [d["device"] for d in devices] != [0] or \
+                any(d["skips"] or d["state"] != "CLOSED"
+                    for d in devices):
+            problems.append(f"run A {n}: backend {st}")
+    dispatches = cluster_dispatches(a)
+    for n, d in dispatches.items():
+        occupancy = a["metrics"][n].get(
+            "crypto.verify_service.occupancy", {}).get("max", 0)
+        if occupancy >= LIVE["device_min_batch"] and not d["count"]:
+            problems.append(f"run A {n}: a flush of {occupancy} but "
+                            f"{d['count']} device dispatches")
+    # every node but node 0 admits node 0's load by flood (the victim in
+    # its first life; its second life validates the txsets it missed):
+    # each dispatched
+    if not all(d["count"] for n, d in dispatches.items()
+               if n != a["nodes"][0]):
+        problems.append(f"run A: device dispatches {dispatches}")
+    if any(v is not None for v in b["backend"].values()):
+        problems.append(f"run B: a device backend {b['backend']}")
+    if any(d["count"] for d in cluster_dispatches(b).values()):
+        problems.append("run B dispatched to a device")
+    # the end state: every account but the flooder's, whose payments
+    # apply or age out of its queue as its links are dropped, on its
+    # balance and the transactions it sent (the seqNum's low 32 bits);
+    # two native runs differ on the flooder's accounts and on the ledger
+    # each account was created in (the seqNum's high bits:
+    # tests/cluster_mix.py)
+    kept = [{k: (bal, seq & 0xFFFFFFFF) for k, (bal, seq) in
+             next(iter(r["ledger"].values()))[0].items()
+             if not k.startswith("flood ")} for r in (a, b)]
+    if kept[0] != kept[1]:
+        diff = sorted(k for k in set(kept[0]) | set(kept[1])
+                      if kept[0].get(k) != kept[1].get(k))
+        problems.append(f"runs A and B differ on {len(diff)} accounts, "
+                        f"{diff[:5]}")
+    return problems
+
+
+def cluster_dispatches(r):
+    """Each node's device dispatches (crypto.verify.dispatch.batch:
+    count, sum of rows, largest), their walls from dispatch to
+    collected (crypto.verify.dispatch.wall, in ms) from its metrics
+    route, and the verifier calls no service flush made (the txset
+    prevalidator's: the verifier's device and bypass zones less the
+    service's flushes, from its perf route)."""
+    out = {}
+    for n, m in r["metrics"].items():
+        h = m.get("crypto.verify.dispatch.batch") or {}
+        w = m.get("crypto.verify.dispatch.wall") or {}
+        z = {k: v["count"] for k, v in r["perf"][n].items()}
+        out[n] = {"count": h.get("count", 0), "rows": h.get("sum", 0),
+                  "max": h.get("max", 0), "median": h.get("median", 0),
+                  "wall_ms": {k: round(w[k] * 1e3, 3) for k in
+                              ("min", "median", "99%", "max") if k in w},
+                  "unflushed": z.get("crypto.batchVerify", 0) // 2
+                  + z.get("crypto.batchVerify.native", 0)
+                  - z.get("crypto.verifyService.flush", 0)}
+    return out
+
+
+def cluster_phase(card, imad_per_s, accounts=NODE_LOAD,
+                  rounds=CLUSTER_ROUNDS):
+    """Phase 17: BASELINE.json config #5 across processes on one card
+    (see the docstring): the command line's self-check on the card, then
+    cluster_run's three legs with SIGNATURE_VERIFY_BACKEND "cuda" (run
+    A: each node process builds its own BackendSupervisor(
+    CudaBatchVerifier()) and VerifyService on the card) and "native"
+    (run B), held to cluster_problems. The node processes load the
+    kernel library this process built: the phase fails if the build
+    directory changes. Then both kernels are held against their plain
+    versions and timed on as many rows as the largest device dispatch
+    any node of run A reports. `accounts` (the payments of each pay
+    round too) and `rounds` cut the load's depth (the card's test
+    runs it smaller). Returns the device dispatches of run A's node
+    processes, both of node 1's lives (one prep, in msg32 or k mode, and
+    one ladder each; the metrics do not split the modes), and
+    held_kernels' result."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.ops import _build
+    built = sorted(os.listdir(_build.BUILD))
+    work = tempfile.mkdtemp(prefix="cluster-")
+    try:
+        os.makedirs(os.path.join(work, "self"))
+        rc, report, sc_s = cluster_self_check(os.path.join(work, "self"))
+        if rc or not report.get("ok") or \
+                not report.get("tpu_backend_ok") or \
+                not report.get("verify_service_ok"):
+            raise SystemExit(f"cluster: self-check on the card exited "
+                             f"{rc}: {json.dumps(report)[:2000]}")
+        runs = {}
+        for tag, backend in (("A", "cuda"), ("B", "native")):
+            root = os.path.join(work, tag)
+            os.makedirs(root)
+            runs[tag] = cluster_run(backend, root, accounts, accounts,
+                                    rounds)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a, b = runs["A"], runs["B"]
+    problems = cluster_problems(a, b)
+    if sorted(os.listdir(_build.BUILD)) != built:
+        problems.append(f"the node processes changed the build directory: "
+                        f"{built} -> {sorted(os.listdir(_build.BUILD))}")
+    if problems:
+        raise SystemExit("cluster: " + "; ".join(problems))
+    dispatches = cluster_dispatches(a)
+    total = sum(d["count"] for d in dispatches.values())
+    largest = max(d["max"] for d in dispatches.values())
+    keys = [SecretKey.pseudo_random_for_testing(30000 + i)
+            for i in range(64)]
+    items = []
+    for i in range(int(largest)):
+        sk, h = keys[i % len(keys)], hashlib.sha256(b"pay-%d" % i).digest()
+        items.append((sk.public_key().raw, sk.sign(h), h))
+    kernels = held_kernels(items, imad_per_s, "cluster")
+
+    print(f"cluster: {len(a['nodes'])} validator processes of the port's "
+          f"simulation/cluster.py (Cluster({CLUSTER_ORGS}, 1), real TCP, "
+          f"driven over the admin API); self-check from the command line "
+          f"on the card in {sc_s:.3f} s, verify_per_second_tpu_batch "
+          f"{report.get('verify_per_second_tpu_batch')}; run A (\"cuda\") "
+          f"{a['wall_s']:.3f} s, run B (\"native\") {b['wall_s']:.3f} s "
+          f"[{card}]", flush=True)
+    for tag, r in (("A", a), ("B", b)):
+        print(f"  run {tag}: boot {r['boot_s']:.3f} s, create "
+              f"{r['create_s']:.3f} s, flood leg {r['flood_s']:.3f} s, "
+              f"churn leg {r['churn_s']:.3f} s; pay rounds (submitted, "
+              f"ledgers, wall s): " + ", ".join(
+                  f"{x['leg']} {x['submitted']} {x['ledgers']} "
+                  f"{x['wall_s']:.3f}" for x in r["rounds"]), flush=True)
+        print(f"  run {tag}: headers agree {r['agree']}; flooder "
+              f"{r['flooder']} dropped on {r['dropped_on']}; bad-sig "
+              f"drops {r['bad_sig']}; bursts injected "
+              f"{ {n: c.get('injected', {}) for n, c in r['chaos'].items()} }"
+              f"; {r['victim']} killed at ledger {r['lcl_at_kill']}, "
+              f"caught up to {r['network_lcl_at_restart']}; LCL "
+              f"{r['lcl']}", flush=True)
+        for leg, closes in r["close"].items():
+            print(f"  run {tag} close timers after leg {leg} (ms): "
+                  + json.dumps(closes), flush=True)
+    for n, d in dispatches.items():
+        m = a["metrics"][n]
+        occ = m.get("crypto.verify_service.occupancy") or {}
+        zones = {k: v["count"] for k, v in a["perf"][n].items()
+                 if k.startswith("crypto.")}
+        print(f"  run A {n}: device dispatches {d['count']} (rows "
+              f"{d['rows']}, median {d['median']}, largest {d['max']}), "
+              f"dispatch to collected (ms) {d['wall_ms']}; service "
+              f"flushes {occ.get('count')} (median {occ.get('median')}, "
+              f"largest {occ.get('max')}); verifier calls outside the "
+              f"service (the txset prevalidator's) {d['unflushed']}; "
+              f"zones {zones}; backend "
+              f"{json.dumps(a['backend'][n]['devices'])} [{card}]",
+              flush=True)
+    print(f"cluster: launches in the node processes (their metrics, node "
+          f"1's two lives): prep (msg32 or k: the metrics count dispatches, "
+          f"not modes) = ladder = {total} device dispatches; every account "
+          f"but "
+          f"the flooder's equal in runs A and B; no forged twin applied "
+          f"[{card}]", flush=True)
+    for name, e in kernels.items():
+        print(f"cluster {name}[msg32] on the largest dispatch's size, "
+              f"n={e['n']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.1f} "
+              f"ms, matches; bound {e['bound_ms']:.4f} ms = "
+              f"{e['bound_ms'] / e['ms']:.4f} of the time) [{card}]",
+              flush=True)
+    return total, kernels
+
+
 def peak_rss(phase, started):
     """Print the process's peak resident set size (getrusage's
     ru_maxrss, KiB on Linux) once phase `phase` has passed."""
@@ -5078,13 +5597,19 @@ def main():
     node, node_times = node_phase(card, imad_per_s)
     peak_rss(16, started)
 
+    # --- 17. config #5 across processes: four node processes over TCP --
+    cluster, cluster_times = cluster_phase(card, imad_per_s)
+    peak_rss(17, started)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
     # of phase 10 (classic), run A of phase 11 (soroban), run A of
     # phase 12 (wasm), run A of phase 13 (close), runs A1 and A2 of
-    # phase 14 (catchup), run A of phase 15 (consensus) and run A of
-    # phase 16 with node 0's self_check (node)
+    # phase 14 (catchup), run A of phase 15 (consensus), run A of
+    # phase 16 with node 0's self_check (node) and the node processes of
+    # phase 17's run A, by their device dispatches (cluster: the ladder's
+    # by path, the prep's unsplit by mode beside its rows)
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -5096,15 +5621,21 @@ def main():
             "soroban": soroban[kind], "wasm": wasm[kind],
             "close": close[kind], "catchup": catchup[kind],
             "consensus": consensus[kind], "node": node[kind]}
+        if kind == "ladder":
+            e["launches_by_path"]["cluster"] = cluster
+        else:
+            e["cluster_prep_either_mode"] = cluster
         e["launches"] = sum(e["launches_by_path"].values())
         held = {"msg32": "prep", "ladder": "ladder"}.get(kind)
         if held:
             # the same kernel on the largest catchup dispatch's rows, on
-            # one flood burst's rows and on the node's first flush whose
-            # size is not a multiple of 32
+            # one flood burst's rows, on the node's first flush whose
+            # size is not a multiple of 32 and on as many rows as the
+            # cluster's largest dispatch
             for path, times in (("catchup", catchup_times),
                                 ("consensus", consensus_times),
-                                ("node", node_times)):
+                                ("node", node_times),
+                                ("cluster", cluster_times)):
                 e[path] = {k: times[held][k] for k in (
                     "n", "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}
@@ -5113,14 +5644,15 @@ def main():
                   f"(phase 14), {e['consensus']['ms']:.4f} ms at "
                   f"n={e['consensus']['n']} (phase 15), "
                   f"{e['node']['ms']:.4f} ms at n={e['node']['n']} "
-                  f"(phase 16) [{card}]", flush=True)
+                  f"(phase 16), {e['cluster']['ms']:.4f} ms at "
+                  f"n={e['cluster']['n']} (phase 17) [{card}]", flush=True)
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)
                 and count.get("ladder", 0)):
             raise SystemExit(f"{path} path launched a kernel no time: "
                              f"{count}")
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s "
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))

@@ -10,15 +10,14 @@ every try_add result and every close (tests/torch_node_parity.py); the
 two records must be equal.
 
 Left out (LEFT_OUT), with the reason:
-- the six test_mesh_observatory.py tests over one merged cluster trace:
-  Simulation.merged_trace needs util/tracemerge.py, which this slice
-  leaves out (ROADMAP.md Queue 1 item 9);
-- test_timeseries_slo.py::test_verifier_dispatch_accounting: the JAX
-  run compiles the XLA kernel (about 90 s on the CPU), and on the port
-  its padding assertion does not hold by design: the port's verifier
-  pads nothing and records padding 0 (ROADMAP.md Queue 3, deliberate
-  difference 4). test_port_verifier_dispatch_accounting holds the same
-  accounting on the port's CudaBatchVerifier(device="cpu").
+test_timeseries_slo.py::test_verifier_dispatch_accounting: the JAX run
+compiles the XLA kernel (about 90 s on the CPU), and on the port its
+padding assertion does not hold by design: the port's verifier pads
+nothing and records padding 0 (ROADMAP.md Queue 3, deliberate
+difference 4). test_port_verifier_dispatch_accounting holds the same
+accounting on the port's CudaBatchVerifier(device="cpu"). The six
+test_mesh_observatory.py tests over one merged cluster trace, left out
+until util/tracemerge.py was ported, run.
 """
 
 import hashlib
@@ -34,15 +33,7 @@ from torch_node_parity import run_both
 from torch_rebind import reference_cases
 from torch_tx_parity import P
 
-TRACEMERGE = "util/tracemerge.py (Simulation.merged_trace)"
 LEFT_OUT = {
-    "test_mesh_observatory": {
-        "test_merged_trace_has_one_process_lane_per_node": TRACEMERGE,
-        "test_flow_events_follow_tx_across_three_lanes": TRACEMERGE,
-        "test_slot_phase_spans_strictly_ordered_per_node": TRACEMERGE,
-        "test_trace_report_slots_and_flood_modes": TRACEMERGE,
-        "test_duplicate_accounting_and_peers_route": TRACEMERGE,
-        "test_clusterstatus_valid_for_every_node": TRACEMERGE},
     "test_timeseries_slo": {
         "test_verifier_dispatch_accounting":
             "an XLA compile in the JAX run; the port pads nothing"},
@@ -55,8 +46,10 @@ CASES = [c for m in MODULES
 
 @pytest.mark.parametrize("case", CASES)
 def test_reference_control_tests_on_both_with_equal_records(case,
-                                                            tmp_path):
-    jax_run, port_run = run_both(case, tmp_path)
+                                                            tmp_path,
+                                                            capsys):
+    jax_run, port_run = run_both(case, tmp_path,
+                                 builtin={"capsys": capsys})
     assert jax_run == port_run
 
 
@@ -67,7 +60,7 @@ def test_cases_cover_every_reference_test_but_the_left_out():
         for n, obj in vars(module).items():
             if n.startswith("test_") and callable(obj):
                 assert ((module.__name__, n) in names) != (n in left), n
-    assert len(CASES) == 64
+    assert len(CASES) == 70
 
 
 def _sig_items(n):

@@ -6,8 +6,9 @@ on a stand-in mesh of four positions, the v1 entry against the oracle, and
 the txset validation path (chip_smoke.py phase 9 at 64 transactions),
 the classic operation families on it (phase 10 at 64 transactions), the
 contract auth-entry batches of phase 11 at 200 transactions, the wasm
-contracts of phase 12 at 200 transactions, phases 13-16 (the close,
-catchup, consensus and flood admission, the node) at small sizes, and
+contracts of phase 12 at 200 transactions, phases 13-17 (the close,
+catchup, consensus and flood admission, the node, four node processes
+over TCP) at small sizes, and
 the JAX package's north-star catchup test rebound to the port on the
 card.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
@@ -408,6 +409,28 @@ def test_node_on_card(card):
     # and its two 1,024-signature batches
     assert launches == {"msg32": device + 3, "k": 0, "ladder": device + 3}
     assert kernels["prep"]["n"] % 32 and kernels["ladder"]["match"]
+
+
+def test_cluster_on_card(card):
+    """chip_smoke.py phase 17 at 200 accounts and 2 pay rounds of 200,
+    with its checks: the command line's self-check on the card, then
+    four `python -m stellar_core_tpu_torch run` processes of the port's
+    simulation/cluster.py over TCP through the load, bad-signature flood
+    and kill -9 churn legs, run A on SIGNATURE_VERIFY_BACKEND "cuda"
+    (each node process builds its own supervisor and service on the
+    card) against run B "native". The harness kills every process it
+    started when a leg fails."""
+    import chip_smoke as cs
+    rate = (torch.cuda.get_device_properties(card).multi_processor_count
+            * cs.IMAD_PER_SM_CLK
+            * float(cs.smi("clocks.max.sm").split()[0]) * 1e6)
+    try:
+        launches, kernels = cs.cluster_phase(str(card), rate, accounts=200,
+                                             rounds=2)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches > 0
+    assert kernels["prep"]["match"] and kernels["ladder"]["match"]
 
 
 def test_catchup_with_device_batch_prevalidation(card, tmp_path):

@@ -7,14 +7,15 @@ test_close_pipeline.py run twice: as written, and with their names
 rebound to the port's modules (tests/torch_rebind.py, which also rebinds
 the helpers they take from txtest_utils, test_ledger_close and
 test_ledger_txn). Each run records, in order, every LedgerTxn commit (its
-delta's key and entry bytes and its header's bytes) and every
-LedgerManager.close_ledger (the closed header's bytes and hash, or the
-error), and, as a multiset, the hash of every Bucket made (merges run on
-background threads); the two records must be equal. Fixtures get each
-package's own objects: `root` an in-memory or a SQL root, `tmp_path` a
-directory per run, `pg_uri` a stub server per run, `monkeypatch` one
-per run. SecretKey.random
-draws the same seeded keys in both runs.
+delta's key and entry bytes and its header's bytes; those the parallel
+apply's worker threads make, as one multiset per close, placed before
+that close) and every LedgerManager.close_ledger (the closed header's
+bytes and hash, or the error), and, as a multiset, the hash of every
+Bucket made (merges run on background threads); the two records must be
+equal. Fixtures get each package's own objects: `root` an in-memory or a
+SQL root, `tmp_path` a directory per run, `pg_uri` a stub server per
+run, `monkeypatch` one per run. SecretKey.random draws the same seeded
+keys in both runs.
 
 Every test of the seven modules runs: the Application and simulation
 tests of test_parallel_apply, test_close_pipeline and test_postgres, and
@@ -25,6 +26,7 @@ until main/, simulation/ and overlay/ were ported.
 import contextlib
 import hashlib
 import inspect
+import threading
 
 import pytest
 
@@ -82,8 +84,10 @@ def _fresh_caches():
 def recording(pkg):
     """Record every LedgerTxn commit, close_ledger and Bucket of `pkg`,
     with SecretKey.random drawing seeded keys; yields (ordered, bucket
-    hashes)."""
-    ordered, buckets = [], []
+    hashes). Commits made off the main thread (the parallel apply's
+    workers, whose order the scheduler picks) go into `ordered` as one
+    sorted batch at the next close_ledger's record, or at the end."""
+    ordered, buckets, threaded = [], [], []
     ltx_cls = pkg.ledger_txn.LedgerTxn
     lm_cls = pkg.ledger_manager.LedgerManager
     bucket_cls = pkg.bucket.Bucket
@@ -94,18 +98,26 @@ def recording(pkg):
     drawn = iter(range(1 << 30))
 
     def recorded_commit(self):
-        ordered.append(("commit", sorted(
+        on_main = threading.current_thread() is threading.main_thread()
+        (ordered if on_main else threaded).append(("commit", sorted(
             (kb, None if e is None else e.to_bytes())
             for kb, e in self._delta.items()),
             None if self._header is None else self._header.to_bytes()))
         return commit(self)
 
+    def workers_done():
+        if threaded:
+            ordered.append(("worker commits", sorted(threaded, key=repr)))
+            threaded.clear()
+
     def recorded_close(self, *args, **kwargs):
         try:
             out = close_ledger(self, *args, **kwargs)
         except Exception as e:
+            workers_done()
             ordered.append(("close", type(e).__name__, str(e)))
             raise
+        workers_done()
         ordered.append(("close",
                         self.get_last_closed_ledger_header().to_bytes(),
                         self.get_last_closed_ledger_hash()))
@@ -125,6 +137,7 @@ def recording(pkg):
     sk_cls.random = classmethod(seeded)
     try:
         yield ordered, buckets
+        workers_done()
     finally:
         (ltx_cls.commit, lm_cls.close_ledger, bucket_cls.__init__,
          sk_cls.random) = saved
@@ -218,26 +231,31 @@ def test_rebinding_reaches_the_port_modules():
 
 
 def test_unported_names_raise_only_when_used():
-    """InputRecorder (replay/recorder.py) has no port module yet: it
+    """NativeCodec (xdr/native_codec.py) has no port module yet: it
     rebinds to a stand-in that raises NotImplementedError when called or
     read, not when rebound. TransactionQueue and AddResult
-    (herder/tx_queue.py) and Application (main/application.py), ported
-    since, rebind to the port's."""
+    (herder/tx_queue.py), Application (main/application.py) and
+    InputRecorder (replay/recorder.py), ported since, rebind to the
+    port's."""
     import types
 
     from stellar_core_tpu.replay.recorder import InputRecorder
+    from stellar_core_tpu.xdr.native_codec import NativeCodec
     from stellar_core_tpu_torch.herder import tx_queue
     from stellar_core_tpu_torch.main import application
+    from stellar_core_tpu_torch.replay import recorder
     g = rebound(ref_ledger_close)
     assert g["TransactionQueue"] is tx_queue.TransactionQueue
     assert g["AddResult"] is tx_queue.AddResult
     assert rebound(ref_close_pipeline)["Application"] is \
         application.Application
-    uses_replay = types.ModuleType("uses_replay")
-    uses_replay.InputRecorder = InputRecorder
-    rec = rebound(uses_replay)["InputRecorder"]
-    assert isinstance(rec, Unported)
-    with pytest.raises(NotImplementedError, match="replay"):
-        rec(None)
-    with pytest.raises(NotImplementedError, match="replay"):
-        rec.begin
+    uses = types.ModuleType("uses_codec_and_replay")
+    uses.InputRecorder, uses.NativeCodec = InputRecorder, NativeCodec
+    g = rebound(uses)
+    assert g["InputRecorder"] is recorder.InputRecorder
+    codec = g["NativeCodec"]
+    assert isinstance(codec, Unported)
+    with pytest.raises(NotImplementedError, match="native_codec"):
+        codec(None)
+    with pytest.raises(NotImplementedError, match="native_codec"):
+        codec.encode

@@ -408,8 +408,16 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "main.config", "main.maintainer", "main.self_check",
              "main.command_handler", "main.application", "main",
              "simulation.simulation", "simulation.topologies",
-             "simulation.load_generator", "simulation"):
+             "simulation.load_generator", "simulation", "xdr.json_repr",
+             "util.xdrquery", "util.tracemerge", "replay.log",
+             "replay.recorder", "replay.replayer", "replay",
+             "simulation.chaos", "replay.scenario", "simulation.byzantine",
+             "simulation.drive", "main.fuzzer", "main.fuzz_coverage",
+             "main.command_line", "main.__main__", "__main__",
+             "simulation.cluster"):
     __import__("stellar_core_tpu_torch." + name)
+from stellar_core_tpu_torch.main.command_line import main
+assert main(["version"]) == 0
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
 from stellar_core_tpu_torch.xdr import schema

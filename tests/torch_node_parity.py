@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import random
 import socket
 
 from pytest import MonkeyPatch
@@ -112,16 +113,24 @@ PORT_SHIFT = {J.name: 10000, P.name: 20000}
 @contextlib.contextmanager
 def shifted_ports(offset):
     """Every socket binds and dials a port of TEST_PORTS `offset` higher
-    (the packages' code and the test's own sockets alike)."""
+    (the packages' code and the test's own sockets alike), except a port
+    the system handed to a bind of port 0 here: that one is dialled as
+    it is."""
     cls = socket.socket
     saved = cls.bind, cls.connect, cls.connect_ex
+    ephemeral = set()
 
     def shift(addr):
         if isinstance(addr, tuple) and len(addr) >= 2 and \
-                addr[1] in TEST_PORTS:
+                addr[1] in TEST_PORTS and addr[1] not in ephemeral:
             return (addr[0], addr[1] + offset) + tuple(addr[2:])
         return addr
-    cls.bind = lambda self, addr: saved[0](self, shift(addr))
+
+    def bind(self, addr):
+        saved[0](self, shift(addr))
+        if isinstance(addr, tuple) and len(addr) >= 2 and addr[1] == 0:
+            ephemeral.add(self.getsockname()[1])
+    cls.bind = bind
     cls.connect = lambda self, addr: saved[1](self, shift(addr))
     cls.connect_ex = lambda self, addr: saved[2](self, shift(addr))
     try:
@@ -131,20 +140,35 @@ def shifted_ports(offset):
 
 
 def run_both(case, tmp_path, builtin=None,
-             port_verifier=counting_verifier):
+             port_verifier=counting_verifier, shift=True):
     """The case on the JAX package, then on the port: each run's record.
-    `builtin` adds pytest fixtures both runs share (caplog);
+    With `shift`, each run's sockets use its own copy of TEST_PORTS
+    (off for a test whose child processes bind the ports it dials).
+    `builtin` adds pytest fixtures both runs share (caplog; capsys,
+    whose captured output is dropped before each run);
     `port_verifier(pkg, app)` is the port's device verifier."""
     runs = []
+    # a seeded generator of the test module starts each run where the
+    # first found it, so both runs draw the same values
+    rngs = [(r, r.getstate()) for r in vars(case[0]).values()
+            if isinstance(r, random.Random)]
+    # and both number their test configs (node seeds, ports) from the
+    # same instance, whatever earlier tests drew in either package
+    instance = max(pkg.config._test_instance_counter[0] for pkg in (J, P))
     for pkg in (J, P):
+        for r, state in rngs:
+            r.setstate(state)
+        pkg.config._test_instance_counter[0] = instance
         clear_caches()
         tmp = tmp_path / pkg.name
         tmp.mkdir()
         mp = MonkeyPatch()
         make = port_verifier if pkg is P else counting_verifier
+        if "capsys" in (builtin or {}):      # each run reads its own output
+            builtin["capsys"].readouterr()
         try:
             with host_device_backend(pkg, make), \
-                    shifted_ports(PORT_SHIFT[pkg.name]), \
+                    shifted_ports(PORT_SHIFT[pkg.name] if shift else 0), \
                     recording(pkg) as out:
                 run_case(case, pkg is P, dict(
                     builtin or {}, tmp_path=tmp, monkeypatch=mp))

@@ -22,10 +22,12 @@ import types
 import pytest
 
 JAX_ROOT, PORT_ROOT = "stellar_core_tpu", "stellar_core_tpu_torch"
-# reference test modules whose helpers other reference tests import
+# reference test modules whose helpers other reference tests import (and
+# scripts/replay_report.py, which imports the package in its functions)
 HELPER_MODULES = ("txtest_utils", "test_bucket", "test_ledger_close",
                   "test_ledger_txn", "test_standalone_app", "test_overlay",
-                  "test_flow_control_edges", "test_history_catchup")
+                  "test_flow_control_edges", "test_history_catchup",
+                  "replay_report")
 _HELPERS: dict = {}     # helper module name -> its rebound module
 
 
@@ -177,15 +179,25 @@ def port_class(cls, g):
 
 def port_case(module, owner, name):
     """The reference test `owner.name` (or the module function `name`) as
-    a callable running on the port, in the module's `rebound` globals."""
+    a callable running on the port, in the module's `rebound` globals;
+    the class's other attributes are the port's objects too."""
     g = rebound(module)
     if owner is None:
         return port_function(getattr(module, name), g)
     cls = getattr(module, owner)
     ported = type(owner, (), {
-        k: port_function(f, g) for k, f in vars(cls).items()
-        if isinstance(f, types.FunctionType)})
+        k: port_function(f, g) if isinstance(f, types.FunctionType)
+        else _port_attribute(k, f)
+        for k, f in vars(cls).items() if not k.startswith("__")})
     return getattr(ported(), name)
+
+
+def _port_attribute(name, v):
+    """A class attribute of a reference test class on the port: a list
+    or tuple element by element (the types a test iterates over)."""
+    if isinstance(v, (list, tuple)):
+        return type(v)(_port_value(name, x) for x in v)
+    return _port_value(name, v)
 
 
 def jax_case(module, owner, name):
