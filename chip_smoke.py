@@ -305,6 +305,36 @@ Phases (any failure exits non-zero; nothing is caught):
    them unsplit: under "cluster" in the ladder's launches by path and
    as "cluster_prep_either_mode" on the two prep rows, which count only
    the launches whose mode was measured.
+18. the host tools on the card (BASELINE.json config #3 at
+   profile_catchup's size, and the kernels' consensus-safety corpus; one
+   card, nothing sharded). The native XDR codec is built (or loaded)
+   right after phase 2, so that every phase from 5 on and phase 17's
+   node processes run through it; here it must still be live, a hashed
+   build in the package's native/build directory, never fallen back to
+   the Python path. The port's profile_catchup publisher (64 ledgers of
+   30 payments, checkpoint 63) publishes once; three fresh processes
+   replay it: R1 with SIGNATURE_VERIFY_BACKEND "cuda" (the Application's
+   BackendSupervisor(CudaBatchVerifier()) prevalidates each checkpoint
+   on the card) and the codec, under cProfile; R2 the same with
+   SC_XDR_NATIVE=0; R3 `python -m stellar_core_tpu_torch.scripts.
+   profile_catchup 64 30` as it is (the native backend). Fails unless
+   all three land on ledger 63 with the publisher's hash and equal
+   bucket-list hashes; R1 and R2 each make the predicted dispatches (one
+   of 1,831 signatures), one prep msg32 and one ladder launch each, with
+   the native verifier's verdicts, 0 misses and 0 fallback calls, the
+   supervisor CLOSED with 0 failures, skips and transitions; R1's
+   profile shows the codec's pack, unpack and clone calls and R2's
+   none. Both kernels are held against their plain versions on R1's
+   dispatch. Then `python -m stellar_core_tpu_torch.scripts.
+   cuda_differential orchestrate` (10,000 signatures plus the
+   adversarial tail, the card and the CPU's plain versions in their own
+   processes) must pass, card == CPU == oracle. Last, the native
+   baseline: NativeLib.batch_verify (one thread) and the same call over
+   os.cpu_count() threads on phase 5's rows and phase 3's lanes, whose
+   verdicts must equal the card's; it prints verifies per second beside
+   the host's cores and CPU model (a record, not a claim). It prints each
+   replay's rate, R1's top functions by own time, the differential's
+   wall and launches.
 From phase 13 on, the nodes run with the garbage collector policy the
 Application installs (util/gcpolicy.py: the heap frozen, automatic full
 passes off), and every eighth node shutdown runs the full pass the
@@ -315,9 +345,11 @@ phases 9 to 12 while their runs go, those of phases 13 and 15 before
 their runs, those of phase 16 after its runs. It prints one `kernels`
 JSON line (launches by path: verifier, live, sharded, hybrid, txset,
 classic, soroban, wasm, close, catchup, consensus, node, cluster (the
-ladder's; the prep's cluster launches unsplit, as above); the
+ladder's; the prep's cluster launches unsplit, as above), profile
+(phase 18's R1 and R2) and differential (its card process); the
 msg32 prep and the ladder also carry their times on phase 14's, 15's,
-16's and 17's rows under "catchup", "consensus", "node" and "cluster"),
+16's, 17's and 18's rows under "catchup", "consensus", "node", "cluster"
+and "profile"),
 the card line, and last {"ok": true,
 "device": {...}}.
 """
@@ -4842,9 +4874,10 @@ def cluster_run(backend, root, accounts=NODE_LOAD, txs=NODE_LOAD,
     more pay round among the survivors, a restart from its data_dir and
     its catchup over the wire. After each leg the headers of every node
     are compared (headers_agree). Just before the kill: node 1's
-    metrics, perf zones and backendstatus, under "<name> life 1" (its
-    counters die with it). Before the graceful stop: every node's
-    metrics, perf zones, chaos status and backendstatus, and each leg's
+    metrics, perf zones, backendstatus and whether the native XDR codec
+    serves it (info's xdr_native), under "<name> life 1" (its counters
+    die with it). Before the graceful stop: every node's metrics, perf
+    zones, chaos status, backendstatus and xdr_native, and each leg's
     clusterstatus close timers. After it: each node's accounts and
     applied transactions from its sqlite file (cluster_ledger).
     `cluster_cls` stands in for Cluster (tests/cluster_mix.py)."""
@@ -4939,6 +4972,7 @@ def cluster_run(backend, root, accounts=NODE_LOAD, txs=NODE_LOAD,
         rec["perf"] = {life1: victim.get("perf")["perf"]}
         rec["backend"] = {life1: c.collect_backend(15.0)["per_node"][
             victim.name]}
+        rec["codec"] = {life1: victim.get("info")["info"]["xdr_native"]}
         c.kill_node(victim)
         pay_round("churn", survivors)
         c.restart_node(victim, 90.0)
@@ -4956,6 +4990,8 @@ def cluster_run(backend, root, accounts=NODE_LOAD, txs=NODE_LOAD,
                                for n in nodes})
         rec["perf"].update({n.name: n.get("perf")["perf"] for n in nodes})
         rec["backend"].update(c.collect_backend(15.0)["per_node"])
+        rec["codec"].update({n.name: n.get("info")["info"]["xdr_native"]
+                             for n in nodes})
         rec["lcl"] = {n.name: c.lcl(n) for n in nodes}
         rec["rcs"] = c.stop_all(graceful=True)
     rec["wall_s"] = time.perf_counter() - t_all
@@ -5053,6 +5089,9 @@ def cluster_problems(a, b):
                      for n, m in r["metrics"].items()}
         if any(fallbacks.values()):
             problems.append(f"run {tag}: service fallbacks {fallbacks}")
+        if not all(r["codec"].values()):
+            problems.append(f"run {tag}: the native XDR codec does not "
+                            f"serve every node process: {r['codec']}")
     for n, st in a["backend"].items():
         devices = (st or {}).get("devices") or []
         if st is None or st["state"] != "CLOSED" or \
@@ -5125,8 +5164,9 @@ def cluster_phase(card, imad_per_s, accounts=NODE_LOAD,
     A: each node process builds its own BackendSupervisor(
     CudaBatchVerifier()) and VerifyService on the card) and "native"
     (run B), held to cluster_problems. The node processes load the
-    kernel library this process built: the phase fails if the build
-    directory changes. Then both kernels are held against their plain
+    kernel library and the native XDR codec this process built: the
+    phase fails if a build directory changes or a node process (either
+    life of node 1) reports the codec not serving it. Then both kernels are held against their plain
     versions and timed on as many rows as the largest device dispatch
     any node of run A reports. `accounts` (the payments of each pay
     round too) and `rounds` cut the load's depth (the card's test
@@ -5136,7 +5176,12 @@ def cluster_phase(card, imad_per_s, accounts=NODE_LOAD,
     held_kernels' result."""
     from stellar_core_tpu_torch.crypto.keys import SecretKey
     from stellar_core_tpu_torch.ops import _build
-    built = sorted(os.listdir(_build.BUILD))
+    from stellar_core_tpu_torch.xdr import native_codec
+    dirs = (_build.BUILD, native_codec._BUILD)
+    def listed():
+        return [sorted(os.listdir(d)) if os.path.isdir(d) else []
+                for d in dirs]
+    built = listed()
     work = tempfile.mkdtemp(prefix="cluster-")
     try:
         os.makedirs(os.path.join(work, "self"))
@@ -5156,9 +5201,9 @@ def cluster_phase(card, imad_per_s, accounts=NODE_LOAD,
         shutil.rmtree(work, ignore_errors=True)
     a, b = runs["A"], runs["B"]
     problems = cluster_problems(a, b)
-    if sorted(os.listdir(_build.BUILD)) != built:
-        problems.append(f"the node processes changed the build directory: "
-                        f"{built} -> {sorted(os.listdir(_build.BUILD))}")
+    if listed() != built:
+        problems.append(f"the node processes changed a build directory: "
+                        f"{built} -> {listed()}")
     if problems:
         raise SystemExit("cluster: " + "; ".join(problems))
     dispatches = cluster_dispatches(a)
@@ -5223,6 +5268,417 @@ def cluster_phase(card, imad_per_s, accounts=NODE_LOAD,
               f"{e['bound_ms'] / e['ms']:.4f} of the time) [{card}]",
               flush=True)
     return total, kernels
+
+
+# phase 18: the port's profile_catchup at its defaults, replayed three
+# times, and cuda_differential orchestrate at its default n
+PROFILE_LEDGERS = 64     # ledgers the publisher closes (checkpoint 63)
+PROFILE_PAYMENTS = 30    # one-Payment transactions per ledger
+PROFILE_TOP = 15         # R1's functions printed by tottime
+PROFILE_TIMEOUT_S = 600  # each replay process
+DIFFERENTIAL_TIMEOUT_S = 900
+# the extension functions of the native XDR codec, as cProfile names them
+CODEC_CALLS = ("<built-in method _scxdr.pack>",
+               "<built-in method _scxdr.unpack>",
+               "<built-in method _scxdr.clone>")
+
+
+def codec_path():
+    """The file of the native XDR codec this process loaded: exits unless
+    the codec is live (built, loaded, not fallen back to the Python path
+    for good) and its extension is a hashed build in the package's
+    native/build directory."""
+    from stellar_core_tpu_torch.xdr import native_codec, runtime
+    nc, state = runtime._nc(), native_codec.state()
+    if nc is None or state is None or state._failed or not state.ok:
+        raise SystemExit("the native XDR codec is not live (SC_XDR_NATIVE=0 "
+                         "or its build or load failed): the Python path "
+                         "serves")
+    path = state.ext.__file__
+    if os.path.dirname(path) != native_codec._BUILD or \
+            not os.path.basename(path).startswith("_scxdr_"):
+        raise SystemExit(f"the codec loaded {path}, not a hashed build in "
+                         f"{native_codec._BUILD}")
+    return path
+
+
+def profile_publish(directory, payments=PROFILE_PAYMENTS):
+    """The port's profile_catchup publisher in this process: an
+    Application of get_test_config(instance 0, the script's first
+    config, so its node key and hence its headers are the script's) with
+    a tmpdir archive at `directory`/archive in its HISTORY, then
+    profile_catchup._publish (PROFILE_LEDGERS ledgers of `payments`
+    payments). Returns the archive's root, the passphrase and each
+    ledger's header hash."""
+    from stellar_core_tpu_torch.history.archive import make_tmpdir_archive
+    from stellar_core_tpu_torch.main import Application, get_test_config
+    from stellar_core_tpu_torch.scripts import profile_catchup
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    root = os.path.join(directory, "archive")
+    archive = make_tmpdir_archive("bench", root)
+    cfg = get_test_config(instance=0)
+    cfg.HISTORY = {"bench": {"get": archive.get_cmd, "put": archive.put_cmd}}
+    app = Application.create(VirtualClock(ClockMode.VIRTUAL_TIME), cfg)
+    app.start()
+    lm, hashes = app.ledger_manager, {}
+    close = app.manual_close
+
+    def recorded(*args, **kwargs):
+        out = close(*args, **kwargs)
+        hashes[lm.get_last_closed_ledger_num()] = \
+            lm.get_last_closed_ledger_hash().hex()
+        return out
+    app.manual_close = recorded
+    try:
+        profile_catchup._publish(app, cfg, PROFILE_LEDGERS, payments)
+    finally:
+        app.shutdown()
+    return root, cfg.NETWORK_PASSPHRASE, hashes
+
+
+def profile_replay(archive_root, passphrase, out):
+    """One replay of phase 18, in a fresh process, as the port's
+    profile_catchup replays (get_test_config, MODE_STORES_HISTORY_MISC
+    off, the sequential CatchupWork to the archive's last checkpoint under
+    cProfile) but with SIGNATURE_VERIFY_BACKEND "cuda": the Application
+    builds BackendSupervisor(CudaBatchVerifier()), which the work takes
+    (behind a RecordingVerifier) for catchup prevalidation; its fallback
+    verify is the package's default_verify, counting its calls. Writes to `out` a JSON
+    document (the final state, the LCL, its hash and bucket-list hash,
+    the wall, the kernels' launches, each dispatch's size and verdicts
+    off the native verifier, the batches' hits and misses, the fallback
+    calls, the supervisor's status, whether the codec was live), the
+    profile to `out`.prof and the largest dispatch's rows to `out`.npz.
+    Returns 0."""
+    import cProfile
+    from stellar_core_tpu_torch.catchup.catchup_work import (
+        CatchupConfiguration, CatchupWork)
+    from stellar_core_tpu_torch.crypto.keys import verify_sig_uncached
+    from stellar_core_tpu_torch.history.archive import make_tmpdir_archive
+    from stellar_core_tpu_torch.main import Application, get_test_config
+    from stellar_core_tpu_torch.tx import signature_checker as sigchk
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.work import run_work_to_completion
+    from stellar_core_tpu_torch.xdr import runtime
+    archive = make_tmpdir_archive("bench", archive_root)
+    cfg = get_test_config()
+    cfg.NETWORK_PASSPHRASE = passphrase
+    cfg.SIGNATURE_VERIFY_BACKEND = "cuda"
+    cfg.MODE_STORES_HISTORY_MISC = False
+    app = Application.create(VirtualClock(ClockMode.VIRTUAL_TIME), cfg)
+    app.start()
+    sup = app.batch_verifier
+    rec, fallbacks = RecordingVerifier(sup), []
+
+    def verify(pub, sig, msg):
+        fallbacks.append(1)
+        return sigchk.default_verify(pub, sig, msg)
+    work = CatchupWork(app, archive, CatchupConfiguration(to_ledger=0),
+                       verify=verify, batch_verifier=rec)
+    try:
+        zero_launches()
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        final = run_work_to_completion(app, work)
+        prof.disable()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        prof.dump_stats(out + ".prof")
+        lm = app.ledger_manager
+        header = lm.get_last_closed_ledger_header()
+        calls = rec.calls
+        if calls:
+            items = max(calls, key=lambda c: len(c[0]))[0]
+            pubs, sigs, msgs = rows(items)
+            np.savez(out + ".npz", pubs=pubs, sigs=sigs,
+                     msgs=np.array([list(m) for m in msgs], np.uint8))
+        st = sup.status()
+        doc = dict(
+            state=final.name, lcl=lm.get_last_closed_ledger_num(),
+            hash=lm.get_last_closed_ledger_hash().hex(),
+            bucket_list=bytes(header.bucketListHash).hex(), wall_s=wall,
+            launches=launches, dispatches=[len(c[0]) for c in calls],
+            off_native=[sum(g != verify_sig_uncached(*t)
+                            for t, g in zip(c[0], c[1])) for c in calls],
+            batches=work_batches(work, False), fallbacks=len(fallbacks),
+            supervisor={k: st[k] for k in (
+                "state", "dispatches", "skips", "failures",
+                "transition_count")},
+            codec=runtime._nc() is not None)
+    finally:
+        app.shutdown()
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def profile_problems(last, hashes, r1, r2, r3, payments):
+    """What phase 18's replays got wrong, on whatever device they ran:
+    R1, R2 and R3 (profile_runs' documents) not on the publisher's last
+    checkpoint `last` with its hash (`hashes`) and R1's bucket-list
+    hash; R1 or R2 not ending in success, with other dispatches than one
+    of every signature the replayed ledgers hold, verdicts off the native
+    verifier, batch misses, fallback calls, a supervisor not CLOSED or
+    with failures, skips, transitions or other dispatches; R1 without the
+    codec's calls in its profile, R2 with any."""
+    p = []
+    want = [1 + (last - 2) * payments]
+    for tag, r in (("R1", r1), ("R2", r2)):
+        if r["state"] != "WORK_SUCCESS":
+            p.append(f"{tag} ended {r['state']}")
+        if r["dispatches"] != want:
+            p.append(f"{tag} dispatched {r['dispatches']}, predicted "
+                     f"{want}")
+        if any(r["off_native"]) or r["fallbacks"] or \
+                any(b["misses"] or b["failed"] or not b["landed"]
+                    for b in r["batches"]):
+            p.append(f"{tag}: verdicts off native {r['off_native']}, "
+                     f"batches {r['batches']}, fallback calls "
+                     f"{r['fallbacks']}")
+        sup = r["supervisor"]
+        if sup["state"] != "CLOSED" or sum(sup["failures"].values()) or \
+                sup["skips"] or sup["transition_count"] or \
+                sup["dispatches"] != len(r["dispatches"]):
+            p.append(f"{tag} supervisor {sup}")
+    for tag, r in (("R1", r1), ("R2", r2), ("R3", r3)):
+        if r["lcl"] != last or r["hash"] != hashes[last] or \
+                r["bucket_list"] != r1["bucket_list"]:
+            p.append(f"{tag} landed on {r['lcl']} {r['hash'][:16]} "
+                     f"(bucket list {r['bucket_list'][:16]}), not "
+                     f"the publisher's {last} {hashes[last][:16]}")
+    if not r1["codec"] or not r1["codec_calls"]:
+        p.append(f"R1 ran without the codec: {r1['codec_calls']}")
+    if r2["codec"] or r2["codec_calls"]:
+        p.append(f"R2 ran the codec: {r2['codec_calls']}")
+    return p
+
+
+def codec_calls(prof_path):
+    """Calls of the codec's extension functions in a cProfile dump."""
+    import pstats
+    stats = pstats.Stats(prof_path).stats
+    return {name: v[1] for (f, _, name), v in stats.items()
+            if f == "~" and name in CODEC_CALLS}
+
+
+def top_functions(prof_path, n=PROFILE_TOP):
+    """The profile's `n` functions with the most own time, as pstats
+    prints them."""
+    import io
+    import pstats
+    s = io.StringIO()
+    pstats.Stats(prof_path, stream=s).sort_stats("tottime").print_stats(n)
+    text = s.getvalue()
+    # from the table's header on: the lines above name the dump's file
+    return text[text.index("ncalls"):]
+
+
+def script_replay(payments):
+    """R3: `python -m stellar_core_tpu_torch.scripts.profile_catchup
+    PROFILE_LEDGERS payments` as it is (its own publisher, the native backend).
+    Returns its LCL, wall, rate, LCL hash and bucket-list hash from its
+    output."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "stellar_core_tpu_torch.scripts."
+         "profile_catchup", str(PROFILE_LEDGERS), str(payments)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=PROFILE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    m = re.search(r"replayed to ledger (\d+) in ([\d.]+)s = ([\d.]+) "
+                  r"ledgers/s\nLCL \d+ hash (\w+) bucket list (\w+)",
+                  res.stdout)
+    if res.returncode or m is None:
+        raise SystemExit(f"profile: profile_catchup exited "
+                         f"{res.returncode}: {res.stdout[-2000:]} "
+                         f"{res.stderr[-2000:]}")
+    return dict(lcl=int(m[1]), wall_s=float(m[2]), rate=float(m[3]),
+                hash=m[4], bucket_list=m[5], process_s=wall)
+
+
+def profile_runs(payments=PROFILE_PAYMENTS):
+    """Phase 18's replays (see the docstring): profile_publish once, then
+    R1 (the "cuda" backend, codec on) and R2 (the same with
+    SC_XDR_NATIVE=0), each profile_replay in a fresh process, and R3
+    (script_replay). Returns the publisher's last checkpoint, each
+    ledger's hash, the three replays' documents (R1's and R2's with their
+    codec calls, R1's with its top functions) and R1's largest
+    dispatch's rows."""
+    work = tempfile.mkdtemp(prefix="profile-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    items, runs = [], {}
+    try:
+        t0 = time.perf_counter()
+        root, passphrase, hashes = profile_publish(work, payments)
+        last = max(h for h in hashes if h % 64 == 63)
+        print(f"profile: published {max(hashes)} ledgers of {payments} "
+              f"payments in {time.perf_counter() - t0:.3f} s, checkpoint "
+              f"{last}", flush=True)
+        for tag, extra in (("R1", {}), ("R2", {"SC_XDR_NATIVE": "0"})):
+            out = os.path.join(work, f"{tag}.json")
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                 "chip_smoke.profile_replay(*sys.argv[1:]))", root,
+                 passphrase, out], cwd=here,
+                env=dict(os.environ, **extra), capture_output=True,
+                text=True, timeout=PROFILE_TIMEOUT_S)
+            if res.returncode:
+                raise SystemExit(f"profile: {tag} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+            with open(out) as f:
+                runs[tag] = json.load(f)
+            runs[tag]["process_s"] = time.perf_counter() - t0
+            runs[tag]["codec_calls"] = codec_calls(out + ".prof")
+            if tag == "R1":
+                runs[tag]["top"] = top_functions(out + ".prof")
+                if os.path.exists(out + ".npz"):
+                    z = np.load(out + ".npz")
+                    items = [(p.tobytes(), s.tobytes(), m.tobytes())
+                             for p, s, m in zip(z["pubs"], z["sigs"],
+                                                z["msgs"])]
+        runs["R3"] = script_replay(payments)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return last, hashes, (runs["R1"], runs["R2"], runs["R3"]), items
+
+
+def profile_phase(card, imad_per_s, payments=PROFILE_PAYMENTS):
+    """Phase 18's replays on the card: profile_runs, held to
+    profile_problems and to one prep msg32 and one ladder launch per
+    dispatch in R1 and R2; then both kernels are held against their
+    plain versions on R1's largest dispatch. `payments` cuts the load
+    (the card's test runs it smaller). Returns the launches of R1 + R2
+    and held_kernels' result."""
+    last, hashes, (r1, r2, r3), items = profile_runs(payments)
+    problems = profile_problems(last, hashes, r1, r2, r3, payments)
+    for tag, r in (("R1", r1), ("R2", r2)):
+        n = len(r["dispatches"])
+        if r["launches"] != {"msg32": n, "k": 0, "ladder": n}:
+            problems.append(f"{tag} launches {r['launches']} for {n} "
+                            "dispatches")
+    if problems:
+        raise SystemExit("profile: " + "; ".join(problems))
+    for tag, r in (("R1", r1), ("R2", r2)):
+        print(f"  {tag} (\"cuda\", codec {'on' if r['codec'] else 'off'}, "
+              f"under cProfile): LCL {r['lcl']} {r['hash'][:16]} in "
+              f"{r['wall_s']:.3f} s, {(r['lcl'] - 1) / r['wall_s']:.2f} "
+              f"replayed ledgers/s ({r['lcl'] / r['wall_s']:.2f} as "
+              f"profile_catchup counts); dispatches {r['dispatches']}, "
+              f"launches {r['launches']}, supervisor {r['supervisor']}, "
+              f"fallback calls {r['fallbacks']}; codec calls "
+              f"{r['codec_calls']}; process {r['process_s']:.1f} s "
+              f"[{card}]", flush=True)
+    print(f"  R3 (profile_catchup {PROFILE_LEDGERS} {payments}, \"native\", "
+          f"codec on, under cProfile): LCL {r3['lcl']} {r3['hash'][:16]} "
+          f"in {r3['wall_s']:.2f} s = {r3['rate']:.1f} ledgers/s as it "
+          f"counts (LCL / wall); process {r3['process_s']:.1f} s with its "
+          f"publish [{card}]", flush=True)
+    print(f"  R1's top {PROFILE_TOP} functions by tottime:\n"
+          + "\n".join("    " + line for line in r1["top"].splitlines()
+                      if line.strip()), flush=True)
+    launches = {k: r1["launches"][k] + r2["launches"][k]
+                for k in r1["launches"]}
+    held = held_kernels(items, imad_per_s, "profile")
+    print(f"  held on R1's largest dispatch (n={len(items)}): prep "
+          f"{held['prep']['ms']:.4f} ms (plain "
+          f"{held['prep']['plain_ms']:.1f} ms), ladder "
+          f"{held['ladder']['ms']:.4f} ms (plain "
+          f"{held['ladder']['plain_ms']:.1f} ms), equal to plain "
+          f"[{card}]", flush=True)
+    return launches, held
+
+
+def differential_phase(card):
+    """Phase 18's differential: `python -m stellar_core_tpu_torch.scripts.
+    cuda_differential orchestrate` at its default n (10,000 plus the
+    adversarial tail) in its own processes, the card and the CPU's plain
+    versions at once, each against the oracle and against each other.
+    Fails unless it exits 0 with its PASS line. Returns the card run's
+    launches."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "stellar_core_tpu_torch.scripts."
+         "cuda_differential", "orchestrate"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=DIFFERENTIAL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    docs = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+    card_run = [d for d in docs if d["device"].startswith("cuda")]
+    if res.returncode or "CUDA DIFFERENTIAL: PASS" not in res.stdout or \
+            len(card_run) != 1:
+        raise SystemExit(f"differential: exited {res.returncode}: "
+                         f"{res.stdout[-3000:]} {res.stderr[-3000:]}")
+    for d in docs:
+        print(f"  differential {d['device']}: n={d['n']}, mismatches "
+              f"against the oracle {d['mismatches_vs_oracle']}, verify "
+              f"{d['secs']} s, launches {d['launches']}", flush=True)
+    print(f"differential: card == CPU == oracle on {card_run[0]['n']} "
+          f"signatures in {wall:.1f} s [{card}]", flush=True)
+    return card_run[0]["launches"]
+
+
+def cpu_model():
+    """The host's CPU from /proc/cpuinfo: its model name, vendor, family
+    and model numbers (a virtual machine may name no model)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        return "not readable"
+    return (f"{fields.get('model name')} ({fields.get('vendor_id')}, family "
+            f"{fields.get('cpu family')} model {fields.get('model')})")
+
+
+def native_baseline(card, sets):
+    """Phase 18's native baseline: NativeLib.batch_verify (the reference's
+    CPU batch verifier, one thread) on each set of msg32 rows in `sets`
+    ({name: (pubs, sigs, msgs, the card's verdicts)}), and the same call
+    split over os.cpu_count() threads (ctypes releases the GIL). Fails
+    unless every verdict equals the card's. Prints verifies per second
+    beside the host's cores and CPU model and the card. A record for a
+    benchmark, not a claim."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stellar_core_tpu_torch.native.loader import get_lib
+    lib = get_lib()
+    cores = os.cpu_count() or 1
+    out = {}
+    for name, (pubs, sigs, msgs, want) in sets.items():
+        n = len(msgs)
+        blob = b"".join(msgs)
+        offsets = np.arange(n + 1, dtype=np.uint64) * 32
+
+        def chunk(lo, hi):
+            return lib.batch_verify(pubs[lo:hi], sigs[lo:hi],
+                                    blob[32 * lo:32 * hi],
+                                    offsets[lo:hi + 1] - offsets[lo])
+        t0 = time.perf_counter()
+        got = chunk(0, n)
+        one = time.perf_counter() - t0
+        step = -(-n // cores)
+        with ThreadPoolExecutor(cores) as pool:
+            t0 = time.perf_counter()
+            parts = list(pool.map(lambda lo: chunk(lo, min(n, lo + step)),
+                                  range(0, n, step)))
+            every = time.perf_counter() - t0
+        split = np.concatenate(parts)
+        if got.tolist() != list(want) or split.tolist() != list(want):
+            raise SystemExit(f"native baseline on {name}: "
+                             f"{sum(g != w for g, w in zip(got, want))} "
+                             "verdicts off the card's")
+        out[name] = dict(n=n, one_thread=n / one, threads=n / every)
+        print(f"native baseline, {name}: batch_verify {n} rows, "
+              f"{int(sum(want))} valid, equal to the card: "
+              f"{n / one:.1f} verifies/s on one thread, {n / every:.1f} on "
+              f"{cores} threads; host {cores} cores, {cpu_model()} "
+              f"[{card}]", flush=True)
+    return out
 
 
 def peak_rss(phase, started):
@@ -5297,6 +5753,13 @@ def main():
               f"{count('IMAD.WIDE')}, IMAD {ops['IMAD']}, SHFL "
               f"{count('SHFL')}, LDS {count('LDS')}, LDL/STL "
               f"{count('LDL', 'STL')}; top {ops.most_common(6)}")
+    # the native XDR codec, built (or loaded) here: every phase from 5 on
+    # packs, unpacks and clones through it, and phase 17's node processes
+    # find this build
+    t0 = time.perf_counter()
+    codec = codec_path()
+    print(f"native XDR codec: live, {os.path.relpath(codec)} (built or "
+          f"loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
     infos = {k: geometry(_build.kernel_info(k), N, sms)
              for k in _build.KERNELS}
     for k, info in infos.items():
@@ -5601,6 +6064,22 @@ def main():
     cluster, cluster_times = cluster_phase(card, imad_per_s)
     peak_rss(17, started)
 
+    # --- 18. the host tools on the card: the codec, the profiled replays,
+    # the differential, the native baseline -------------------------------
+    t18 = time.perf_counter()
+    if codec_path() != codec:
+        raise SystemExit("the native XDR codec changed during the run")
+    print(f"native XDR codec still live after phases 5-17: "
+          f"{os.path.relpath(codec)}", flush=True)
+    profile, profile_times = profile_phase(card, imad_per_s)
+    differential = differential_phase(card)
+    native_baseline(card, {
+        "phase 5's rows": (pubs, sigs, msgs, np.asarray(results[0])),
+        "phase 3's lanes": (p3, s3, m3, verdict)})
+    print(f"phase 18 in {time.perf_counter() - t18:.1f} s [{card}]",
+          flush=True)
+    peak_rss(18, started)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
@@ -5620,7 +6099,8 @@ def main():
             "txset": txset[kind], "classic": classic[kind],
             "soroban": soroban[kind], "wasm": wasm[kind],
             "close": close[kind], "catchup": catchup[kind],
-            "consensus": consensus[kind], "node": node[kind]}
+            "consensus": consensus[kind], "node": node[kind],
+            "profile": profile[kind], "differential": differential[kind]}
         if kind == "ladder":
             e["launches_by_path"]["cluster"] = cluster
         else:
@@ -5630,12 +6110,13 @@ def main():
         if held:
             # the same kernel on the largest catchup dispatch's rows, on
             # one flood burst's rows, on the node's first flush whose
-            # size is not a multiple of 32 and on as many rows as the
-            # cluster's largest dispatch
+            # size is not a multiple of 32, on as many rows as the
+            # cluster's largest dispatch and on R1's largest dispatch
             for path, times in (("catchup", catchup_times),
                                 ("consensus", consensus_times),
                                 ("node", node_times),
-                                ("cluster", cluster_times)):
+                                ("cluster", cluster_times),
+                                ("profile", profile_times)):
                 e[path] = {k: times[held][k] for k in (
                     "n", "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}
@@ -5645,14 +6126,16 @@ def main():
                   f"n={e['consensus']['n']} (phase 15), "
                   f"{e['node']['ms']:.4f} ms at n={e['node']['n']} "
                   f"(phase 16), {e['cluster']['ms']:.4f} ms at "
-                  f"n={e['cluster']['n']} (phase 17) [{card}]", flush=True)
+                  f"n={e['cluster']['n']} (phase 17), "
+                  f"{e['profile']['ms']:.4f} ms at n={e['profile']['n']} "
+                  f"(phase 18) [{card}]", flush=True)
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)
                 and count.get("ladder", 0)):
             raise SystemExit(f"{path} path launched a kernel no time: "
                              f"{count}")
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s "
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))

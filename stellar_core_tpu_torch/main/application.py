@@ -568,6 +568,7 @@ class Application:
     def info(self) -> dict:
         lm = self.ledger_manager
         lcl = lm.get_last_closed_ledger_header()
+        from ..xdr import runtime as xdr_runtime
         from ..xdr.schema import identity as xdr_identity
         out = {
             "build": "stellar-core-tpu dev",
@@ -587,6 +588,10 @@ class Application:
             "network": self.config.NETWORK_PASSPHRASE,
             "protocol_version": self.config.LEDGER_PROTOCOL_VERSION,
             "num_pending_txs": self.herder.tx_queue.size_txs(),
+            # whether the native XDR codec serves this process, or the
+            # Python path does (SC_XDR_NATIVE=0, or its build or load
+            # failed): a harness holds node processes to it
+            "xdr_native": xdr_runtime._nc() is not None,
         }
         # actual bound admin port (set by the `run` command — with
         # HTTP_PORT=0 the OS picks it, and a harness polling `info`

@@ -9,6 +9,13 @@ sources and flags. The header is rewritten only when its text differs,
 and the library is written to a temporary file and renamed, so
 processes building at once do not clash. Nothing here runs at import.
 
+SC_NATIVE_SANITIZE=1 selects the ASan+UBSan build. Its flags differ, so
+its hash and its file (build/libscnative-san_<hash>.so) do too, and it
+never replaces the fast library. Load it through
+`python -m stellar_core_tpu_torch.scripts.native_sanitize`, which
+LD_PRELOADs libasan: an ASan library dlopen'ed into a plain python
+otherwise trips ASan's link-order check.
+
 A build that fails is remembered: `get_lib` raises at once afterwards,
 and callers (crypto/keys.py) fall back to the strict oracle.
 """
@@ -30,6 +37,16 @@ _SRC = os.path.join(_DIR, "src")
 BUILD = os.path.join(_DIR, "build")
 FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
          "-pthread"]
+# -O1 keeps stack traces honest; UBSan aborts on the first report, so a
+# signed overflow or a misaligned load fails the test run loudly
+SANITIZE_FLAGS = ["-O1", "-g", "-fno-omit-frame-pointer",
+                  "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=undefined", "-march=native",
+                  "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+
+def sanitize_enabled() -> bool:
+    return os.environ.get("SC_NATIVE_SANITIZE", "") == "1"
 
 _lock = threading.Lock()
 _lib: Optional["NativeLib"] = None
@@ -98,28 +115,45 @@ def _sources() -> list:
                   if f.endswith((".cpp", ".h")))
 
 
-def build() -> str:
-    """Compile src/*.cpp unless this source hash is built; returns the
-    library path. Raises with the compiler output on failure."""
-    _write_header()
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for path in _sources():
+def build_hashed(directory: str, stem: str, flags: list, sources: list,
+                 command, force: bool = False) -> str:
+    """The library `directory`/`stem`_<hash>.so, the hash over `flags`
+    and each of `sources` (its name and bytes), compiled unless it is
+    built (or `force`): `command(out)` is the compiler's argv writing to
+    `out`, a temporary file then renamed into place, so processes that
+    build at once each load a whole library. Raises with the compiler
+    output on failure."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD, f"libscnative_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
+    so = os.path.join(directory, f"{stem}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so) and not force:
         return so
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(directory, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = (["g++"] + FLAGS + ["-o", tmp]
-           + [s for s in _sources() if s.endswith(".cpp")])
+    cmd = command(tmp)
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"g++ failed ({res.returncode}):\n"
+        raise RuntimeError(f"{cmd[0]} failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def build(force: bool = False) -> str:
+    """Compile src/*.cpp unless this source hash is built (or `force`),
+    with the sanitizers under SC_NATIVE_SANITIZE=1; returns the library
+    path. Raises with the compiler output on failure."""
+    _write_header()
+    san = sanitize_enabled()
+    flags = SANITIZE_FLAGS if san else FLAGS
+    cpp = [s for s in _sources() if s.endswith(".cpp")]
+    return build_hashed(BUILD, "libscnative-san" if san else "libscnative",
+                        flags, _sources(),
+                        lambda out: ["g++"] + flags + ["-o", out] + cpp,
+                        force)
 
 
 class NativeLib:
@@ -144,6 +178,9 @@ class NativeLib:
         c.sc_ed25519_sign.restype = None
         u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
         u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
+        c.sc_ed25519_batch_verify.argtypes = [u8p, u8p, u8p, u64p,
+                                              ctypes.c_uint64, u8p]
+        c.sc_ed25519_batch_verify.restype = None
         c.sc_ed25519_batch_prepare.argtypes = [u8p, u8p, u8p, u64p,
                                                ctypes.c_uint64, u8p, u8p]
         c.sc_ed25519_batch_prepare.restype = None
@@ -186,15 +223,39 @@ class NativeLib:
         self._c.sc_ed25519_sign(seed, pub, msg, len(msg), out)
         return out.raw
 
+    def batch_verify(self, pubs: np.ndarray, sigs: np.ndarray,
+                     msgs: bytes, offsets: np.ndarray) -> np.ndarray:
+        """CPU batch baseline, one thread: (n,) bool verdicts of the
+        strict verify. Message i is msgs[offsets[i]:offsets[i+1]]."""
+        n = pubs.shape[0]
+        offsets = self._offsets(pubs, sigs, msgs, offsets, "batch_verify")
+        results = np.zeros(n, dtype=np.uint8)
+        self._c.sc_ed25519_batch_verify(
+            np.ascontiguousarray(pubs, dtype=np.uint8),
+            np.ascontiguousarray(sigs, dtype=np.uint8),
+            np.frombuffer(msgs or b"\0", dtype=np.uint8), offsets, n,
+            results)
+        return results.astype(bool)
+
+    @staticmethod
+    def _offsets(pubs, sigs, msgs, offsets, what):
+        """The offsets as the C side reads them, after checking that they
+        delimit len(msgs) bytes in order for n public keys and
+        signatures: the C side trusts them."""
+        n = pubs.shape[0]
+        offsets = np.ascontiguousarray(offsets, dtype=np.uint64)
+        if pubs.shape != (n, 32) or sigs.shape != (n, 64) \
+                or offsets.shape != (n + 1,) or int(offsets[-1]) != len(msgs) \
+                or (offsets[1:] < offsets[:-1]).any():
+            raise ValueError(f"{what}: inconsistent shapes")
+        return offsets
+
     def batch_prepare(self, pubs: np.ndarray, sigs: np.ndarray,
                       msgs: bytes, offsets: np.ndarray):
         """k = SHA512(R‖A‖M) mod L per signature ((n,32) uint8) and the
         S < L flags ((n,) bool). Message i is msgs[offsets[i]:offsets[i+1]]."""
         n = pubs.shape[0]
-        offsets = np.ascontiguousarray(offsets, dtype=np.uint64)
-        if pubs.shape != (n, 32) or sigs.shape != (n, 64) \
-                or offsets.shape != (n + 1,) or int(offsets[-1]) != len(msgs):
-            raise ValueError("batch_prepare: inconsistent shapes")
+        offsets = self._offsets(pubs, sigs, msgs, offsets, "batch_prepare")
         k_out = np.zeros((n, 32), dtype=np.uint8)
         s_ok = np.zeros(n, dtype=np.uint8)
         # a 1-byte buffer stands in for an empty blob: C reads none of it

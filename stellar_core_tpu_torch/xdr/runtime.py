@@ -14,11 +14,6 @@ Design notes:
   maps, no implicit defaults in the encoding.
 - Hot-path hashing feeds the batch signature verifier; `xdr_to_bytes` is kept
   allocation-light (single bytearray writer).
-
-Counterpart of stellar_core_tpu/xdr/runtime.py without its native codec
-hook (xdr/native_codec.py and native/src/pyext/xdr_codec.cpp there):
-encode, decode and clone take the Python path only. The bytes are the
-same either way; the native codec comes with a later host slice.
 """
 
 from __future__ import annotations
@@ -30,6 +25,39 @@ from typing import Any, Dict, List, Optional as Opt, Sequence, Tuple, Type
 
 class XdrError(Exception):
     """Raised on malformed XDR input or out-of-range values."""
+
+
+# ---------------------------------------------------------------------------
+# Native codec hookup (see native_codec.py / native/src/pyext/xdr_codec.cpp)
+# ---------------------------------------------------------------------------
+
+# every concrete Struct/Union class, in creation order; the native codec
+# compiles this world into a C schema program
+_XDR_REGISTRY: List[type] = []
+# bumped on class creation and register_arm so the native program recompiles
+_XDR_GEN = [0]
+_NC: List[Any] = [None]   # None = not loaded, False = disabled/unavailable
+
+
+def _nc():
+    """The native codec state if usable for the current schema
+    generation, else None (callers then take the Python path)."""
+    ns = _NC[0]
+    if ns is None:
+        try:
+            from . import native_codec
+            ns = native_codec.state()
+        except Exception:
+            ns = None
+        if ns is None:
+            _NC[0] = False
+            return None
+        _NC[0] = ns
+    elif ns is False:
+        return None
+    if ns.gen != _XDR_GEN[0]:
+        ns.refresh()
+    return ns if ns.ok else None
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +598,8 @@ class _StructMeta(type):
             cls._pack = pack
             cls._unpack = classmethod(unpack)
             cls._py_clone = _gen_struct_clone(cls)
+            _XDR_REGISTRY.append(cls)
+            _XDR_GEN[0] += 1
         return cls
 
 
@@ -613,12 +643,24 @@ class Struct(metaclass=_StructMeta):
         return obj
 
     def to_bytes(self) -> bytes:
+        nc = _nc()
+        if nc is not None:
+            try:
+                return nc.pack(nc.cap, self.__class__._nidx, self)
+            except Exception:
+                pass   # Python path below re-raises with field context
         w = Writer()
         self._pack(w)
         return bytes(w.buf)
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "Struct":
+        nc = _nc()
+        if nc is not None:
+            try:
+                return nc.unpack(nc.cap, cls._nidx, data)
+            except Exception:
+                pass   # Python path below re-raises with context
         r = Reader(data)
         obj = cls._unpack(r)
         if not r.done():
@@ -627,8 +669,25 @@ class Struct(metaclass=_StructMeta):
 
     def clone(self) -> "Struct":
         """Structural deep copy — no serialize/parse roundtrip (the
-        LedgerTxn aliasing-protection hot path)."""
+        LedgerTxn aliasing-protection hot path). The native-codec check
+        is inlined rather than routed through _nc(): clone is the
+        single hottest XDR call in ledger replay (16.5k calls per 64
+        ledgers, scripts/profile_catchup.py) and the extra function
+        call + refresh bookkeeping measured ~60% overhead on top of
+        the native clone itself."""
         cls = self.__class__
+        ns = _NC[0]
+        if ns is not None and ns is not False and ns.gen == _XDR_GEN[0] \
+                and ns.ok:
+            try:
+                return ns.clone(ns.cap, cls._nidx, self)
+            except Exception:
+                pass
+        elif (nc := _nc()) is not None:
+            try:
+                return nc.clone(nc.cap, cls._nidx, self)
+            except Exception:
+                pass
         pc = getattr(cls, "_py_clone", None)
         if pc is not None:
             return pc(self)
@@ -726,6 +785,8 @@ class _UnionMeta(type):
                 cls._DEFAULT_UNPACKER = (
                     default[0],
                     default[1].unpack if default[1] is not None else None)
+            _XDR_REGISTRY.append(cls)
+            _XDR_GEN[0] += 1
         return cls
 
 
@@ -806,6 +867,7 @@ class Union(metaclass=_UnionMeta):
         cls._ARM_UNPACKERS[disc] = (
             arm_name, at.unpack if at is not None else None)
         cls._ARM_CLONE_MODES[disc] = 0 if at is None else _clone_mode(at)
+        _XDR_GEN[0] += 1   # recompile the native schema program
 
     @classmethod
     def _arm_for(cls, disc: Any) -> Opt[Tuple[str, Opt[XdrType]]]:
@@ -853,12 +915,24 @@ class Union(metaclass=_UnionMeta):
         return obj
 
     def to_bytes(self) -> bytes:
+        nc = _nc()
+        if nc is not None:
+            try:
+                return nc.pack(nc.cap, self.__class__._nidx, self)
+            except Exception:
+                pass   # Python path below re-raises with arm context
         w = Writer()
         self._pack(w)
         return bytes(w.buf)
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "Union":
+        nc = _nc()
+        if nc is not None:
+            try:
+                return nc.unpack(nc.cap, cls._nidx, data)
+            except Exception:
+                pass   # Python path below re-raises with context
         r = Reader(data)
         obj = cls._unpack(r)
         if not r.done():
@@ -867,8 +941,21 @@ class Union(metaclass=_UnionMeta):
 
     def clone(self) -> "Union":
         """Structural deep copy (see Struct.clone); arm payloads are
-        copied per the statically computed per-arm clone mode."""
+        copied per the statically computed per-arm clone mode. Native
+        check inlined as in Struct.clone (hot path)."""
         cls = self.__class__
+        ns = _NC[0]
+        if ns is not None and ns is not False and ns.gen == _XDR_GEN[0] \
+                and ns.ok:
+            try:
+                return ns.clone(ns.cap, cls._nidx, self)
+            except Exception:
+                pass
+        elif (nc := _nc()) is not None:
+            try:
+                return nc.clone(nc.cap, cls._nidx, self)
+            except Exception:
+                pass
         obj = cls.__new__(cls)
         obj.disc = d = self.disc
         obj.arm_name = self.arm_name

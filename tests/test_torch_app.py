@@ -72,7 +72,10 @@ DIFFERENCES = {
         ("ndev = torch.cuda.device_count()", "ndev = len(jax.devices())"),
         ("import CudaBatchVerifier\n            return CudaBatchVerifier(",
          "import TpuBatchVerifier\n            return TpuBatchVerifier("),
-        ('if backend in ("cuda", "tpu"):', 'if backend == "tpu":')],
+        ('if backend in ("cuda", "tpu"):', 'if backend == "tpu":'),
+        # info reports whether the native XDR codec serves
+        ("        from ..xdr import runtime as xdr_runtime\n", ""),
+        ('            "xdr_native": xdr_runtime._nc() is not None,\n', "")],
     "main/self_check.py": [
         ('in ("cuda",\n' + " " * 63 + '"tpu"):', '== "tpu":'),
         ("import CudaBatchVerifier", "import TpuBatchVerifier"),

@@ -40,7 +40,7 @@ import test_fuzz_coverage as ref_fuzz_coverage
 import test_replay as ref_replay
 import test_xdrquery as ref_xdrquery
 from torch_node_parity import run_both
-from torch_rebind import module_code, reference_cases
+from torch_rebind import module_code, rebound, reference_cases
 
 ROOT = Path(__file__).resolve().parents[1]
 # the modules this slice copied, in the order each depends only on
@@ -89,6 +89,16 @@ def test_reference_cli_tests_on_both_with_equal_records(case, tmp_path,
     jax_run, port_run = run_both(case, tmp_path,
                                  builtin={"capsys": capsys})
     assert jax_run == port_run
+
+
+def test_replay_report_is_the_port_s():
+    """test_replay's replay_report (the reference's scripts/) rebinds to
+    the port's copy in its scripts subpackage, whose functions import
+    the port."""
+    from stellar_core_tpu_torch.scripts import replay_report
+    assert rebound(ref_replay)["replay_report"] is replay_report
+    assert "stellar_core_tpu_torch.replay" in \
+        replay_report._load_trace.__code__.co_names
 
 
 def test_cases_cover_every_reference_test():

@@ -8,7 +8,8 @@ the classic operation families on it (phase 10 at 64 transactions), the
 contract auth-entry batches of phase 11 at 200 transactions, the wasm
 contracts of phase 12 at 200 transactions, phases 13-17 (the close,
 catchup, consensus and flood admission, the node, four node processes
-over TCP) at small sizes, and
+over TCP) at small sizes, phase 18's profiled replays at 2 payments per
+ledger, the native XDR codec and the native baseline beside the card, and
 the JAX package's north-star catchup test rebound to the port on the
 card.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
@@ -492,3 +493,78 @@ def test_catchup_with_device_batch_prevalidation(card, tmp_path):
             app_b.shutdown()
     finally:
         app_a.shutdown()
+
+
+def test_profile_replays_on_card(card):
+    """chip_smoke.py phase 18's replays at 2 payments per ledger, with
+    its checks: profile_catchup's publisher, then R1 (SIGNATURE_VERIFY_
+    BACKEND "cuda", the native XDR codec on) and R2 (SC_XDR_NATIVE=0),
+    each a fresh process whose Application builds its supervisor on the
+    card, and R3 (profile_catchup as it is): the publisher's hash at
+    ledger 63 in all three, one dispatch of the 123 signatures in R1 and
+    R2 with one prep msg32 and one ladder launch each, the supervisors
+    CLOSED, the codec's calls in R1's profile only; both kernels held
+    against their plain versions on R1's dispatch."""
+    import chip_smoke as cs
+    rate = (torch.cuda.get_device_properties(card).multi_processor_count
+            * cs.IMAD_PER_SM_CLK
+            * float(cs.smi("clocks.max.sm").split()[0]) * 1e6)
+    try:
+        launches, kernels = cs.profile_phase(str(card), rate, payments=2)
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert launches == {"msg32": 2, "k": 0, "ladder": 2}
+    assert kernels["prep"]["n"] == kernels["ladder"]["n"] == 123
+
+
+def test_codec_and_native_baseline_beside_the_card(card):
+    """The native XDR codec is live in a process that builds the kernels
+    (a hashed build in native/build), and chip_smoke.py phase 18's native
+    baseline gives the card's verdicts on rows a quarter of which the
+    strict checks reject."""
+    import chip_smoke as cs
+    CudaBatchVerifier()
+    assert "/native/build/_scxdr_" in cs.codec_path()
+    items = make_differential_vectors(40)
+    items = [t for t in items if len(t[2]) == 32]
+    pubs, sigs, msgs = cs.rows(items)
+    want = CudaBatchVerifier().verify_tuples(items)
+    assert want == oracle_results(items) and 0 < sum(want) < len(want)
+    try:
+        out = cs.native_baseline(str(card), {"corpus": (pubs, sigs, msgs,
+                                                        want)})
+    except SystemExit as e:
+        pytest.fail(str(e))
+    assert out["corpus"]["n"] == len(items)
+
+
+def test_differential_suite_on_card(card):
+    """tests/test_tpu_hw_differential.py's card job on the port:
+    cuda_differential orchestrate at 10,000 signatures plus the
+    adversarial tail, the card and the CPU's plain versions in their own
+    processes, card == CPU == oracle."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "stellar_core_tpu_torch.scripts.cuda_differential", "orchestrate",
+         "--n", "10000"], capture_output=True, text=True,
+        cwd=Path(__file__).resolve().parents[1], timeout=3600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "CUDA DIFFERENTIAL: PASS" in res.stdout
+
+
+def test_differential_fast_on_card(card):
+    """The fast tier: the card against the oracle at 200 signatures plus
+    the whole adversarial tail."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "stellar_core_tpu_torch.scripts.cuda_differential", "fast"],
+        capture_output=True, text=True,
+        cwd=Path(__file__).resolve().parents[1], timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "FAST DIFFERENTIAL: PASS" in res.stdout

@@ -30,16 +30,14 @@ leaves its `with Cluster(...)` block, passing or failing, and bounds
 every wait with a deadline.
 """
 
-import contextlib
-
 import pytest
 
 import test_byzantine as ref_byzantine
 import test_chaos as ref_chaos
 import test_cluster_harness as ref_cluster_harness
+from torch_cpu_verifier import cpu_device_verifier
 from torch_node_parity import run_both
 from torch_rebind import reference_cases
-from torch_tx_parity import P
 
 MODULES = (ref_chaos, ref_byzantine, ref_cluster_harness)
 
@@ -63,22 +61,6 @@ def _compared(case, run):
     if case[0] is ref_chaos and case[2] in WALL_CLOCK:
         return [r for r in run if r[0] != "close"]
     return run
-
-
-@contextlib.contextmanager
-def cpu_device_verifier():
-    """The port's CudaBatchVerifier, where a module builds it by name,
-    on the CPU unless a device is named."""
-    base = P.verifier.CudaBatchVerifier
-
-    class OnTheCpu(base):
-        def __init__(self, *args, device="cpu", **kwargs):
-            super().__init__(*args, device=device, **kwargs)
-    P.verifier.CudaBatchVerifier = OnTheCpu
-    try:
-        yield
-    finally:
-        P.verifier.CudaBatchVerifier = base
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -24,6 +24,17 @@ def lib():
 
 
 @pytest.fixture(scope="module")
+def jlib():
+    """The JAX package's library in its fast build, also where
+    SC_NATIVE_SANITIZE=1 (the sanitizer job) selects the port's sanitized
+    one: the JAX package keeps a prebuilt sanitized library, linked against
+    the libasan of the machine that built it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("SC_NATIVE_SANITIZE", raising=False)
+        return jloader.get_lib()
+
+
+@pytest.fixture(scope="module")
 def corpus():
     return make_differential_vectors(24, seed=31)
 
@@ -47,8 +58,7 @@ def test_builds_into_ignored_dir_with_generated_header(lib):
     assert tkeys.host_verifier() == "native"
 
 
-def test_verify_matches_oracle_and_reference_native(lib, corpus):
-    jlib = jloader.get_lib()
+def test_verify_matches_oracle_and_reference_native(lib, jlib, corpus):
     got = [lib.verify(p, s, m) for p, s, m in corpus]
     assert got == [tref.verify(p, s, m) for p, s, m in corpus]
     assert got == [jlib.verify(p, s, m) for p, s, m in corpus]
@@ -64,8 +74,7 @@ def test_verify_matches_oracle_and_reference_native(lib, corpus):
         lib.public_from_seed(b"short")
 
 
-def test_sign_and_public_from_seed_identical_to_reference(lib):
-    jlib = jloader.get_lib()
+def test_sign_and_public_from_seed_identical_to_reference(lib, jlib):
     rng = np.random.default_rng(17)
     for i in range(6):
         seed = rng.bytes(32)

@@ -29,7 +29,7 @@ import test_link_faults as ref_link_faults
 import test_overlay as ref_overlay
 import test_tcp_overlay as ref_tcp_overlay
 import test_wire_path as ref_wire_path
-from torch_node_parity import run_both
+from torch_node_parity import PORT_SHIFT, TEST_PORTS, run_both
 from torch_rebind import reference_cases
 
 LEFT_OUT = {"test_tcp_overlay": {
@@ -72,3 +72,17 @@ def test_loopback_runs_record_equal_header_hashes(tmp_path):
     closes = [r for r in port_run if r[0] == "close"]
     assert closes and all(len(r[3]) == 32 for r in closes)
     assert closes == [r for r in jax_run if r[0] == "close"]
+
+
+def test_shifted_ports_lie_below_the_ephemeral_range():
+    """Each run's copy of the reference's TCP test ports lies below the
+    ports the kernel hands to outgoing sockets, so no other process's
+    connection holds one when a run binds it (one did at 46101, when the
+    JAX run's copy was 44000-47999)."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    copies = [range(TEST_PORTS.start + s, TEST_PORTS.stop + s)
+              for s in PORT_SHIFT.values()]
+    assert all(1024 < c.start and c.stop <= low for c in copies)
+    assert not set(copies[0]) & set(copies[1])
+    assert not any(set(c) & set(TEST_PORTS) for c in copies)

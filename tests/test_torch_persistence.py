@@ -231,19 +231,22 @@ def test_rebinding_reaches_the_port_modules():
 
 
 def test_unported_names_raise_only_when_used():
-    """NativeCodec (xdr/native_codec.py) has no port module yet: it
-    rebinds to a stand-in that raises NotImplementedError when called or
-    read, not when rebound. TransactionQueue and AddResult
-    (herder/tx_queue.py), Application (main/application.py) and
-    InputRecorder (replay/recorder.py), ported since, rebind to the
+    """util/jax_cache.py (the JAX package's XLA compile cache) has no
+    port module: its names rebind to a stand-in that raises
+    NotImplementedError when called or read, not when rebound.
+    TransactionQueue and AddResult (herder/tx_queue.py), Application
+    (main/application.py), InputRecorder (replay/recorder.py) and
+    NativeCodec (xdr/native_codec.py), ported since, rebind to the
     port's."""
     import types
 
     from stellar_core_tpu.replay.recorder import InputRecorder
+    from stellar_core_tpu.util.jax_cache import enable_compile_cache
     from stellar_core_tpu.xdr.native_codec import NativeCodec
     from stellar_core_tpu_torch.herder import tx_queue
     from stellar_core_tpu_torch.main import application
     from stellar_core_tpu_torch.replay import recorder
+    from stellar_core_tpu_torch.xdr import native_codec
     g = rebound(ref_ledger_close)
     assert g["TransactionQueue"] is tx_queue.TransactionQueue
     assert g["AddResult"] is tx_queue.AddResult
@@ -251,11 +254,13 @@ def test_unported_names_raise_only_when_used():
         application.Application
     uses = types.ModuleType("uses_codec_and_replay")
     uses.InputRecorder, uses.NativeCodec = InputRecorder, NativeCodec
+    uses.enable_compile_cache = enable_compile_cache
     g = rebound(uses)
     assert g["InputRecorder"] is recorder.InputRecorder
-    codec = g["NativeCodec"]
-    assert isinstance(codec, Unported)
-    with pytest.raises(NotImplementedError, match="native_codec"):
-        codec(None)
-    with pytest.raises(NotImplementedError, match="native_codec"):
-        codec.encode
+    assert g["NativeCodec"] is native_codec.NativeCodec
+    cache = g["enable_compile_cache"]
+    assert isinstance(cache, Unported)
+    with pytest.raises(NotImplementedError, match="jax_cache"):
+        cache(None)
+    with pytest.raises(NotImplementedError, match="jax_cache"):
+        cache.encode

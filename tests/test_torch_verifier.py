@@ -414,14 +414,23 @@ for name in ("xdr.runtime", "xdr.types", "xdr.ledger_entries",
              "simulation.chaos", "replay.scenario", "simulation.byzantine",
              "simulation.drive", "main.fuzzer", "main.fuzz_coverage",
              "main.command_line", "main.__main__", "__main__",
-             "simulation.cluster"):
+             "simulation.cluster", "xdr.native_codec", "analysis.astgraph",
+             "analysis.allowlist", "analysis.determinism",
+             "analysis.domains", "analysis.registry", "analysis",
+             "scripts", "scripts.analyze", "scripts.native_sanitize",
+             "scripts.profile_catchup", "scripts.cuda_differential",
+             "scripts.chaos_soak", "scripts.replay_report",
+             "scripts.soroban_settings_upgrade"):
     __import__("stellar_core_tpu_torch." + name)
 from stellar_core_tpu_torch.main.command_line import main
 assert main(["version"]) == 0
 from stellar_core_tpu_torch.soroban import host, wasm_host
 assert host.VM_REGISTRY[wasm_host.WASM_MAGIC] is wasm_host.run_wasm
-from stellar_core_tpu_torch.xdr import schema
+from stellar_core_tpu_torch.xdr import schema, runtime
 assert len(schema.identity()["curr"]) == 64
+assert runtime._nc() is not None
+from stellar_core_tpu_torch import analysis
+assert analysis.run_all().findings == []
 import chip_smoke
 out = chip_smoke.txset_run(chip_smoke.txset_workload(8))
 assert out["verdict"] is False and len(out["dropped"]) == 2, out

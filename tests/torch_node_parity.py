@@ -105,14 +105,16 @@ def recording(pkg):
 
 # the localhost ports the reference's TCP tests bind and dial (34000-
 # 37999), which the reference suite binds too, perhaps at the same time
-# in another worker: each run here uses its own copy of the range
+# in another worker: each run here uses its own copy of the range,
+# 14000-17999 and 18000-21999, below Linux's ephemeral ports (32768 and
+# up by default), so no outgoing socket of another process holds one
 TEST_PORTS = range(34000, 38000)
-PORT_SHIFT = {J.name: 10000, P.name: 20000}
+PORT_SHIFT = {J.name: -20000, P.name: -16000}
 
 
 @contextlib.contextmanager
 def shifted_ports(offset):
-    """Every socket binds and dials a port of TEST_PORTS `offset` higher
+    """Every socket binds and dials a port of TEST_PORTS moved by `offset`
     (the packages' code and the test's own sockets alike), except a port
     the system handed to a bind of port 0 here: that one is dialled as
     it is."""

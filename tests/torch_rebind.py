@@ -22,12 +22,13 @@ import types
 import pytest
 
 JAX_ROOT, PORT_ROOT = "stellar_core_tpu", "stellar_core_tpu_torch"
-# reference test modules whose helpers other reference tests import (and
-# scripts/replay_report.py, which imports the package in its functions)
+# reference test modules whose helpers other reference tests import
 HELPER_MODULES = ("txtest_utils", "test_bucket", "test_ledger_close",
                   "test_ledger_txn", "test_standalone_app", "test_overlay",
-                  "test_flow_control_edges", "test_history_catchup",
-                  "replay_report")
+                  "test_flow_control_edges", "test_history_catchup")
+# the reference's scripts/ modules a reference test imports -> the port's
+# copy in its scripts subpackage
+SCRIPTS = {"replay_report": PORT_ROOT + ".scripts.replay_report"}
 _HELPERS: dict = {}     # helper module name -> its rebound module
 
 
@@ -71,6 +72,8 @@ RENAMED = {("stellar_core_tpu_torch.ops.verifier", "TpuBatchVerifier"):
 def port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if level == 0 and name in HELPER_MODULES:
         return helper_module(importlib.import_module(name))
+    if level == 0 and name in SCRIPTS:
+        return importlib.import_module(SCRIPTS[name])
     if level == 0:
         name = port_name(name)
     out = builtins.__import__(name, globals, locals, fromlist, level)
@@ -95,6 +98,8 @@ def _port_value(name, v):
     if isinstance(v, types.ModuleType):
         if v.__name__ in HELPER_MODULES:
             return helper_module(v)
+        if v.__name__ in SCRIPTS:
+            return importlib.import_module(SCRIPTS[v.__name__])
         if not v.__name__.startswith(JAX_ROOT + "."):
             return v
         return _port_module(v.__name__) or Unported(v.__name__)
