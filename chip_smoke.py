@@ -20,11 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
    lane; time each kernel (CUDA events, median of 25 launches after
    warm-up) beside the plain version and the integer-multiply bound
    (with the bound's products per signature) and its launch geometry
-   (threads per signature, block, resident warps); print, on a line of
-   its own, the static product count of each kernel's schedule, which
-   the CPU tests count on the plain versions; run the v1 entry
-   (host_prepare -> verify_kernel) on 2048 of the lanes against the
-   oracle;
+   (threads per signature: prep's decompression chain on two lanes, the
+   ladder on four; block; resident warps); print, on a line of its own,
+   the static product count of each kernel's schedule, which the CPU
+   tests count on the plain versions, and the prep kernel's own (its
+   lanes run 60 limb products per squaring, five weighted 0); run the
+   v1 entry (host_prepare -> verify_kernel) on 2048 of the lanes
+   against the oracle;
 4. the differential corpus (make_differential_vectors(200)) through
    CudaBatchVerifier: 0 mismatches against the oracle;
 5. the main path at width: 16384 signatures per dispatch in msg32 mode
@@ -5889,7 +5891,10 @@ def main():
           f"check by counting field products; not measured in this run): "
           f"ladder {LD.LADDER_PRODUCTS}, prep[msg32] "
           f"{EK.prep_products(EK.MODE_MSG32)}, prep[k] "
-          f"{EK.prep_products(EK.MODE_K)}", flush=True)
+          f"{EK.prep_products(EK.MODE_K)}; the prep kernel's lanes run "
+          f"60 limb products per squaring (five weighted 0) and 100 per "
+          f"multiply: {EK.prep_kernel_products(EK.MODE_MSG32)} and "
+          f"{EK.prep_kernel_products(EK.MODE_K)}", flush=True)
     verdict = EK.finish(got[0], got[1], r, ok).cpu().tolist()
     bad_lanes = sum(g != w for g, w in zip(verdict, want_verdict))
     if bad_lanes:

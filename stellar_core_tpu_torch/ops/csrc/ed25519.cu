@@ -3,8 +3,10 @@
 // ed25519_prep   replaces the jnp prep of the JAX main path
 //                (sha512.sha512_96 / mod_l, ed25519_kernel._lt_const,
 //                _is_torsion_y, _pow_p58, decompress_neg and the flags of
-//                _verify_full); one thread per signature; plain version
-//                ops/ed25519_kernel.py::prep_plain.
+//                _verify_full): k on one lane per signature, the
+//                decompression chain's products split by output columns
+//                over kPrepLanes lanes per signature (field.cuh); plain
+//                version ops/ed25519_kernel.py::prep_plain.
 // ed25519_ladder replaces the Pallas kernel ed25519_pallas.py::ladder
 //                (1-bit ladder over all 256 bits, 4-entry select, Z^-1)
 //                with a signed radix-16 Straus schedule on four lanes per
@@ -76,7 +78,9 @@ __constant__ uint64_t C_TORSION_Y[5][4] = {
     {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL, 0x7a03ac9277fdc74eULL},
     {0xffffffffffffffecULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL, 0x7fffffffffffffffULL}};
 
-constexpr int kPrepThreads = 32;            // one thread per signature
+constexpr int kPrepThreads = 128;           // kPrepLanes lanes per signature
+constexpr int kPrepSigs = kPrepThreads / kPrepLanes;
+constexpr int kPrepMinBlocks = 3;           // 12 warps per SM: <= 168 registers
 constexpr int kLadderThreads = 128;         // four lanes per signature
 constexpr int kLadderSigs = kLadderThreads / 4;
 constexpr int kLadderMinBlocks = 4;         // 16 warps per SM: <= 128 registers
@@ -109,55 +113,81 @@ __device__ __forceinline__ bool is_torsion_y(const uint64_t y[4]) {
 }
 
 // Candidate root of x^2 = (y^2 - 1) / (d y^2 + 1) and its check values,
-// as ed25519_kernel.recover_x.
-__device__ __forceinline__ void recover_x(const fe& y, fe* x, fe* vx2, fe* u) {
+// as ed25519_kernel.recover_x, every product on the group's lanes.
+__device__ __forceinline__ void recover_x(const fe& y, const lanes& q, fe* x, fe* vx2, fe* u) {
   const fe one = fe_small(1);
-  const fe y2 = fe_sq(y);
+  const fe y2 = fe_sq_lanes(y, q);
   *u = fe_sub(y2, one);
-  const fe v = fe_add(fe_mul(fe_const(C_D), y2), one);
-  const fe v2 = fe_sq(v);
-  const fe v3 = fe_mul(v2, v);
-  const fe uv3 = fe_mul(*u, v3);
-  const fe uv7 = fe_mul(uv3, fe_sq(v2));
-  *x = fe_mul(uv3, fe_pow_p58(uv7));
-  *vx2 = fe_mul(v, fe_sq(*x));
+  const fe v = fe_add(fe_mul_lanes(fe_const(C_D), y2, q), one);
+  const fe v2 = fe_sq_lanes(v, q);
+  const fe v3 = fe_mul_lanes(v2, v, q);
+  const fe uv3 = fe_mul_lanes(*u, v3, q);
+  const fe uv7 = fe_mul_lanes(uv3, fe_sq_lanes(v2, q), q);
+  *x = fe_mul_lanes(uv3, fe_pow_p58_lanes(uv7, q), q);
+  *vx2 = fe_mul_lanes(v, fe_sq_lanes(*x, q), q);
 }
 
-__global__ void __launch_bounds__(kPrepThreads)
+// k (msg32: SHA-512 and sc_reduce; k mode: a copy) on one lane per
+// signature, the block's first kPrepSigs threads, stored at once: the
+// decompression does not read it. Then the decompression of A, about 255
+// squarings and 18 multiplies in one dependent chain, on kPrepLanes lanes
+// per signature, so that n signatures fill kPrepLanes times the warps of
+// one thread each; then the strict checks and the stores of NEGA and OK
+// on each group's first lane. At 128 threads a block holds kPrepSigs
+// signatures; a minimum of kPrepMinBlocks lets ptxas keep the chain in
+// up to 168 registers (held to 128 it measured slower), which leaves 12
+// resident warps per SM, more than n = 16384 fills.
+__global__ void __launch_bounds__(kPrepThreads, kPrepMinBlocks)
 ed25519_prep_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ R,
                     const uint8_t* __restrict__ S, const uint8_t* __restrict__ MK, int mode,
                     uint8_t* __restrict__ K, uint8_t* __restrict__ NEGA,
                     uint8_t* __restrict__ OK, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint64_t a[4], r[4], s[4], k[4];
-  load_row(a, A, i);
-  load_row(r, R, i);
-  load_row(s, S, i);
-  load_row(k, MK, i);
-  if (mode == 0) {  // msg32: k = SHA512(R‖A‖M) mod L; M arrived in k
-    uint64_t d[8];
-    sha512_96(d, r, a, k);
-    sc_reduce(k, d);
+  const int tid = threadIdx.x;
+  const int sig0 = blockIdx.x * kPrepSigs;
+  if (tid < kPrepSigs && sig0 + tid < n) {
+    const size_t i = sig0 + tid;
+    uint64_t k[4];
+    load_row(k, MK, i);
+    if (mode == 0) {  // msg32: k = SHA512(R‖A‖M) mod L; M arrived in k
+      uint64_t a[4], r[4], d[8];
+      load_row(a, A, i);
+      load_row(r, R, i);
+      sha512_96(d, r, a, k);
+      sc_reduce(k, d);
+    }
+    store_row(K, 32 * i, k);
   }
-  store_row(K, 32 * (size_t)i, k);
-  const bool sign = (a[3] >> 63) != 0;
-  const uint64_t top = 0x7fffffffffffffffULL;
-  const uint64_t ya[4] = {a[0], a[1], a[2], a[3] & top};
-  const uint64_t yr[4] = {r[0], r[1], r[2], r[3] & top};
-  bool ok = words_lt(s, C_L) && words_lt(ya, C_P) && !is_torsion_y(ya) &&
-            words_lt(yr, C_P) && !is_torsion_y(yr);
+  // a warp whose groups all lie past n has nothing to decompress
+  if (sig0 + (tid & ~31) / kPrepLanes >= n) return;
 
-  // strict decompression of A, negated (ed25519_kernel.decompress_neg)
-  const fe y = fe_fromwords(a);
+  // strict decompression of A, negated (ed25519_kernel.decompress_neg);
+  // groups past n work on row n - 1 and store nothing, so every lane of
+  // a warp runs every shuffle
+  const lanes q = lanes_of(tid);
+  const int g = tid / kPrepLanes;
+  const size_t row = (size_t)min(sig0 + g, n - 1);
+  uint64_t a[4];
+  load_row(a, A, row);
   fe x, vx2, u;
-  recover_x(y, &x, &vx2, &u);
+  recover_x(fe_fromwords(a), q, &x, &vx2, &u);
   uint64_t t[4];
   fe_towords(t, fe_sub(vx2, u));
   const bool root_ok = words_is_zero(t);
   fe_towords(t, fe_add(vx2, u));
   const bool root_flip = words_is_zero(t);
-  x = fe_select(root_flip, fe_mul(x, fe_const(C_SQRT_M1)), x);
+  x = fe_select(root_flip, fe_mul_lanes(x, fe_const(C_SQRT_M1), q), x);
+  if (q.r != 0 || sig0 + g >= n) return;
+
+  uint64_t r[4], s[4];
+  load_row(a, A, row);  // again, rather than held across the chain
+  load_row(r, R, row);
+  load_row(s, S, row);
+  const bool sign = (a[3] >> 63) != 0;
+  const uint64_t top = 0x7fffffffffffffffULL;
+  const uint64_t ya[4] = {a[0], a[1], a[2], a[3] & top};
+  const uint64_t yr[4] = {r[0], r[1], r[2], r[3] & top};
+  const bool ok = words_lt(s, C_L) && words_lt(ya, C_P) && !is_torsion_y(ya) &&
+                  words_lt(yr, C_P) && !is_torsion_y(yr);
   bool valid = root_ok || root_flip;
   uint64_t xc[4];
   fe_towords(xc, x);
@@ -166,10 +196,10 @@ ed25519_prep_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ R
   fe_towords(t, fe_neg(x));
 #pragma unroll
   for (int j = 0; j < 4; j++) t[j] = flip ? xc[j] : t[j];
-  store_row(NEGA, 64 * (size_t)i, t);
-  fe_towords(t, y);
-  store_row(NEGA, 64 * (size_t)i + 32, t);
-  OK[i] = (ok && valid) ? 1 : 0;
+  store_row(NEGA, 64 * row, t);
+  fe_towords(t, fe_fromwords(a));
+  store_row(NEGA, 64 * row + 32, t);
+  OK[row] = (ok && valid) ? 1 : 0;
 }
 
 // Signed radix-16 digits of a 256-bit scalar, as ladder.recode: digit i
@@ -312,7 +342,7 @@ ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__
 extern "C" int ed25519_prep_launch(const void* a, const void* r, const void* s,
                                    const void* mk, int mode, void* k, void* neg_a,
                                    void* ok, int n, void* stream) {
-  const int blocks = (n + kPrepThreads - 1) / kPrepThreads;
+  const int blocks = (n + kPrepSigs - 1) / kPrepSigs;
   ed25519_prep_kernel<<<blocks, kPrepThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)a, (const uint8_t*)r, (const uint8_t*)s, (const uint8_t*)mk, mode,
       (uint8_t*)k, (uint8_t*)neg_a, (uint8_t*)ok, n);
@@ -343,7 +373,7 @@ extern "C" int ed25519_kernel_info(int which, int* info) {
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
   if (err) return err;
   info[0] = threads;
-  info[1] = which ? 4 : 1;
+  info[1] = which ? 4 : kPrepLanes;
   info[2] = blocks;
   info[3] = at.numRegs;
   info[4] = (int)at.localSizeBytes;

@@ -190,6 +190,174 @@ __device__ __forceinline__ fe fe_pow_p58(const fe& z) {
   return fe_mul(fe_nsquare(t, 2), z);
 }
 
+// The prep kernel's products, one element on kPrepLanes consecutive lanes
+// (a group), every lane holding all ten limbs. A product is cut by its
+// folded output columns, h[c] = lo[c] + 19 hi[c] of fe_fold_carry: lane r
+// of the group sums the columns c = r + kPrepLanes t (ops/field.py
+// PREP_LANE_COLUMNS), each from its ten products, the lanes exchange the
+// ten int64 columns by __shfl_sync, and every lane runs fe_carry on them.
+// The columns are the integers fe_mul sums and the carry is fe_carry, so
+// every lane returns the limbs fe_mul returns; fe_sq_lanes sums fe_sq's
+// columns from the 55 products of a squaring, and returns fe_sq's limbs.
+//
+// Every lane runs the same instructions. Column c = r + kPrepLanes t sums
+// f_i g_((c - i) mod 10), so lane r reads g rotated by r: with
+// gr[k] = g[(k + r) mod 10], the operand of f_i is gr[(kPrepLanes t - i)
+// mod 10] on every lane. The weights go onto the operands: f_i doubled
+// for odd i in an even column (odd x odd), and g times 19 where the
+// product wraps past limb 9 (g_j with j > c): for k = (kPrepLanes t - i)
+// mod 10 that is k > kPrepLanes t and k + r < 10, the second test only
+// for k >= 11 - kPrepLanes, where it depends on the lane (lanes::m). The
+// prep's operands stay below 2^26 in magnitude, so 19 g and 4 f fit int32
+// (tests/test_torch_field.py walks the chain with intervals).
+//
+// What bounds it: a lane still runs about as many instructions per
+// squaring as one thread's fe_sq (30 products, 20 shuffles, 10 selects,
+// 33 scalings and the whole carry, against 55 products, the fold and the
+// carry), so the split buys latency where a warp waits on its chain
+// (small n) and costs instruction throughput where the card is full. Two
+// lanes measured faster than four at 16384 and 64000 (PERF.md), since
+// each added lane repeats the carry and the shuffles, and only two split
+// a squaring's pairs with the same instructions on each lane.
+constexpr int kPrepLanes = 2;
+constexpr int kLaneSlots = (10 + kPrepLanes - 1) / kPrepLanes;  // columns per lane
+constexpr int kLaneWrap = 11 - kPrepLanes;  // first k whose wrap depends on the lane
+
+struct lanes {
+  int base, r;                    // the group's first lane, the lane's place in it
+  int32_t dbl;                    // 2 on lanes of even columns, else 1
+  int32_t m[10 - kLaneWrap];      // m[k - kLaneWrap]: 19 if k + r < 10, else 1
+  int32_t a, b;                   // fe_sq_lanes' pair weights: 1 + r, 2 - 2r
+};
+
+__device__ __forceinline__ lanes lanes_of(int tid) {
+  lanes q;
+  q.r = tid % kPrepLanes;
+  q.base = (tid & 31) - q.r;
+  q.dbl = 2 - (q.r & 1);
+  q.a = 1 + q.r;
+  q.b = 2 - 2 * q.r;
+#pragma unroll
+  for (int k = kLaneWrap; k < 10; k++) q.m[k - kLaneWrap] = k + q.r < 10 ? 19 : 1;
+  return q;
+}
+
+// g[(k + r) mod 10] at k, by selects over the bits of r.
+__device__ __forceinline__ fe fe_rotate(const fe& g, int r) {
+  fe out = g;
+#pragma unroll
+  for (int b = 1; b < kPrepLanes; b <<= 1) {
+    fe s;
+#pragma unroll
+    for (int k = 0; k < 10; k++) s.v[k] = out.v[(k + b) % 10];
+    out = fe_select((r & b) != 0, s, out);
+  }
+  return out;
+}
+
+// The lanes' folded columns exchanged (column c from lane c % kPrepLanes,
+// slot c / kPrepLanes) and carried on every lane.
+__device__ __forceinline__ fe fe_lanes_carry(const int64_t acc[kLaneSlots], const lanes& q) {
+  int64_t h[10];
+#pragma unroll
+  for (int c = 0; c < 10; c++) {
+    const int64_t v = acc[c / kPrepLanes];
+    const int src = q.base + c % kPrepLanes;
+    const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)v, src);
+    const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)((uint64_t)v >> 32), src);
+    h[c] = (int64_t)(((uint64_t)hi << 32) | lo);
+  }
+  return fe_carry(h);
+}
+
+__device__ __forceinline__ fe fe_mul_lanes(const fe& f, const fe& g, const lanes& q) {
+  const fe gr = fe_rotate(g, q.r);
+  int32_t gw[10], fd[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) gw[k] = gr.v[k] * (k >= kLaneWrap ? q.m[k - kLaneWrap] : 19);
+#pragma unroll
+  for (int i = 0; i < 10; i++) fd[i] = (i & 1) ? f.v[i] * q.dbl : f.v[i];
+  int64_t acc[kLaneSlots];
+#pragma unroll
+  for (int t = 0; t < kLaneSlots; t++) {
+    const int c = kPrepLanes * t;  // the lane's column, less r
+    acc[t] = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      const int k = ((c - i) % 10 + 10) % 10;
+      acc[t] += (int64_t)fd[i] * (int64_t)(k > c ? gw[k] : gr.v[k]);
+    }
+  }
+  return fe_lanes_carry(acc, q);
+}
+
+// f^2 from its 55 products (two lanes): column c = r + 2t takes six
+// products f_i gr[k], i = t + d and k = (t - d) mod 10 for d = 0, 5, 6,
+// 7, 8, 9 (ops/field.py SQ_OFFSETS). On the even lane (c = 2t) these are
+// the diagonal products at t and t + 5 and one product of each of the
+// four other pairs; on the odd lane, one of each of its five pairs, the
+// pair (t + 5, t + 6) met twice: the term at t + 6 is weighted 0. The
+// pair weight (2 off the diagonal) and the odd x odd doubling go onto f:
+// A (d = 0, 5) = f times 1 or 2 on the even lane, 2f on the odd; B (d = 6)
+// = 2 or 4 f on the even lane, 0 on the odd; C = 2f, doubled again for
+// odd i on the even lane. g takes the wraps as in fe_mul_lanes.
+__device__ __forceinline__ fe fe_sq_lanes(const fe& f, const lanes& q) {
+  static_assert(kPrepLanes == 2, "fe_sq_lanes pairs the columns of two lanes");
+  const fe gr = fe_rotate(f, q.r);
+  int32_t gw[10], f2[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) gw[k] = gr.v[k] * (k >= kLaneWrap ? q.m[k - kLaneWrap] : 19);
+#pragma unroll
+  for (int i = 0; i < 10; i++) f2[i] = 2 * f.v[i];
+  int64_t acc[kLaneSlots];
+#pragma unroll
+  for (int t = 0; t < kLaneSlots; t++) {
+    acc[t] = 0;
+#pragma unroll
+    for (int j = 0; j < 6; j++) {
+      const int d = j ? j + 4 : 0;
+      const int i = (t + d) % 10, k = (t - d + 10) % 10;
+      const int32_t a = j < 2 ? ((i & 1) ? f2[i] : f.v[i] * q.a)
+                              : j == 2 ? ((i & 1) ? f2[i] : f.v[i]) * q.b
+                                       : ((i & 1) ? f2[i] * q.dbl : f2[i]);
+      acc[t] += (int64_t)a * (int64_t)(k > 2 * t ? gw[k] : gr.v[k]);
+    }
+  }
+  return fe_lanes_carry(acc, q);
+}
+
+__device__ __noinline__ fe fe_nsquare_lanes(fe a, int n, lanes q) {
+#pragma unroll 1
+  for (int i = 0; i < n; i++) a = fe_sq_lanes(a, q);
+  return a;
+}
+
+// z^((p-5)/8) = z^(2^252 - 3): the products of fe_pow_p58 (fe_pow22501's
+// chain, two squarings, z), each on the group's lanes.
+__device__ __noinline__ fe fe_pow_p58_lanes(const fe& z, lanes q) {
+  fe t0 = fe_sq_lanes(z, q);           // 2
+  fe t1 = fe_nsquare_lanes(t0, 2, q);  // 8
+  t1 = fe_mul_lanes(z, t1, q);         // 9
+  t0 = fe_mul_lanes(t0, t1, q);        // 11
+  t0 = fe_sq_lanes(t0, q);             // 22
+  t1 = fe_mul_lanes(t1, t0, q);        // 2^5 - 1
+  t0 = fe_nsquare_lanes(t1, 5, q);
+  t1 = fe_mul_lanes(t0, t1, q);        // 2^10 - 1
+  t0 = fe_nsquare_lanes(t1, 10, q);
+  fe t2 = fe_mul_lanes(t0, t1, q);     // 2^20 - 1
+  t0 = fe_nsquare_lanes(t2, 20, q);
+  t0 = fe_mul_lanes(t0, t2, q);        // 2^40 - 1
+  t0 = fe_nsquare_lanes(t0, 10, q);
+  t1 = fe_mul_lanes(t0, t1, q);        // 2^50 - 1
+  t0 = fe_nsquare_lanes(t1, 50, q);
+  t2 = fe_mul_lanes(t0, t1, q);        // 2^100 - 1
+  t0 = fe_nsquare_lanes(t2, 100, q);
+  t0 = fe_mul_lanes(t0, t2, q);        // 2^200 - 1
+  t0 = fe_nsquare_lanes(t0, 50, q);
+  t0 = fe_mul_lanes(t0, t1, q);        // 2^250 - 1
+  return fe_mul_lanes(fe_nsquare_lanes(t0, 2, q), z, q);
+}
+
 // Canonical value in [0, p) as four little-endian 64-bit words. Bias by
 // 8p (all limbs >= 0), floor-carry with the top carry folded times 19
 // (value < 2p), q = floor((value + 19) / 2^255), add 19q, floor-carry,

@@ -15,19 +15,26 @@ with the prep moved onto the card as verify_kernel_msg32 does:
 `ed25519_prep` replaces the jnp code of the JAX main path before the
 scalar multiplication: sha512.sha512_96 / mod_l / k_mod_l_96, and
 ed25519_kernel._lt_const, _is_torsion_y, _pow_p58, decompress_neg and the
-flag logic of _verify_full. One thread per signature: in msg32 mode it
-hashes R‖A‖M (one SHA-512 block on native uint64 words) and reduces
-mod L (ref10 sc_reduce in int64); in k mode it copies k through. Then
-it decompresses A (255 squarings + 18 multiplies on the field of
-csrc/field.cuh). What bounds it on the H100: integer multiplies — 255
-squarings at 55 IMAD.WIDE and 18 multiplies at 100 (`prep_products`),
-plus 80 SHA-512 rounds of 64-bit adds, rotates and logic on the other
-integer pipe. It moves 225 bytes per signature. Its design keeps rows
-as 64-bit words from 16-byte loads (SHA-512 byte-swaps them into its
-big-endian words; the compares with L, p and the torsion y values work
-on words), the whole chain in registers, and its constants in constant
-memory, which every thread reads at the same index at the same time.
-The 250-squaring chain is serial, so a signature stays on one thread.
+flag logic of _verify_full. k takes one lane per signature: in msg32 mode
+it hashes R‖A‖M (one SHA-512 block on native uint64 words) and reduces
+mod L (ref10 sc_reduce in int64); in k mode it copies k through. Then it
+decompresses A: 255 squarings and 18 multiplies (`prep_products`) in one
+dependent chain, on two lanes per signature (field.PREP_LANES, blocks of
+128 threads): each product's ten folded columns are split between the
+two lanes (a squaring's 55 products 30 and 25, a multiply's 100 50 and
+50), which exchange them by shuffles and both run the whole carry, so
+the limbs are those of field.mul and field.sq and prep_plain stays step
+for step. The strict checks and the stores run on one lane per
+signature. What bounds it on the H100: integer instruction throughput.
+Its bound counts the 15,909 products a signature needs in msg32 mode;
+every lane repeats the carry and adds the shuffles and the lane-uniform
+operands' selects and scalings, so a lane runs about as many
+instructions per squaring as one thread did. What the split buys is
+twice the warps: one thread per signature left each warp waiting on its
+own chain (one warp per scheduler up to n = 16384), and two lanes
+shorten that wait at small n but double the instructions where the card
+is full (PERF.md §6). It moves 225 bytes per signature, as 16-byte loads of
+64-bit words; its constants sit in constant memory.
 
 `prep_plain` runs the same steps on int64 tensors (ops/field.py and
 ops/sha512.py); it is what the wrappers use for CPU tensors.
@@ -56,8 +63,17 @@ PREP_SQS, PREP_MULS, SC_REDUCE_MULS = 255, 18, 84
 
 
 def prep_products(mode: int) -> int:
-    """32x32->64 products one signature of prep runs in this mode."""
+    """32x32->64 products one signature of prep needs in this mode (55 per
+    squaring): the count prep's bound takes, and prep_plain's."""
     return (55 * PREP_SQS + 100 * PREP_MULS
+            + (SC_REDUCE_MULS if mode == MODE_MSG32 else 0))
+
+
+def prep_kernel_products(mode: int) -> int:
+    """32x32->64 products the prep kernel runs per signature in this mode:
+    a squaring's 60 over the two lanes (field.lane_sq_terms: its 55 and
+    five the odd lane weights 0), a multiply's 100 (field.lane_terms)."""
+    return (60 * PREP_SQS + 100 * PREP_MULS
             + (SC_REDUCE_MULS if mode == MODE_MSG32 else 0))
 
 

@@ -15,6 +15,12 @@ products in int64; tests/test_torch_field.py walks every op sequence of
 both kernels with interval bounds to show that no int64 intermediate
 overflows and every stored limb fits int32.
 
+The prep kernel splits each product's folded columns over the lanes of a
+group (`PREP_LANE_COLUMNS`, `lane_columns`, `lane_sq_columns`) and every
+lane then runs `carry` on all ten, so its limbs are `mul`'s and `sq`'s;
+prep_plain therefore calls `mul` and `sq`, and tests hold the lane
+schedules to `mul_columns`, `sq_columns` and the CUDA source.
+
 Carry schedule (`carry`): one sequential chain 0 -> 1 -> ... -> 9, the
 carry out of limb 9 folded into limb 0 times 19 (2^255 = 19 mod p), then
 one more step 0 -> 1. Carries round to nearest (ref10), so carried limbs
@@ -80,15 +86,21 @@ def sub(a, b) -> tuple:
     return tuple(x - y for x, y in zip(a, b))
 
 
-def _fold_carry(lo, hi) -> tuple:
-    """Columns 10..18 folded times 19 into 0..8, then `carry`."""
-    return carry([lo[k] + hi[k] * 19 for k in range(9)] + [lo[9]])
+def _fold(lo, hi) -> list:
+    """Columns 10..18 folded times 19 into 0..8: the ten columns `carry`
+    takes."""
+    return [lo[k] + hi[k] * 19 for k in range(9)] + [lo[9]]
 
 
 def mul(f, g) -> tuple:
     """f * g: column sums of the 100 limb products (odd x odd products
     doubled, since 2^OFFSETS[i] * 2^OFFSETS[j] = 2 * 2^OFFSETS[i+j] when
     both are odd), columns 10..18 folded times 19, then `carry`."""
+    return carry(mul_columns(f, g))
+
+
+def mul_columns(f, g) -> list:
+    """The folded columns of f * g, before the carry."""
     g2 = tuple(g[j] * 2 if j & 1 else g[j] for j in range(10))
     lo = [0] * 10
     hi = [0] * 9
@@ -100,7 +112,7 @@ def mul(f, g) -> tuple:
                 lo[i + j] = lo[i + j] + p
             else:
                 hi[i + j - 10] = hi[i + j - 10] + p
-    return _fold_carry(lo, hi)
+    return _fold(lo, hi)
 
 
 def sq(f) -> tuple:
@@ -108,6 +120,11 @@ def sq(f) -> tuple:
     and, for i < j, (2 f_i) f_j, or (2 f_i)(2 f_j) when both are odd — the
     same column sums as mul(f, f), so the same limbs come out. The doubled
     operands are int32 in the kernel."""
+    return carry(sq_columns(f))
+
+
+def sq_columns(f) -> list:
+    """The folded columns of f * f, before the carry."""
     f2 = tuple(x * 2 for x in f)
     lo = [0] * 10
     hi = [0] * 9
@@ -120,7 +137,75 @@ def sq(f) -> tuple:
                 lo[i + j] = lo[i + j] + p
             else:
                 hi[i + j - 10] = hi[i + j - 10] + p
-    return _fold_carry(lo, hi)
+    return _fold(lo, hi)
+
+
+# The prep kernel's lane schedule (csrc/field.cuh fe_mul_lanes): a group
+# of PREP_LANES lanes holds one element; lane r sums the folded columns
+# c = r + PREP_LANES t of every product, the lanes exchange them and each
+# runs `carry` on all ten, so each gets the limbs `mul` returns.
+PREP_LANES = 2
+PREP_LANE_COLUMNS = tuple(tuple(range(r, 10, PREP_LANES))
+                          for r in range(PREP_LANES))
+
+
+def lane_terms(r: int) -> list:
+    """The products lane r sums, in the kernel's terms: for each of its
+    columns c, the ten (c, i, k, f_scale, g_scale) that add
+    (f_i f_scale) (gr[k] g_scale) with gr[k] = g[(k + r) % 10]: f_i
+    doubled for odd i in an even column, g times 19 where the product
+    wraps (j = (k + r) % 10 > c)."""
+    out = []
+    for c in PREP_LANE_COLUMNS[r]:
+        base = c - r
+        for i in range(10):
+            k = (base - i) % 10
+            out.append((c, i, k, 2 if i & 1 and not r & 1 else 1,
+                        19 if k > base and k + r < 10 else 1))
+    return out
+
+
+# A squaring on the two lanes (fe_sq_lanes) takes each of its 55
+# products once: column c = r + 2t sums f_i gr[k] at i = t + d,
+# k = (t - d) % 10 for d in SQ_OFFSETS; weighted 1 on the even lane's
+# diagonal (d = 0, 5), 0 at d = 6 on the odd lane (its pair met at
+# d = 5), else 2, times the odd x odd doubling.
+SQ_OFFSETS = (0, 5, 6, 7, 8, 9)
+
+
+def lane_sq_terms(r: int) -> list:
+    """The products lane r sums for a squaring, as lane_terms: (c, i, k,
+    f_scale, g_scale) with gr[k] = f[(k + r) % 10]; two lanes only."""
+    if PREP_LANES != 2:
+        raise ValueError("the squaring's schedule pairs two lanes")
+    out = []
+    for c in PREP_LANE_COLUMNS[r]:
+        base = c - r
+        t = base // 2
+        for d in SQ_OFFSETS:
+            i, k = (t + d) % 10, (t - d) % 10
+            pair = 1 + r if d in (0, 5) else 2 - 2 * r if d == 6 else 2
+            out.append((c, i, k, pair * (2 if i & 1 and not r & 1 else 1),
+                        19 if k > base and k + r < 10 else 1))
+    return out
+
+
+def lane_columns(f, g, r: int) -> dict:
+    """Lane r's folded columns of f * g, {c: sum}, summed as the kernel
+    sums them (the scaled operands are int32 there)."""
+    return _lane_sums(f, g, r, lane_terms(r))
+
+
+def lane_sq_columns(f, r: int) -> dict:
+    """Lane r's folded columns of f * f, as fe_sq_lanes sums them."""
+    return _lane_sums(f, f, r, lane_sq_terms(r))
+
+
+def _lane_sums(f, g, r, terms) -> dict:
+    out = {c: 0 for c in PREP_LANE_COLUMNS[r]}
+    for c, i, k, fs, gs in terms:
+        out[c] = out[c] + (f[i] * fs) * (g[(k + r) % 10] * gs)
+    return out
 
 
 def nsquare(a, n: int) -> tuple:

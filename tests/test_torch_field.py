@@ -159,7 +159,71 @@ def _words(byte_rows):
     return out
 
 
+def _cuda_lane_schedule():
+    """The prep kernel's lane schedules as csrc/field.cuh states them:
+    kPrepLanes and the rules of fe_mul_lanes and fe_sq_lanes, as
+    field.lane_terms' and lane_sq_terms' (c, i, k, f_scale, g_scale) per
+    lane."""
+    src = (CSRC / "field.cuh").read_text()
+    lanes = int(re.search(r"constexpr int kPrepLanes = (\d+);", src)[1])
+    for rule in ("constexpr int kLaneWrap = 11 - kPrepLanes;",
+                 "q.m[k - kLaneWrap] = k + q.r < 10 ? 19 : 1;",
+                 "q.dbl = 2 - (q.r & 1);",
+                 "s.v[k] = out.v[(k + b) % 10];",
+                 "(k >= kLaneWrap ? q.m[k - kLaneWrap] : 19)",
+                 "fd[i] = (i & 1) ? f.v[i] * q.dbl : f.v[i];",
+                 "const int c = kPrepLanes * t;",
+                 "const int k = ((c - i) % 10 + 10) % 10;",
+                 "(int64_t)fd[i] * (int64_t)(k > c ? gw[k] : gr.v[k])",
+                 "const int64_t v = acc[c / kPrepLanes];",
+                 "const int src = q.base + c % kPrepLanes;",
+                 "return fe_carry(h);",
+                 "static_assert(kPrepLanes == 2,",
+                 "q.a = 1 + q.r;", "q.b = 2 - 2 * q.r;",
+                 "f2[i] = 2 * f.v[i];",
+                 "for (int j = 0; j < 6; j++) {",
+                 "const int d = j ? j + 4 : 0;",
+                 "const int i = (t + d) % 10, k = (t - d + 10) % 10;",
+                 "j < 2 ? ((i & 1) ? f2[i] : f.v[i] * q.a)",
+                 ": j == 2 ? ((i & 1) ? f2[i] : f.v[i]) * q.b",
+                 ": ((i & 1) ? f2[i] * q.dbl : f2[i]);",
+                 "(int64_t)a * (int64_t)(k > 2 * t ? gw[k] : gr.v[k])"):
+        assert rule in src, rule
+    sq_terms = []
+    for r in range(lanes):
+        lane = []
+        for t in range(10 // lanes):
+            for j in range(6):
+                d = j + 4 if j else 0
+                i, k = (t + d) % 10, (t - d) % 10
+                fs = ((2 if i & 1 else 1 + r) if j < 2 else
+                      (2 if i & 1 else 1) * (2 - 2 * r) if j == 2 else
+                      (2 * (2 - (r & 1)) if i & 1 else 2))
+                lane.append((r + 2 * t, i, k, fs,
+                             (19 if k + r < 10 else 1) if k > 2 * t else 1))
+        sq_terms.append(lane)
+    terms = []
+    for r in range(lanes):
+        lane = []
+        for t in range(-(-10 // lanes)):
+            c = lanes * t
+            if r + c >= 10:
+                continue          # a slot past column 9: summed, not read
+            for i in range(10):
+                k = (c - i) % 10
+                lane.append((r + c, i, k, (2 - (r & 1)) if i & 1 else 1,
+                             (19 if k + r < 10 else 1) if k > c else 1))
+        terms.append(lane)
+    return lanes, terms, sq_terms
+
+
 def test_cuda_constants_match_plain_values():
+    lanes, terms, sq_terms = _cuda_lane_schedule()
+    assert lanes == F.PREP_LANES
+    assert terms == [F.lane_terms(r) for r in range(F.PREP_LANES)]
+    assert sq_terms == [F.lane_sq_terms(r) for r in range(F.PREP_LANES)]
+    assert [sorted({c for c, *_ in lane}) for lane in terms] == \
+        [list(cols) for cols in F.PREP_LANE_COLUMNS]
     assert _c_table("C_D") == list(F.D)
     assert _c_table("C_D2") == list(F.D2)
     assert _c_table("C_SQRT_M1") == list(F.SQRT_M1)
@@ -335,14 +399,39 @@ def test_ladder_op_sequence_bounds(interval_field):
     _canon_ok(F.mul(m, zi))
 
 
-def test_prep_op_sequence_bounds(interval_field):
+def test_prep_op_sequence_bounds(interval_field, monkeypatch):
     """Decompression (ed25519_kernel.recover_x / decompress_neg) on any
-    32-byte input: every product and canonicalisation stays in range."""
+    32-byte input: every product and canonicalisation stays in range, and
+    the prep kernel's lane products too: each operand scaled as a lane
+    scales it (f by up to 4, g by 19) fits int32, and each lane's column
+    sums stay in int64 (field.lane_columns and lane_sq_columns on the
+    intervals)."""
+    operands = []
+    mul, sq = F.mul, F.sq
+
+    def recorded_mul(f, g):
+        operands.append((f, g, False))
+        return mul(f, g)
+
+    def recorded_sq(f):
+        operands.append((f, f, True))
+        return sq(f)
+    monkeypatch.setattr(F, "mul", recorded_mul)
+    monkeypatch.setattr(F, "sq", recorded_sq)
     x, vx2, u = EK.recover_x(BYTES)
     xm = F.mul(x, F.SQRT_M1)
     for h in (F.sub(vx2, u), F.add(vx2, u), hull(x, xm), BYTES,
               F.sub(F.ZERO, hull(x, xm))):
         _canon_ok(h)
+    assert len(operands) == EK.PREP_SQS + EK.PREP_MULS
+    for f, g, square in operands:
+        _fits32(tuple(Interval.of(v) * 4 for v in f))
+        _fits32(tuple(Interval.of(v) * 19 for v in g))
+        for r in range(F.PREP_LANES):
+            if square:
+                F.lane_sq_columns(f, r)
+            else:
+                F.lane_columns(f, g, r)
 
 
 def test_prep_runs_its_product_count(monkeypatch):

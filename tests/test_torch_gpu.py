@@ -109,23 +109,46 @@ def test_prep_kernel_matches_plain_on_edge_scalars(card, mode):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n", [1, 7, 33])
+@pytest.mark.parametrize("n", [1, 7, 33, 3, 4, 5, 8, 9, 31, 32, 200])
 def test_kernels_match_plain_on_tails(card, lanes, n):
-    """n = 1, 7 and 33 leave a partial block of the ladder (32 signatures
-    of four lanes each) and of prep, and dead four-lane groups."""
+    """Partial and full blocks of the ladder (32 signatures of four lanes
+    each) and of prep (64 signatures of two lanes; its first 64 threads
+    hash), partial groups of four, dead lanes and dead warps: prep in
+    both modes, then the ladder."""
     pubs, sigs, msgs, m32 = lanes
-    a, r, s, m = (_on(card, x[:n]) for x in (pubs, sigs[:, :32],
-                                              sigs[:, 32:], m32))
-    got = EK.prep(a, r, s, m, EK.MODE_MSG32)
-    want = EK.prep_plain(a, r, s, m, EK.MODE_MSG32)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    rows = np.arange(n) % len(msgs)
+    a, r, s, m = (_on(card, x[rows]) for x in (pubs, sigs[:, :32],
+                                                sigs[:, 32:], m32))
+    k_host = _on(card, host_k(pubs[rows], sigs[rows], [msgs[i] for i in rows]))
+    for mode, mk in ((EK.MODE_K, k_host), (EK.MODE_MSG32, m)):
+        got = EK.prep(a, r, s, mk, mode)
+        want = EK.prep_plain(a, r, s, mk, mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     k, neg_a, _ = got
     nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
     got = LD.ladder(s, k, nax, nay)
     want = LD.ladder_plain(s, k, nax, nay)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_prep_geometry_and_resources(card):
+    """prep runs field.PREP_LANES lanes per signature in blocks of 128,
+    and ptxas spilled nothing in it (its local bytes are the stack frame
+    of the calls the chain makes)."""
+    import re
+    from stellar_core_tpu_torch.ops import _build
+    from stellar_core_tpu_torch.ops import field as F
+    info = _build.kernel_info("ed25519_prep")
+    assert (info["block"], info["threads_per_sig"]) == (128, F.PREP_LANES)
+    report = _build.info["ptxas"]
+    m = re.search(r"Function properties for \S*ed25519_prep_kernel\S*\s*\n"
+                  r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", report)
+    assert m, report
+    assert (int(m[2]), int(m[3])) == (0, 0)
+    assert info["local_bytes"] == int(m[1])
 
 
 def test_verifier_matches_oracle_on_card(card):

@@ -125,11 +125,13 @@ def test_allowlist_is_the_reference_s_but_for_wording():
 
 def test_every_tool_imports_without_the_jax_package():
     """The scripts subpackage holds a counterpart of each reference tool
-    this slice ports, and none imports jax or the JAX package."""
+    this slice ports and the port's own prep_sweep (the prep kernel timed
+    across checkouts on the card), and none imports jax or the JAX
+    package."""
     names = sorted(p.stem for p in (PORT / "scripts").glob("*.py"))
     assert names == ["__init__", "analyze", "chaos_soak",
                      "cuda_differential", "native_sanitize",
-                     "profile_catchup", "replay_report",
+                     "prep_sweep", "profile_catchup", "replay_report",
                      "soroban_settings_upgrade"]
     code = ("import sys; before = set(sys.modules)\n"
             + "".join(f"import stellar_core_tpu_torch.scripts.{n}\n"
