@@ -337,6 +337,28 @@ Phases (any failure exits non-zero; nothing is caught):
    the host's cores and CPU model (a record, not a claim). It prints each
    replay's rate, R1's top functions by own time, the differential's
    wall and launches.
+19. the device tools on the card (one card; the positions of the
+   multi-device steps are cuda:0 repeated, as in phase 8), each step's
+   launches counted from 0 and held to the CPU's prediction
+   (TOOLS_EXPECTED): graft_entry.entry(), whose verify_kernel_full on
+   its 128 rows must equal the oracle; graft_entry.dryrun_multichip(4):
+   the port's Application with SIGNATURE_VERIFY_BACKEND "cuda" and
+   SIGNATURE_VERIFY_MESH "sharded" (its mesh one position per card),
+   validate_txset_through_batch_verifier through it, then
+   ShardedBatchVerifier over four positions and HybridShardedVerifier
+   over a (2, 2) grid, each on 8 rows, all true;
+   scripts.kernel_profile.run(16384), which loads the WINDOWS_ONLY
+   variant (built by a second nvcc beside the default library's in
+   phase 2, so no timed phase shares the host with a compiler),
+   holds prep (both modes), the ladder and its windows alone against
+   their plain versions (at 16384, and the ladder and windows
+   at 200, 1000 and 1831) and the dispatch entries' verdicts against the
+   oracle, then times every stage and gives the epilogue's share of the
+   ladder at each size, each kernel's bound and one profiler trace;
+   scripts.scaling_curve.run(16384) over 1, 2, 4 and 8 positions,
+   every verdict equal to the native verifier's, held to the oracle.
+   kernel_sweep is not run here (it builds three more variants); it
+   runs as a tool of its own.
 From phase 13 on, the nodes run with the garbage collector policy the
 Application installs (util/gcpolicy.py: the heap frozen, automatic full
 passes off), and every eighth node shutdown runs the full pass the
@@ -348,7 +370,13 @@ their runs, those of phase 16 after its runs. It prints one `kernels`
 JSON line (launches by path: verifier, live, sharded, hybrid, txset,
 classic, soroban, wasm, close, catchup, consensus, node, cluster (the
 ladder's; the prep's cluster launches unsplit, as above), profile
-(phase 18's R1 and R2) and differential (its card process); the
+(phase 18's R1 and R2) and differential (its card process), summed
+into "launches"; phase 19's entry, dryrun, kernel_profile and
+scaling_curve under "tools_launches", outside that sum, since a
+measurement tool's launch count follows its timing loops, not the
+traffic; a row for the ladder's windows alone (phase 19's variant, off
+every node path: its "launches" are its tool launches, its times at
+16384 and the epilogue's share at each size); the
 msg32 prep and the ladder also carry their times on phase 14's, 15's,
 16's, 17's and 18's rows under "catchup", "consensus", "node", "cluster"
 and "profile"),
@@ -369,23 +397,20 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from stellar_core_tpu_torch.scripts._kernel_timing import (
+    HBM_BYTES_PER_S, IMAD_PER_SM_CLK, device_ms_by_name, ladder_products,
+    median_ms, smi)
+
 N = 16384
 IN_FLIGHT = 4
 ROUNDS = 3
 DISTINCT = 512
-# integer multiply-adds per SM per clock on compute capability 9.0 (CUDA
-# C++ Programming Guide, "Arithmetic Instructions" throughput table, 32-bit
-# integer multiply and multiply-add); each 32x32->64 IMAD.WIDE counted once
-IMAD_PER_SM_CLK = 64
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
-# 32x32->64 products of one field squaring and one field multiply in ten
-# radix-2^25.5 limbs (10 + 45 and 10 x 10)
-SQ_PRODUCTS, MUL_PRODUCTS = 55, 100
 # the node's defaults for the live verify path (stellar_core_tpu/main/
 # config.py:353-380: VERIFY_MAX_BATCH, VERIFY_BATCH_DEADLINE_MS,
 # VERIFY_DEVICE_MIN_BATCH, VERIFY_DISPATCH_DEADLINE_MS,
@@ -557,51 +582,6 @@ NODE_EXPECTED = {'recv_transactions_calls': [[],
                          '71afcbfc5247c26ce1284d612b1ef5a9']}
 
 
-def smi(query):
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-
-
-def wnaf(v, w=5):
-    """(nonzero digits, index of the top digit) of v's width-w NAF."""
-    n, top, i = 0, -1, 0
-    while v:
-        if v & 1:
-            d = v & ((1 << w) - 1)
-            v -= d - (1 << w) if d >> (w - 1) else d
-            n, top = n + 1, i
-        v >>= 1
-        i += 1
-    return n, top
-
-
-def ladder_products(s_rows, k_rows):
-    """Products that [S]B + [k](-A) in canonical affine form needs on
-    these scalars at the fewest point operations of libsodium's
-    ge25519_double_scalarmult_vartime: width-5 NAF digits of S and k;
-    below the top digit, per position a doubling (4 squarings) and a
-    p1p1 -> p2 conversion (3 multiplies), per nonzero digit of k a p3
-    conversion and cached addition of an odd multiple of -A (4 + 4), of
-    S a p3 conversion and mixed addition of a stored multiple of B
-    (4 + 3); the table of -A, 3(-A), ..., 15(-A) (4 squarings, 69
-    multiplies); Z^-1 (254 squarings, 11 multiplies); x and y (2)."""
-    total = 0
-    memo = {}
-    for key in zip(s_rows, k_rows):
-        if key not in memo:
-            nb, tb = wnaf(int.from_bytes(key[0], "little"))
-            na, ta = wnaf(int.from_bytes(key[1], "little"))
-            top = max(ta, tb, 0)
-            # the top digit's table entry is loaded, not added
-            first = 8 if ta == top else 7 if tb == top else 0
-            sq = 4 + 4 * top + 254
-            mul = 69 + 3 * top + 8 * na + 7 * nb - first + 11 + 2
-            memo[key] = sq * SQ_PRODUCTS + mul * MUL_PRODUCTS
-        total += memo[key]
-    return total
-
-
 def sass_mix(lib_path, nvcc):
     """Static SASS opcode counts per function of the built library, from
     cuobjdump beside nvcc: {function: Counter(opcode)}, or None when the
@@ -664,43 +644,12 @@ def describe(info):
             f"{info['regs']} registers, {info['local_bytes']} B local")
 
 
-def median_ms(fn, reps=25, warm=3):
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
 def once_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def device_ms_by_name(prof):
-    """Device time in ms by event name from a torch.profiler run."""
-    by_name = {}
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's device
-        # time repeats that of the kernels it launched
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    return by_name
 
 
 def max_abs_err(xs, ys):
@@ -5683,6 +5632,96 @@ def native_baseline(card, sets):
     return out
 
 
+TOOLS_BATCH = 16384       # phase 19: kernel_profile's and scaling_curve's B
+TOOLS_DRYRUN_N = 4        # phase 19: dryrun_multichip's positions
+# phase 19's launches by step, predicted on the CPU before the first
+# chip call: entry's one dispatch of 128 (host k); the dryrun's node
+# (one msg32 dispatch of the txset's 4 signatures, tests' rehearsal with
+# the verifier on the CPU) and its sharded and hybrid batches of 8 over
+# four positions (host k); kernel_profile's and scaling_curve's from
+# their expected_launches
+TOOLS_EXPECTED = {
+    "entry": {"msg32": 0, "k": 1, "ladder": 1, "windows": 0},
+    "dryrun": {"msg32": 1, "k": 8, "ladder": 9, "windows": 0},
+    "kernel_profile": {"msg32": 591, "k": 560, "ladder": 1711,
+                       "windows": 1120},
+    "scaling_curve": {"msg32": 220, "k": 0, "ladder": 220, "windows": 0}}
+
+
+def device_tools_phase(card):
+    """Phase 19, the device tools on the card, each step's launches
+    counted from 0 and held to TOOLS_EXPECTED (and kernel_profile's and
+    scaling_curve's to their own expected_launches): graft_entry.entry()
+    and its function against the oracle; graft_entry.dryrun_multichip(4);
+    scripts.kernel_profile.run at 16384 (it builds the WINDOWS_ONLY
+    variant, holds every stage against its plain version and the
+    oracle); scripts.scaling_curve.run at 16384 over 1, 2, 4 and 8
+    positions. Returns (launches by step, the profile's result, the
+    curve)."""
+    from stellar_core_tpu_torch import graft_entry
+    from stellar_core_tpu_torch.ops import ladder as LD
+    from stellar_core_tpu_torch.ops.testvectors import oracle_results
+    from stellar_core_tpu_torch.scripts import kernel_profile, scaling_curve
+
+    if (TOOLS_EXPECTED["kernel_profile"] != {
+            "msg32": kernel_profile.expected_launches()["prep_msg32"],
+            "k": kernel_profile.expected_launches()["prep_k"],
+            "ladder": kernel_profile.expected_launches()["ladder"],
+            "windows": kernel_profile.expected_launches()["ladder_windows"]}
+            or TOOLS_EXPECTED["scaling_curve"]["ladder"]
+            != scaling_curve.expected_launches()):
+        raise SystemExit("phase 19: TOOLS_EXPECTED is not the tools' "
+                         "expected_launches")
+    counts = {}
+
+    def step(tag, fn):
+        zero_launches()
+        LD.ladder_windows.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        counts[tag] = dict(launch_counts(),
+                           windows=LD.ladder_windows.launches)
+        if counts[tag] != TOOLS_EXPECTED[tag]:
+            raise SystemExit(f"phase 19 {tag}: launches {counts[tag]} != "
+                             f"{TOOLS_EXPECTED[tag]} (predicted)")
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts[tag]} as predicted [{card}]", flush=True)
+        return out
+
+    def entry():
+        fn, args = graft_entry.entry()
+        got = fn(*args).cpu().tolist()
+        pubs, sigs, msgs, _ = graft_entry.example_batch(128)
+        want = oracle_results([(pubs[i].tobytes(), sigs[i].tobytes(),
+                                msgs[i]) for i in range(128)])
+        if got != want or not all(got):
+            raise SystemExit("phase 19: entry()'s verdicts are not the "
+                             "oracle's")
+        return len(got)
+    step("entry", entry)
+    dry = step("dryrun", lambda: graft_entry.dryrun_multichip(
+        TOOLS_DRYRUN_N))
+    print(f"  dryrun_multichip({TOOLS_DRYRUN_N}): {dry}", flush=True)
+    prof = step("kernel_profile", lambda: kernel_profile.run(TOOLS_BATCH))
+    for n, e in prof["epilogue"].items():
+        print(f"  epilogue at n={n}: ladder {e['loop_ms']['ladder']:.4f} "
+              f"ms, windows {e['loop_ms']['windows']:.4f} ms of device "
+              f"time, share {e['loop_ms']['share']:.4f} (by median "
+              f"{e['median_ms']['share']:.4f}) [{card}]", flush=True)
+    print(f"  stage shares of a msg32 dispatch: "
+          f"{prof['shares']['of_msg32_dispatch']}; trace "
+          f"{prof['trace']['path']}, idle share "
+          f"{prof['trace']['idle_share']}", flush=True)
+    curve = step("scaling_curve",
+                 lambda: scaling_curve.run(TOOLS_BATCH, "cuda"))
+    for row in curve["curve"]:
+        print(f"  scaling N={row['ndev']}: t_N {row['t_ms']:.3f} ms, "
+              f"t_1(B/N) {row['t1_shard_ms']:.3f} ms, efficiency "
+              f"{row['sharding_efficiency']:.4f} [{card}]", flush=True)
+    print(f"  projection: {curve['projection']}", flush=True)
+    return counts, prof, curve
+
+
 def peak_rss(phase, started):
     """Print the process's peak resident set size (getrusage's
     ru_maxrss, KiB on Linux) once phase `phase` has passed."""
@@ -5732,7 +5771,12 @@ def main():
     # --- 2. build: constructing a verifier on the card builds the kernels
     if _build._lib is not None:
         raise SystemExit("the kernel library loaded before any verifier")
+    # phase 19's WINDOWS_ONLY variant, compiled by a second nvcc at the
+    # same time, so that no timed phase shares the host with a compiler
+    variant_build = threading.Thread(
+        target=_build.build, args=((_build.WINDOWS_ONLY,),), daemon=True)
     t0 = time.perf_counter()
+    variant_build.start()
     CudaBatchVerifier()
     if _build._lib is None:
         raise SystemExit("CudaBatchVerifier() on the card did not load the "
@@ -5741,6 +5785,14 @@ def main():
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.info['seconds']:.1f} s) -> "
           f"{os.path.relpath(_build.info['path'])}")
+    variant_build.join()
+    windows_build = _build.variant_info.get((_build.WINDOWS_ONLY,), {})
+    if "path" not in windows_build:
+        raise SystemExit("the WINDOWS_ONLY variant did not build")
+    print(f"build of the WINDOWS_ONLY variant beside it: "
+          f"{time.perf_counter() - t0:.1f} s from the start of both "
+          f"(nvcc {windows_build['seconds']:.1f} s) -> "
+          f"{os.path.relpath(windows_build['path'])}", flush=True)
     for line in _build.info["ptxas"].splitlines():
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
@@ -6085,6 +6137,14 @@ def main():
           flush=True)
     peak_rss(18, started)
 
+    # --- 19. the device tools: the graft entry, the multi-device dry
+    # run, the stage-sliced profile, the scaling curve -------------------
+    t19 = time.perf_counter()
+    tools, tools_profile, _ = device_tools_phase(card)
+    print(f"phase 19 in {time.perf_counter() - t19:.1f} s [{card}]",
+          flush=True)
+    peak_rss(19, started)
+
     # launches on the main paths, each counted from 0: phase 5 (the
     # verifier at width), legs A and B of phase 7 (the live path), phase 8
     # (the sharded and hybrid verifiers), run A of phase 9 (txset), run A
@@ -6093,7 +6153,8 @@ def main():
     # phase 14 (catchup), run A of phase 15 (consensus), run A of
     # phase 16 with node 0's self_check (node) and the node processes of
     # phase 17's run A, by their device dispatches (cluster: the ladder's
-    # by path, the prep's unsplit by mode beside its rows)
+    # by path, the prep's unsplit by mode beside its rows); phase 19's
+    # tools apart, under tools_launches
     verifier = {"msg32": msg32_launches[0], "k": k_launches[0],
                 "ladder": msg32_launches[1] + k_launches[1]}
     for e, kind in zip(entries, ("msg32", "k", "ladder")):
@@ -6106,6 +6167,8 @@ def main():
             "close": close[kind], "catchup": catchup[kind],
             "consensus": consensus[kind], "node": node[kind],
             "profile": profile[kind], "differential": differential[kind]}
+        e["tools_launches"] = {tag: tools[tag][kind]
+                               for tag in TOOLS_EXPECTED}
         if kind == "ladder":
             e["launches_by_path"]["cluster"] = cluster
         else:
@@ -6134,13 +6197,38 @@ def main():
                   f"n={e['cluster']['n']} (phase 17), "
                   f"{e['profile']['ms']:.4f} ms at n={e['profile']['n']} "
                   f"(phase 18) [{card}]", flush=True)
+    # the ladder's windows alone: phase 19's measurement variant, on
+    # kernel_profile's rows
+    win = tools_profile["kernels"]["windows"]
+    entries.append(dict(
+        name="ed25519_ladder_windows", route="cuda",
+        source="stellar_core_tpu_torch/ops/csrc/ed25519.cu",
+        replaces=("stellar_core_tpu/ops/ed25519_pallas.py:202 ladder (its "
+                  "windows without Z^-1: a variant build that measures "
+                  "the epilogue, off the node's paths)"),
+        n=tools_profile["batch"],
+        match=tools_profile["max_abs_err"]["windows"] == 0,
+        max_abs_err=tools_profile["max_abs_err"]["windows"],
+        ms=tools_profile["stages"]["windows"]["median_ms"],
+        loop_ms=tools_profile["stages"]["windows"]["loop_ms"],
+        plain_ms=tools_profile["plain_ms"]["windows"],
+        bound_ms=win["bound_ms"], bound_by=win["bound_by"],
+        library_ms=None, bound_products_per_sig=win["products_per_sig"],
+        bound_share=win["bound_ms"]
+        / tools_profile["stages"]["windows"]["median_ms"],
+        tools_launches={tag: tools[tag]["windows"]
+                        for tag in TOOLS_EXPECTED},
+        epilogue_share={n: e["loop_ms"]["share"] for n, e in
+                        tools_profile["epilogue"].items()},
+        **win["info"]))
+    entries[-1]["launches"] = sum(entries[-1]["tools_launches"].values())
     for path, count in (("sharded", mesh["sharded"]),
                         ("hybrid", mesh["hybrid"])):
         if not (count.get("msg32", 0) + count.get("k", 0)
                 and count.get("ladder", 0)):
             raise SystemExit(f"{path} path launched a kernel no time: "
                              f"{count}")
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s "
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - started:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": entries, "verifies_per_s": rates,
                       "live": live_rates, "card": card}))

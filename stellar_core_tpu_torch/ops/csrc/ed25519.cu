@@ -78,12 +78,26 @@ __constant__ uint64_t C_TORSION_Y[5][4] = {
     {0x4fd84d3d706a17c7ULL, 0x0f67100d760b3cbaULL, 0xc6cc392cfa53202aULL, 0x7a03ac9277fdc74eULL},
     {0xffffffffffffffecULL, 0xffffffffffffffffULL, 0xffffffffffffffffULL, 0x7fffffffffffffffULL}};
 
-constexpr int kPrepThreads = 128;           // kPrepLanes lanes per signature
+// Launch geometry. A variant build (ops/_build.py KNOBS, defines_of) sets
+// the macros; the defaults below are the main path's.
+#ifndef ED25519_PREP_THREADS
+#define ED25519_PREP_THREADS 128
+#endif
+#ifndef ED25519_PREP_MIN_BLOCKS
+#define ED25519_PREP_MIN_BLOCKS 3
+#endif
+#ifndef ED25519_LADDER_THREADS
+#define ED25519_LADDER_THREADS 128
+#endif
+#ifndef ED25519_LADDER_MIN_BLOCKS
+#define ED25519_LADDER_MIN_BLOCKS 4
+#endif
+constexpr int kPrepThreads = ED25519_PREP_THREADS;   // kPrepLanes lanes per signature
 constexpr int kPrepSigs = kPrepThreads / kPrepLanes;
-constexpr int kPrepMinBlocks = 3;           // 12 warps per SM: <= 168 registers
-constexpr int kLadderThreads = 128;         // four lanes per signature
+constexpr int kPrepMinBlocks = ED25519_PREP_MIN_BLOCKS;  // 3: 12 warps per SM, <= 168 registers
+constexpr int kLadderThreads = ED25519_LADDER_THREADS;   // four lanes per signature
 constexpr int kLadderSigs = kLadderThreads / 4;
-constexpr int kLadderMinBlocks = 4;         // 16 warps per SM: <= 128 registers
+constexpr int kLadderMinBlocks = ED25519_LADDER_MIN_BLOCKS;  // 4: 16 warps per SM, <= 128 registers
 constexpr int kWindows = 65;                // signed radix-16 digits per scalar
 constexpr int kNielsStride = 44;            // words per entry of B's table
 
@@ -259,10 +273,20 @@ __device__ __forceinline__ fe niels_coord(const int32_t* tab, int e, const quad&
   return (neg && q.r == 2) ? fe_neg(n) : n;
 }
 
-__global__ void __launch_bounds__(kLadderThreads, kLadderMinBlocks)
-ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__ K,
-                      const uint8_t* __restrict__ NAX, const uint8_t* __restrict__ NAY,
-                      uint8_t* __restrict__ X, uint8_t* __restrict__ Y, int n) {
+// The ladder of one block, on lane q.r of each group of four: the table
+// build and the windows give this lane's coordinate of the P2 point
+// [S]B + [k](-A) (X, Y and Z on lanes 0..2, lane 3's unused); then the
+// epilogue regroups and one thread per signature inverts Z and writes x,
+// y. kWindowsOnly (a variant build only, to measure the epilogue;
+// scripts/kernel_profile.py) stores instead the canonical bytes of X, Y
+// and Z from lanes 0..2; plain version ops/ladder.py::ladder_windows_plain.
+template <bool kWindowsOnly>
+__device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
+                                             const uint8_t* __restrict__ K,
+                                             const uint8_t* __restrict__ NAX,
+                                             const uint8_t* __restrict__ NAY,
+                                             uint8_t* __restrict__ X, uint8_t* __restrict__ Y,
+                                             uint8_t* __restrict__ Z, int n) {
   __shared__ int32_t tab_a[8 * 10 * kLadderThreads];
   __shared__ int32_t tab_b[8 * kNielsStride];
   __shared__ int8_t dig[2 * kWindows * kLadderSigs];
@@ -317,7 +341,16 @@ ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__
     v = quad_p1p1_to(quad_add(v, cached_coord(tab_a, f, tid, q), q), q, false);
   }
 
-  // regroup: one thread per signature inverts Z and writes x, y
+  if constexpr (kWindowsOnly) {
+    if (q.r < 3 && sig0 + g < n) {
+      fe_towords(w, v);
+      store_row(q.r == 0 ? X : q.r == 1 ? Y : Z, 32 * row, w);
+    }
+    return;
+  }
+
+  // the epilogue. Regroup: one thread per signature inverts Z and writes
+  // x, y
   __syncthreads();
   int32_t* fin = tab_a;
   if (q.r < 3) {
@@ -339,6 +372,23 @@ ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__
   }
 }
 
+__global__ void __launch_bounds__(kLadderThreads, kLadderMinBlocks)
+ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__ K,
+                      const uint8_t* __restrict__ NAX, const uint8_t* __restrict__ NAY,
+                      uint8_t* __restrict__ X, uint8_t* __restrict__ Y, int n) {
+  ladder_block<false>(S, K, NAX, NAY, X, Y, nullptr, n);
+}
+
+#ifdef ED25519_LADDER_WINDOWS_ONLY
+__global__ void __launch_bounds__(kLadderThreads, kLadderMinBlocks)
+ed25519_ladder_windows_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__ K,
+                              const uint8_t* __restrict__ NAX,
+                              const uint8_t* __restrict__ NAY, uint8_t* __restrict__ X,
+                              uint8_t* __restrict__ Y, uint8_t* __restrict__ Z, int n) {
+  ladder_block<true>(S, K, NAX, NAY, X, Y, Z, n);
+}
+#endif
+
 extern "C" int ed25519_prep_launch(const void* a, const void* r, const void* s,
                                    const void* mk, int mode, void* k, void* neg_a,
                                    void* ok, int n, void* stream) {
@@ -359,12 +409,30 @@ extern "C" int ed25519_ladder_launch(const void* s, const void* k, const void* n
   return (int)cudaGetLastError();
 }
 
-// Launch geometry and resources of kernel `which` (0 prep, 1 ladder):
+#ifdef ED25519_LADDER_WINDOWS_ONLY
+extern "C" int ed25519_ladder_windows_launch(const void* s, const void* k,
+                                             const void* neg_ax, const void* neg_ay, void* x,
+                                             void* y, void* z, int n, void* stream) {
+  const int blocks = (n + kLadderSigs - 1) / kLadderSigs;
+  ed25519_ladder_windows_kernel<<<blocks, kLadderThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)s, (const uint8_t*)k, (const uint8_t*)neg_ax, (const uint8_t*)neg_ay,
+      (uint8_t*)x, (uint8_t*)y, (uint8_t*)z, n);
+  return (int)cudaGetLastError();
+}
+#endif
+
+// Launch geometry and resources of kernel `which` (0 prep, 1 ladder, 2
+// the windows-only ladder of a variant build):
 // info = {threads per block, threads per signature, resident blocks per
 // SM, registers per thread, local (spill and stack) bytes per thread,
 // static shared bytes per block}.
 extern "C" int ed25519_kernel_info(int which, int* info) {
   const void* fn = which ? (const void*)ed25519_ladder_kernel : (const void*)ed25519_prep_kernel;
+#ifdef ED25519_LADDER_WINDOWS_ONLY
+  if (which == 2) fn = (const void*)ed25519_ladder_windows_kernel;
+#else
+  if (which == 2) return (int)cudaErrorInvalidDeviceFunction;
+#endif
   const int threads = which ? kLadderThreads : kPrepThreads;
   cudaFuncAttributes at;
   int err = (int)cudaFuncGetAttributes(&at, fn);

@@ -172,8 +172,18 @@ def prep(a, r, s, mk, mode: int):
         return prep_plain(a, r, s, mk, mode)
     if dev.type != "cuda":
         raise ValueError(f"ed25519_prep: unsupported device {dev}")
-    lib = _build.lib()
-    n = a.shape[0]
+    out = launch_prep(_build.lib(), a, r, s, mk, mode)
+    if a.shape[0]:
+        prep.launches += 1
+        prep.mode_launches[mode] += 1
+    return out
+
+
+def launch_prep(lib, a, r, s, mk, mode: int):
+    """Launch `ed25519_prep` of the loaded library `lib` (the default one
+    for `prep`; a variant for scripts/kernel_sweep.py) on CUDA tensors
+    the wrapper checked, on the current stream; returns its outputs."""
+    dev, n = a.device, a.shape[0]
     k = torch.empty((n, 32), dtype=torch.uint8, device=dev)
     neg_a = torch.empty((n, 64), dtype=torch.uint8, device=dev)
     ok = torch.empty((n,), dtype=torch.uint8, device=dev)
@@ -186,8 +196,6 @@ def prep(a, r, s, mk, mode: int):
         if err:
             raise RuntimeError(f"ed25519_prep launch failed: "
                                f"{_build.error_string(err)}")
-        prep.launches += 1
-        prep.mode_launches[mode] += 1
     return k, neg_a, ok
 
 

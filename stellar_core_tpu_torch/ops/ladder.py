@@ -14,7 +14,10 @@ Kernel (csrc/ed25519.cu::ed25519_ladder_kernel):
   in niels form, and a cached addition of |f|(-A) from a per-lane table
   of 1..8 times -A. A negative digit swaps y+x / y-x and negates the
   2d term; digit 0 selects the identity, so no lane branches on data.
-  Then Z^-1 and canonical affine bytes. LADDER_PRODUCTS counts the field
+  Then the epilogue: Z^-1 and canonical affine bytes (`affine`; the
+  WINDOWS_ONLY variant, `ladder_windows`, stops before it and returns
+  X, Y, Z, so that scripts/kernel_profile.py can time the epilogue as
+  the difference). LADDER_PRODUCTS counts the field
   products per signature (a multiply is 100 32x32->64 products, a
   squaring 55): 252,290, against 437,400 for a 1-bit ladder over
   256 bits that squares with the multiply.
@@ -165,9 +168,10 @@ def neg_a_table(nax, nay):
     return out
 
 
-def ladder_plain(s, k, neg_ax, neg_ay):
-    """Plain version: (n,32) uint8 S, k, -A x, -A y -> canonical (x, y)
-    bytes of [S]B + [k](-A), each (n,32) uint8."""
+def ladder_windows_plain(s, k, neg_ax, neg_ay):
+    """Plain version of the windows-only variant: (n,32) uint8 S, k, -A x,
+    -A y -> the canonical bytes of the projective P2 point (X, Y, Z) the
+    windows leave, each (n,32) uint8, before Z^-1."""
     n, dev = s.shape[0], s.device
     tab_a = torch.stack([_stack(c, n, dev) for c in
                          [IDENT_CACHED] + neg_a_table(F.from_bytes(neg_ax),
@@ -184,9 +188,21 @@ def ladder_plain(s, k, neg_ax, neg_ay):
                 p = p1p1_to_p3(c) if d == 3 else p1p1_to_p2(c)
         p = p1p1_to_p3(madd(p, _select(tab_b, es[:, i])))
         p = p1p1_to_p2(add_cached(p, _select(tab_a, fs[:, i])))
-    x, y, z = p
-    zi = F.invert(z)
-    return F.to_bytes(F.mul(x, zi)), F.to_bytes(F.mul(y, zi))
+    return tuple(F.to_bytes(c) for c in p)
+
+
+def affine(x_b, y_b, z_b):
+    """The kernel's epilogue: canonical bytes of X, Y, Z -> canonical
+    (x, y) = (X/Z, Y/Z) bytes."""
+    zi = F.invert(F.from_bytes(z_b))
+    return (F.to_bytes(F.mul(F.from_bytes(x_b), zi)),
+            F.to_bytes(F.mul(F.from_bytes(y_b), zi)))
+
+
+def ladder_plain(s, k, neg_ax, neg_ay):
+    """Plain version: (n,32) uint8 S, k, -A x, -A y -> canonical (x, y)
+    bytes of [S]B + [k](-A), each (n,32) uint8: the windows, then Z^-1."""
+    return affine(*ladder_windows_plain(s, k, neg_ax, neg_ay))
 
 
 def _check(name, *ts):
@@ -213,21 +229,54 @@ def ladder(s, k, neg_ax, neg_ay):
         return ladder_plain(s, k, neg_ax, neg_ay)
     if dev.type != "cuda":
         raise ValueError(f"ed25519_ladder: unsupported device {dev}")
-    lib = _build.lib()
-    n = s.shape[0]
-    x = torch.empty((n, 32), dtype=torch.uint8, device=dev)
-    y = torch.empty((n, 32), dtype=torch.uint8, device=dev)
-    if n:
-        with torch.cuda.device(dev):
-            err = lib.ed25519_ladder_launch(
-                s.data_ptr(), k.data_ptr(), neg_ax.data_ptr(),
-                neg_ay.data_ptr(), x.data_ptr(), y.data_ptr(), n,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"ed25519_ladder launch failed: "
-                               f"{_build.error_string(err)}")
+    out = launch_ladder(_build.lib(), s, k, neg_ax, neg_ay)
+    if s.shape[0]:
         ladder.launches += 1
-    return x, y
+    return out
 
 
 ladder.launches = 0
+
+
+def launch_ladder(lib, s, k, neg_ax, neg_ay, windows_only=False):
+    """Launch `ed25519_ladder` of the loaded library `lib` (the default
+    one for `ladder`; a variant for scripts/kernel_sweep.py), or with
+    windows_only its `ed25519_ladder_windows`, on CUDA tensors the
+    wrapper checked, on the current stream: returns (x, y), or
+    (X, Y, Z)."""
+    dev, n = s.device, s.shape[0]
+    out = [torch.empty((n, 32), dtype=torch.uint8, device=dev)
+           for _ in range(3 if windows_only else 2)]
+    if n:
+        fn = (lib.ed25519_ladder_windows_launch if windows_only
+              else lib.ed25519_ladder_launch)
+        name = "ed25519_ladder_windows" if windows_only else "ed25519_ladder"
+        with torch.cuda.device(dev):
+            err = fn(s.data_ptr(), k.data_ptr(), neg_ax.data_ptr(),
+                     neg_ay.data_ptr(), *(t.data_ptr() for t in out), n,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: "
+                               f"{_build.error_string(err)}")
+    return tuple(out)
+
+
+def ladder_windows(s, k, neg_ax, neg_ay):
+    """The ladder without its epilogue, for measuring it: -> canonical
+    (X, Y, Z) bytes of the P2 point, each (n,32) uint8. CUDA tensors
+    launch `ed25519_ladder_windows_kernel` of the WINDOWS_ONLY variant
+    library (built at first use); CPU tensors take the plain version.
+    Off the main path: nothing but scripts/kernel_profile.py calls it."""
+    dev = _check("ed25519_ladder_windows", s, k, neg_ax, neg_ay)
+    if dev.type == "cpu":
+        return ladder_windows_plain(s, k, neg_ax, neg_ay)
+    if dev.type != "cuda":
+        raise ValueError(f"ed25519_ladder_windows: unsupported device {dev}")
+    out = launch_ladder(_build.lib((_build.WINDOWS_ONLY,)), s, k, neg_ax,
+                        neg_ay, windows_only=True)
+    if s.shape[0]:
+        ladder_windows.launches += 1
+    return out
+
+
+ladder_windows.launches = 0

@@ -26,112 +26,20 @@ any byte off the plain version.
 """
 
 import argparse
-import collections
 import json
 import os
-import re
-import statistics
 import subprocess
 import sys
+
+if __package__:
+    from ._kernel_timing import loop_ms, median_ms, rows, sass_counts
+else:   # run as a file (--worker): the helpers beside it, so that the
+    # package is imported only from the tree the worker times
+    from _kernel_timing import loop_ms, median_ms, rows, sass_counts
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MODES = ("msg32", "k")
-
-
-def median_ms(fn, reps=25, warm=3):
-    import torch
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
-def loop_ms(fn, launches=50, reps=5):
-    """Device time per launch: the median over `reps` runs of `launches`
-    back-to-back calls between two CUDA events, so the host's work per
-    call overlaps the kernels queued before it."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(launches):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / launches)
-    return statistics.median(times)
-
-
-def rows(n, testvectors, seed=16):
-    """(pubs, sigs, msgs, m32) of n rows: the corpus's tuples and as many
-    random ones, in a seeded order."""
-    import numpy as np
-    items = testvectors.make_differential_vectors(40)
-    rng = np.random.default_rng(seed)
-    junk = rng.integers(0, 256, (len(items), 128), dtype=np.uint8)
-    pubs = [p for p, _, _ in items] + [j[:32].tobytes() for j in junk]
-    sigs = [s for _, s, _ in items] + [j[32:96].tobytes() for j in junk]
-    msgs = [m for _, _, m in items] + [j[96:].tobytes() for j in junk]
-    order = rng.permutation(len(pubs))[np.arange(n) % len(pubs)]
-
-    def pick(xs):
-        return np.frombuffer(b"".join(xs[i] for i in order),
-                             np.uint8).reshape(n, -1)
-    m32 = rng.integers(0, 256, (len(pubs), 32), dtype=np.uint8)[order]
-    return pick(pubs), pick(sigs), [msgs[i] for i in order], m32
-
-
-def sass_counts(lib_path, nvcc):
-    """Static SASS counts of the prep kernel (its listing holds the
-    functions it calls): total, IMAD.WIDE and SHFL, and the same for its
-    squaring loop, the longest body a backward branch closes (one field
-    squaring per pass), with its selects."""
-    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    out = subprocess.run([tool, "-sass", lib_path], check=True,
-                         capture_output=True, text=True).stdout
-    ins, fn = [], None
-    for line in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)([^;]*)", line)
-        if m and fn and "prep" in fn:
-            ins.append((int(m[1], 16), m[2], m[3]))
-
-    def mix(ops):
-        ops = collections.Counter(ops)
-        return dict(total=sum(ops.values()),
-                    imad_wide=sum(c for o, c in ops.items()
-                                  if o.startswith("IMAD.WIDE")),
-                    shfl=sum(c for o, c in ops.items()
-                             if o.startswith("SHFL")),
-                    sel=ops["SEL"])
-    at = {addr: i for i, (addr, _, _) in enumerate(ins)}
-    loops = []
-    for i, (addr, op, rest) in enumerate(ins):
-        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        if m and int(m[1], 16) < addr and int(m[1], 16) in at:
-            loops.append(ins[at[int(m[1], 16)]:i + 1])
-    counts = mix(op for _, op, _ in ins)
-    if loops:
-        counts["loop"] = mix(op for _, op, _ in max(loops, key=len))
-    return counts
 
 
 def worker(tree, label, ns):

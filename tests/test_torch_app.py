@@ -290,6 +290,11 @@ def test_simulation_record_and_merged_trace_name_their_modules():
             sim.start_tracing()
             sim.start_all_nodes()
             assert sim.crank_until(lambda: sim.have_all_externalized(3))
+            # the deferred completion tails of the closes so far finish
+            # before the trace is merged: ledger.close.complete counts
+            # every close in both runs, however far the worker lags
+            for app in sim.apps():
+                app.ledger_manager.join_completion()
             logs = sim.finish_recording()
             doc = sim.merged_trace()
         finally:

@@ -11,7 +11,9 @@ catchup, consensus and flood admission, the node, four node processes
 over TCP) at small sizes, phase 18's profiled replays at 2 payments per
 ledger, the native XDR codec and the native baseline beside the card, and
 the JAX package's north-star catchup test rebound to the port on the
-card.
+card; the ladder's windows-only variant against its plain version,
+kernel_sweep's byte checks on two sets, and the main path's library
+staying the default one beside a variant.
 Marked `gpu`; skipped where torch sees no CUDA device. Run on a machine with a card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -591,3 +593,53 @@ def test_differential_fast_on_card(card):
         cwd=Path(__file__).resolve().parents[1], timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "FAST DIFFERENTIAL: PASS" in res.stdout
+
+
+@pytest.mark.parametrize("n", [178, 16384])
+def test_ladder_windows_variant_matches_plain(card, n):
+    """The WINDOWS_ONLY variant (the ladder's table build and windows,
+    no epilogue) stores the canonical bytes of X, Y and Z that
+    ladder_windows_plain computes, and the default ladder's x, y are
+    their affine form."""
+    from stellar_core_tpu_torch.ops import testvectors
+    from stellar_core_tpu_torch.scripts import _kernel_timing as KT
+    pubs, sigs, _, m32 = KT.rows(n, testvectors)
+    a, r, s, m = (_on(card, x) for x in (pubs, sigs[:, :32], sigs[:, 32:],
+                                         m32))
+    k, neg_a, _ = EK.prep(a, r, s, m, EK.MODE_MSG32)
+    nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
+    got = LD.ladder_windows(s, k, nax, nay)
+    want = LD.ladder_windows_plain(s, k, nax, nay)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x, y = LD.ladder(s, k, nax, nay)
+    ax, ay = LD.affine(*got)
+    assert torch.equal(x, ax) and torch.equal(y, ay)
+
+
+def test_kernel_sweep_byte_checks_on_card(card):
+    """kernel_sweep on today's set and kLadderMinBlocks=3: both build,
+    and both kernels of each equal their plain versions."""
+    from stellar_core_tpu_torch.scripts import kernel_sweep
+    out = kernel_sweep.run(batches=(200,), sets=({}, {"kLadderMinBlocks": 3}),
+                           rounds=1)
+    assert out["not_built"] == []
+    assert [v["set"] for v in out["built"]] == ["today", "kLadderMinBlocks=3"]
+    for v in out["built"]:
+        assert v["checks"] == {200: {"prep": True, "ladder": True}}, v
+
+
+def test_main_path_keeps_the_default_library(card):
+    """A variant built and loaded beside it leaves the main path's
+    library the default one: the wrappers and CudaBatchVerifier load
+    _build.lib(), whose hash has no defines."""
+    from stellar_core_tpu_torch.ops import _build
+    default = _build.lib()
+    variant = _build.lib(_build.defines_of({"kLadderMinBlocks": 3}))
+    assert variant is not default
+    assert _build._lib is default is _build.lib()
+    assert _build.info["path"].endswith(f"libed25519_{_build._key()}.so")
+    items = make_differential_vectors(8, seed=4)
+    assert CudaBatchVerifier(device=card).verify_tuples(items) == \
+        oracle_results(items)
+    assert _build._lib is default

@@ -125,14 +125,17 @@ def test_allowlist_is_the_reference_s_but_for_wording():
 
 def test_every_tool_imports_without_the_jax_package():
     """The scripts subpackage holds a counterpart of each reference tool
-    this slice ports and the port's own prep_sweep (the prep kernel timed
-    across checkouts on the card), and none imports jax or the JAX
-    package."""
+    the port has (this slice's; bench_matrix, kernel_profile,
+    kernel_sweep and scaling_curve, added with the device tools), the
+    port's own prep_sweep (the prep kernel timed across checkouts on the
+    card) and the timing helpers they share, and none imports jax or the
+    JAX package."""
     names = sorted(p.stem for p in (PORT / "scripts").glob("*.py"))
-    assert names == ["__init__", "analyze", "chaos_soak",
-                     "cuda_differential", "native_sanitize",
+    assert names == ["__init__", "_kernel_timing", "analyze",
+                     "bench_matrix", "chaos_soak", "cuda_differential",
+                     "kernel_profile", "kernel_sweep", "native_sanitize",
                      "prep_sweep", "profile_catchup", "replay_report",
-                     "soroban_settings_upgrade"]
+                     "scaling_curve", "soroban_settings_upgrade"]
     code = ("import sys; before = set(sys.modules)\n"
             + "".join(f"import stellar_core_tpu_torch.scripts.{n}\n"
                       for n in names[1:])

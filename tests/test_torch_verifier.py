@@ -491,8 +491,9 @@ def test_port_imports_no_jax_subprocess():
 
 
 def _forbidden(name):
-    return name in ("jax", "jaxlib", "stellar_core_tpu") or \
-        name.startswith(("jax.", "jaxlib.", "stellar_core_tpu."))
+    return name in ("jax", "jaxlib", "stellar_core_tpu", "bench",
+                    "__graft_entry__") or \
+        name.startswith(("jax.", "jaxlib.", "stellar_core_tpu.", "bench."))
 
 
 def test_port_sources_import_no_jax_static():

@@ -28,7 +28,8 @@ HELPER_MODULES = ("txtest_utils", "test_bucket", "test_ledger_close",
                   "test_flow_control_edges", "test_history_catchup")
 # the reference's scripts/ modules a reference test imports -> the port's
 # copy in its scripts subpackage
-SCRIPTS = {"replay_report": PORT_ROOT + ".scripts.replay_report"}
+SCRIPTS = {"replay_report": PORT_ROOT + ".scripts.replay_report",
+           "bench_matrix": PORT_ROOT + ".scripts.bench_matrix"}
 _HELPERS: dict = {}     # helper module name -> its rebound module
 
 
