@@ -13,11 +13,14 @@ Phases (any failure exits non-zero; nothing is caught):
    local loads, total; static counts);
 3. hold each kernel against its plain PyTorch version at n = 16384 on
    the card, byte for byte: ed25519_prep (msg32 and k modes) and
-   ed25519_ladder, on lanes of which a quarter the strict checks reject
-   (the differential corpus's adversarial tuples and random bytes);
-   hold prep's ok flags against the oracle's strict checks and the
-   verdicts of prep -> ladder -> finish against the oracle, lane by
-   lane; time each kernel (CUDA events, median of 25 launches after
+   ed25519_ladder in its verdict form (the main path's: -A read in
+   place from prep's output, the compare with R and prep's flags in its
+   epilogue; with prep's flags and without, each with its optional x
+   and y stores held against ladder_plain), on lanes of which a quarter
+   the strict checks reject (the differential corpus's adversarial
+   tuples and random bytes); hold prep's ok flags against the oracle's
+   strict checks and the verdicts of prep -> ladder against the oracle,
+   lane by lane; time each kernel (CUDA events, median of 25 launches after
    warm-up) beside the plain version and the integer-multiply bound
    (with the bound's products per signature) and its launch geometry
    (threads per signature: prep's decompression chain on two lanes, the
@@ -35,7 +38,9 @@ Phases (any failure exits non-zero; nothing is caught):
    tuple corrupted, checked against the oracle; the launch counters are
    set to 0 before each part and must equal its dispatch count;
 6. one in-flight round under torch.profiler (after a warm-up round):
-   device busy time by kernel and the device's idle share;
+   device busy time by kernel and the device's idle share; it fails if
+   any device event but ed25519_prep, ed25519_ladder and the copies
+   ran;
 7. the live verify path at the node's defaults (main/config.py of the
    JAX package: max_batch 256, deadline 2 ms, device cutoff 16,
    dispatch deadline 2000 ms, canary 16):
@@ -405,7 +410,7 @@ import torch
 
 from stellar_core_tpu_torch.scripts._kernel_timing import (
     HBM_BYTES_PER_S, IMAD_PER_SM_CLK, device_ms_by_name, ladder_products,
-    median_ms, smi)
+    median_ms, other_kernels, smi)
 
 N = 16384
 IN_FLIGHT = 4
@@ -498,6 +503,9 @@ MESH_CHUNK = 256         # tuples per flush in phase 8's window (max_batch)
 HYBRID_N = 5000          # signatures of phase 8's hybrid batch
 HYBRID_RANKS = 2
 V1_N = 2048              # lanes of the v1 entry in phase 3
+# bytes the ladder moves per signature as the main path runs it: S, k,
+# -A (64), R and prep's ok byte in, the verdict byte out
+LADDER_BYTES = 4 * 32 + 32 + 1 + 1
 SPAWN_TIMEOUT_S = 300
 NODE_LOAD = 1000         # phase 16: accounts, then payments per ledger, that
                          # node 0's load generator submits (node_mix --load)
@@ -3651,8 +3659,9 @@ def catchup_problems(run, wl, pub, last):
 def held_kernels(items, imad_per_s, tag):
     """Both msg32-path kernels on the rows of one dispatch of a path
     (`items`, the tuples in dispatch order), on the card: each held byte
-    for byte (K, -A and OK of prep; x and y of the ladder) against its
-    plain version once, then timed (CUDA events, median of 25 launches
+    for byte (K, -A and OK of prep; the ladder's verdicts with its x and
+    y) against its plain version once, then timed in the main path's
+    form (the ladder's verdicts only; CUDA events, median of 25 launches
     after 3), beside its bound, as phase 3 does at n = N. Exits, naming
     `tag`, on a mismatch. Returns {"prep": ..., "ladder": ...} with n,
     ms, plain_ms, bound_ms, bound_by, max_abs_err."""
@@ -3677,19 +3686,19 @@ def held_kernels(items, imad_per_s, tag):
         ms=median_ms(lambda: EK.prep(a, r, s, m, EK.MODE_MSG32)),
         bound_ms=max(b_ops, b_mem),
         bound_by="operations" if b_ops >= b_mem else "bytes")
-    k, neg_a = got[0], got[1]
-    nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
-    got = LD.ladder(s, k, nax, nay)
-    want, plain_ms = once_ms(lambda: LD.ladder_plain(s, k, nax, nay))
+    k, neg_a, ok = got
+    got = LD.ladder_verdict(s, k, neg_a, r, ok, xy=True)
+    want, plain_ms = once_ms(lambda: LD.ladder_verdict_plain(
+        s, k, neg_a[:, :32], neg_a[:, 32:], r, ok))
     s_np, k_np = s.cpu().numpy().tobytes(), k.cpu().numpy().tobytes()
     b_ops = ladder_products([s_np[32 * i:32 * i + 32] for i in range(n)],
                             [k_np[32 * i:32 * i + 32] for i in range(n)]) \
         / imad_per_s * 1e3
-    b_mem = n * (4 * 32 + 2 * 32) / HBM_BYTES_PER_S * 1e3
+    b_mem = n * LADDER_BYTES / HBM_BYTES_PER_S * 1e3
     out["ladder"] = dict(
         n=n, match=all(torch.equal(x, y) for x, y in zip(got, want)),
         max_abs_err=max_abs_err(got, want), plain_ms=plain_ms,
-        ms=median_ms(lambda: LD.ladder(s, k, nax, nay)),
+        ms=median_ms(lambda: LD.ladder_verdict(s, k, neg_a, r, ok)),
         bound_ms=max(b_ops, b_mem),
         bound_by="operations" if b_ops >= b_mem else "bytes")
     for name, e in out.items():
@@ -5643,7 +5652,7 @@ TOOLS_DRYRUN_N = 4        # phase 19: dryrun_multichip's positions
 TOOLS_EXPECTED = {
     "entry": {"msg32": 0, "k": 1, "ladder": 1, "windows": 0},
     "dryrun": {"msg32": 1, "k": 8, "ladder": 9, "windows": 0},
-    "kernel_profile": {"msg32": 591, "k": 560, "ladder": 1711,
+    "kernel_profile": {"msg32": 1431, "k": 560, "ladder": 2551,
                        "windows": 1120},
     "scaling_curve": {"msg32": 220, "k": 0, "ladder": 220, "windows": 0}}
 
@@ -5906,22 +5915,31 @@ def main():
             k_dev, neg_a, ok = got
             if not torch.equal(k_dev, k_host):
                 raise SystemExit("device k differs from host k")
-    nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
-    got = LD.ladder(s, k_dev, nax, nay)
-    want, plain_ms = once_ms(lambda: LD.ladder_plain(s, k_dev, nax, nay))
-    match = all(torch.equal(x, y) for x, y in zip(got, want))
-    ms = median_ms(lambda: LD.ladder(s, k_dev, nax, nay))
+    # the ladder as the main path runs it (-A read in place from prep's
+    # output, R and prep's flags compared in its epilogue), held with its
+    # x and y stores on, with prep's flags and without them (the v1 form)
+    got = LD.ladder_verdict(s, k_dev, neg_a, r, ok, xy=True)
+    want, plain_ms = once_ms(lambda: LD.ladder_verdict_plain(
+        s, k_dev, neg_a[:, :32], neg_a[:, 32:], r, ok))
+    got_v1 = LD.ladder_verdict(s, k_dev, neg_a, r, xy=True)
+    want_v1 = (LD.encodes_r(want[1], want[2], r), want[1], want[2])
+    match = all(torch.equal(x, y) for x, y in
+                zip(got + got_v1, want + want_v1))
+    ms = median_ms(lambda: LD.ladder_verdict(s, k_dev, neg_a, r, ok))
     s_np, k_np = s.cpu().numpy().tobytes(), k_dev.cpu().numpy().tobytes()
     products = ladder_products(
         [s_np[32 * i:32 * i + 32] for i in range(N)],
         [k_np[32 * i:32 * i + 32] for i in range(N)])
     b_ops = products / imad_per_s * 1e3
-    b_mem = N * (4 * 32 + 2 * 32) / HBM_BYTES_PER_S * 1e3
+    b_mem = N * LADDER_BYTES / HBM_BYTES_PER_S * 1e3
     entries.append(dict(
         name="ed25519_ladder", route="cuda",
         source="stellar_core_tpu_torch/ops/csrc/ed25519.cu",
-        replaces="stellar_core_tpu/ops/ed25519_pallas.py:202 ladder",
-        n=N, match=match, max_abs_err=max_abs_err(got, want),
+        replaces=("stellar_core_tpu/ops/ed25519_pallas.py:202 ladder, "
+                  "ed25519_kernel.py:357 _verify_full's compress, "
+                  "eq_canonical and flags"),
+        n=N, match=match,
+        max_abs_err=max_abs_err(got + got_v1, want + want_v1),
         ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_mem),
         bound_by="operations" if b_ops >= b_mem else "bytes",
         library_ms=None, launches=None,
@@ -5930,7 +5948,8 @@ def main():
         **infos["ed25519_ladder"]))
     if not match:
         raise SystemExit("ed25519_ladder disagrees with plain")
-    print(f"ladder matches plain at n={N}: {ms:.4f} ms "
+    print(f"ladder (verdict form, with prep's flags and without; x and y "
+          f"as ladder_plain's) matches plain at n={N}: {ms:.4f} ms "
           f"(plain {plain_ms:.1f} ms; bound {max(b_ops, b_mem):.4f} ms = "
           f"{max(b_ops, b_mem) / ms:.4f} of the time; the bound counts "
           f"{products / N:.0f} products per signature; "
@@ -5947,16 +5966,16 @@ def main():
           f"60 limb products per squaring (five weighted 0) and 100 per "
           f"multiply: {EK.prep_kernel_products(EK.MODE_MSG32)} and "
           f"{EK.prep_kernel_products(EK.MODE_K)}", flush=True)
-    verdict = EK.finish(got[0], got[1], r, ok).cpu().tolist()
+    verdict = got[0].cpu().tolist()
     bad_lanes = sum(g != w for g, w in zip(verdict, want_verdict))
     if bad_lanes:
-        raise SystemExit(f"prep -> ladder -> finish: {bad_lanes} lanes "
-                         "differ from the oracle")
-    print(f"prep -> ladder -> finish at n={N}: 0 lanes differ from the "
-          "oracle", flush=True)
+        raise SystemExit(f"prep -> ladder: {bad_lanes} lanes differ from "
+                         "the oracle")
+    print(f"prep -> ladder at n={N}: 0 lanes differ from the oracle",
+          flush=True)
     # the v1 entry (ed25519_pallas.verify_kernel_pallas): k and -A
-    # prepared on the host, the ladder, the compare; the host's flags
-    # ANDed, as the reference's callers do
+    # prepared on the host, the ladder with the compare in its epilogue
+    # and no flags; the host's flags ANDed, as the reference's callers do
     k1, na1, ok1 = host_prepare(p3[:V1_N], s3[:V1_N], m3[:V1_N])
     got1 = EK.verify_kernel(s[:V1_N], dev_u8(k1), dev_u8(na1[:, :32]),
                             dev_u8(na1[:, 32:]), r[:V1_N])
@@ -6068,6 +6087,17 @@ def main():
               f"{1 - busy_ms / wall_ms:.4f}")
         for name, ms_ in top:
             print(f"  device {ms_:9.3f} ms  {name[:90]}")
+        # a dispatch is the two kernels and the copies, nothing else
+        others = other_kernels(by_name)
+        kernels = {kern for kern in ("ed25519_prep_kernel",
+                                     "ed25519_ladder_kernel")
+                   if any(kern in name for name in by_name)}
+        if others or len(kernels) != 2:
+            raise SystemExit(f"phase 6: the traced round ran {others} "
+                             f"beside the kernels {sorted(kernels)}")
+        print(f"  device events: ed25519_prep_kernel, ed25519_ladder_kernel "
+              f"and {len(by_name) - 2} kinds of copy, nothing else",
+              flush=True)
     else:
         print("profile: the profiler saw no device time (not measured)")
 

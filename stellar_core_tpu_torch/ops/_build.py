@@ -128,10 +128,11 @@ def _load(path: str, windows: bool):
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.ed25519_prep_launch.argtypes = [p, p, p, p, i, p, p, p, i, p]
     dll.ed25519_prep_launch.restype = i
-    dll.ed25519_ladder_launch.argtypes = [p, p, p, p, p, p, i, p]
+    dll.ed25519_ladder_launch.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
+                                          p]
     dll.ed25519_ladder_launch.restype = i
     if windows:
-        dll.ed25519_ladder_windows_launch.argtypes = [p, p, p, p, p, p, p,
+        dll.ed25519_ladder_windows_launch.argtypes = [p, p, p, p, i, p, p, p,
                                                       i, p]
         dll.ed25519_ladder_windows_launch.restype = i
     dll.ed25519_kernel_info.argtypes = [i, ctypes.POINTER(i)]

@@ -10,8 +10,11 @@
 // ed25519_ladder replaces the Pallas kernel ed25519_pallas.py::ladder
 //                (1-bit ladder over all 256 bits, 4-entry select, Z^-1)
 //                with a signed radix-16 Straus schedule on four lanes per
-//                signature, and returns canonical bytes; plain version
-//                ops/ladder.py::ladder_plain.
+//                signature, and the tail of _verify_full (compress, the
+//                compare with R, the AND with prep's flags): it writes
+//                one verdict byte per signature, and canonical affine
+//                bytes where asked; plain versions
+//                ops/ladder.py::ladder_verdict_plain and ladder_plain.
 //
 // Both are bound by integer multiplies (see the notes in ladder.py and
 // ed25519_kernel.py). Rows travel as 16-byte loads and stay 64-bit words
@@ -101,14 +104,20 @@ constexpr int kLadderMinBlocks = ED25519_LADDER_MIN_BLOCKS;  // 4: 16 warps per 
 constexpr int kWindows = 65;                // signed radix-16 digits per scalar
 constexpr int kNielsStride = 44;            // words per entry of B's table
 
-// A 32-byte row as four little-endian 64-bit words, from two 16-byte loads.
-__device__ __forceinline__ void load_row(uint64_t w[4], const uint8_t* base, size_t i) {
-  const uint4* src = reinterpret_cast<const uint4*>(base + 32 * i);
+// 32 bytes at p (16-byte aligned) as four little-endian 64-bit words, from
+// two 16-byte loads.
+__device__ __forceinline__ void load_words(uint64_t w[4], const uint8_t* p) {
+  const uint4* src = reinterpret_cast<const uint4*>(p);
   const uint4 a = src[0], b = src[1];
   w[0] = ((uint64_t)a.y << 32) | a.x;
   w[1] = ((uint64_t)a.w << 32) | a.z;
   w[2] = ((uint64_t)b.y << 32) | b.x;
   w[3] = ((uint64_t)b.w << 32) | b.z;
+}
+
+// Row i of an (n, 32) byte array.
+__device__ __forceinline__ void load_row(uint64_t w[4], const uint8_t* base, size_t i) {
+  load_words(w, base + 32 * i);
 }
 
 __device__ __forceinline__ void store_row(uint8_t* base, size_t byte_off, const uint64_t w[4]) {
@@ -273,20 +282,37 @@ __device__ __forceinline__ fe niels_coord(const int32_t* tab, int e, const quad&
   return (neg && q.r == 2) ? fe_neg(n) : n;
 }
 
+// What a ladder launch writes after the windows: the template parameter
+// of ladder_block, one body for both.
+enum class LadderEnd {
+  // the main path's epilogue: Z^-1, canonical x and y (stored where X and
+  // Y are given), and where V is given the verdict, the encoding of (x, y)
+  // compared with R's row and ANDed with prep's OK byte (no flags where
+  // OK is null)
+  kVerdict,
+  // a variant build only, to measure the epilogue
+  // (scripts/kernel_profile.py): the canonical bytes of X, Y and Z from
+  // lanes 0..2; plain version ops/ladder.py::ladder_windows_plain
+  kWindowsOnly,
+};
+
 // The ladder of one block, on lane q.r of each group of four: the table
 // build and the windows give this lane's coordinate of the P2 point
 // [S]B + [k](-A) (X, Y and Z on lanes 0..2, lane 3's unused); then the
-// epilogue regroups and one thread per signature inverts Z and writes x,
-// y. kWindowsOnly (a variant build only, to measure the epilogue;
-// scripts/kernel_profile.py) stores instead the canonical bytes of X, Y
-// and Z from lanes 0..2; plain version ops/ladder.py::ladder_windows_plain.
-template <bool kWindowsOnly>
+// epilogue regroups and one thread per signature inverts Z and finishes
+// the verification (kEnd). -A's x and y of row i sit at NAX and NAY plus
+// i * a_stride bytes: 64 in prep's (n, 64) output, 32 in two (n, 32)
+// arrays.
+template <LadderEnd kEnd>
 __device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
                                              const uint8_t* __restrict__ K,
                                              const uint8_t* __restrict__ NAX,
-                                             const uint8_t* __restrict__ NAY,
-                                             uint8_t* __restrict__ X, uint8_t* __restrict__ Y,
-                                             uint8_t* __restrict__ Z, int n) {
+                                             const uint8_t* __restrict__ NAY, int a_stride,
+                                             const uint8_t* __restrict__ R,
+                                             const uint8_t* __restrict__ OK,
+                                             uint8_t* __restrict__ V, uint8_t* __restrict__ X,
+                                             uint8_t* __restrict__ Y, uint8_t* __restrict__ Z,
+                                             int n) {
   __shared__ int32_t tab_a[8 * 10 * kLadderThreads];
   __shared__ int32_t tab_b[8 * kNielsStride];
   __shared__ int8_t dig[2 * kWindows * kLadderSigs];
@@ -312,9 +338,9 @@ __device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
 
   // the table of -A, lane r keeping coordinate r: A1 = (x, y, 1, xy),
   // A(e+1) = A(e) + cached(A1) (ladder.neg_a_table)
-  load_row(w, NAX, row);
+  load_words(w, NAX + a_stride * row);
   const fe nax = fe_fromwords(w);
-  load_row(w, NAY, row);
+  load_words(w, NAY + a_stride * row);
   const fe nay = fe_fromwords(w);
   fe v = q.r == 0 ? nax : q.r == 1 ? nay : fe_small(1);
   if (q.r == 3) v = fe_mul(nax, nay);
@@ -341,7 +367,7 @@ __device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
     v = quad_p1p1_to(quad_add(v, cached_coord(tab_a, f, tid, q), q), q, false);
   }
 
-  if constexpr (kWindowsOnly) {
+  if constexpr (kEnd == LadderEnd::kWindowsOnly) {
     if (q.r < 3 && sig0 + g < n) {
       fe_towords(w, v);
       store_row(q.r == 0 ? X : q.r == 1 ? Y : Z, 32 * row, w);
@@ -349,8 +375,8 @@ __device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
     return;
   }
 
-  // the epilogue. Regroup: one thread per signature inverts Z and writes
-  // x, y
+  // the epilogue. Regroup: one thread per signature inverts Z and
+  // finishes
   __syncthreads();
   int32_t* fin = tab_a;
   if (q.r < 3) {
@@ -359,33 +385,48 @@ __device__ __forceinline__ void ladder_block(const uint8_t* __restrict__ S,
   }
   __syncthreads();
   if (tid < kLadderSigs && sig0 + tid < n) {
+    const size_t i = (size_t)(sig0 + tid);
     fe p[3];
 #pragma unroll
     for (int c = 0; c < 3; c++)
 #pragma unroll
       for (int j = 0; j < 10; j++) p[c].v[j] = fin[(c * 10 + j) * kLadderSigs + tid];
     const fe zi = fe_invert(p[2]);
-    fe_towords(w, fe_mul(p[0], zi));
-    store_row(X, 32 * (size_t)(sig0 + tid), w);
+    uint64_t x[4];
+    fe_towords(x, fe_mul(p[0], zi));
     fe_towords(w, fe_mul(p[1], zi));
-    store_row(Y, 32 * (size_t)(sig0 + tid), w);
+    if (X) store_row(X, 32 * i, x);
+    if (Y) store_row(Y, 32 * i, w);
+    if (V) {
+      // compress (y < p leaves bit 255 free for x's parity), compare with
+      // R, AND the strict flags: _verify_full's eq & s_ok & a_canon &
+      // ~a_small & a_valid & r_canon & ~r_small, prep's OK holding the six
+      uint64_t r[4];
+      load_row(r, R, i);
+      w[3] |= x[0] << 63;
+      V[i] = (words_eq(w, r) && (OK == nullptr || OK[i] != 0)) ? 1 : 0;
+    }
   }
 }
 
 __global__ void __launch_bounds__(kLadderThreads, kLadderMinBlocks)
 ed25519_ladder_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__ K,
                       const uint8_t* __restrict__ NAX, const uint8_t* __restrict__ NAY,
+                      int a_stride, const uint8_t* __restrict__ R,
+                      const uint8_t* __restrict__ OK, uint8_t* __restrict__ V,
                       uint8_t* __restrict__ X, uint8_t* __restrict__ Y, int n) {
-  ladder_block<false>(S, K, NAX, NAY, X, Y, nullptr, n);
+  ladder_block<LadderEnd::kVerdict>(S, K, NAX, NAY, a_stride, R, OK, V, X, Y, nullptr, n);
 }
 
 #ifdef ED25519_LADDER_WINDOWS_ONLY
 __global__ void __launch_bounds__(kLadderThreads, kLadderMinBlocks)
 ed25519_ladder_windows_kernel(const uint8_t* __restrict__ S, const uint8_t* __restrict__ K,
                               const uint8_t* __restrict__ NAX,
-                              const uint8_t* __restrict__ NAY, uint8_t* __restrict__ X,
-                              uint8_t* __restrict__ Y, uint8_t* __restrict__ Z, int n) {
-  ladder_block<true>(S, K, NAX, NAY, X, Y, Z, n);
+                              const uint8_t* __restrict__ NAY, int a_stride,
+                              uint8_t* __restrict__ X, uint8_t* __restrict__ Y,
+                              uint8_t* __restrict__ Z, int n) {
+  ladder_block<LadderEnd::kWindowsOnly>(S, K, NAX, NAY, a_stride, nullptr, nullptr, nullptr, X,
+                                        Y, Z, n);
 }
 #endif
 
@@ -399,24 +440,31 @@ extern "C" int ed25519_prep_launch(const void* a, const void* r, const void* s,
   return (int)cudaGetLastError();
 }
 
+// The ladder on n rows: -A's x and y of row i at neg_ax and neg_ay plus
+// i * a_stride bytes; the verdicts into v (null: none; then r and ok are
+// not read; ok null: no flags), canonical x and y into x and y (each
+// null: not stored).
 extern "C" int ed25519_ladder_launch(const void* s, const void* k, const void* neg_ax,
-                                     const void* neg_ay, void* x, void* y, int n,
+                                     const void* neg_ay, int a_stride, const void* r,
+                                     const void* ok, void* v, void* x, void* y, int n,
                                      void* stream) {
   const int blocks = (n + kLadderSigs - 1) / kLadderSigs;
   ed25519_ladder_kernel<<<blocks, kLadderThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)s, (const uint8_t*)k, (const uint8_t*)neg_ax, (const uint8_t*)neg_ay,
-      (uint8_t*)x, (uint8_t*)y, n);
+      a_stride, (const uint8_t*)r, (const uint8_t*)ok, (uint8_t*)v, (uint8_t*)x, (uint8_t*)y,
+      n);
   return (int)cudaGetLastError();
 }
 
 #ifdef ED25519_LADDER_WINDOWS_ONLY
 extern "C" int ed25519_ladder_windows_launch(const void* s, const void* k,
-                                             const void* neg_ax, const void* neg_ay, void* x,
-                                             void* y, void* z, int n, void* stream) {
+                                             const void* neg_ax, const void* neg_ay,
+                                             int a_stride, void* x, void* y, void* z, int n,
+                                             void* stream) {
   const int blocks = (n + kLadderSigs - 1) / kLadderSigs;
   ed25519_ladder_windows_kernel<<<blocks, kLadderThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)s, (const uint8_t*)k, (const uint8_t*)neg_ax, (const uint8_t*)neg_ay,
-      (uint8_t*)x, (uint8_t*)y, (uint8_t*)z, n);
+      a_stride, (uint8_t*)x, (uint8_t*)y, (uint8_t*)z, n);
   return (int)cudaGetLastError();
 }
 #endif

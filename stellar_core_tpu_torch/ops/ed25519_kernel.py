@@ -1,4 +1,4 @@
-"""Batch Ed25519 verification on the card: prep -> ladder -> finish.
+"""Batch Ed25519 verification on the card: prep -> ladder, two launches.
 
 Counterpart of stellar_core_tpu/ops/ed25519_kernel.py. Its entries
 `verify_kernel_full(a, r, s, k)` and `verify_kernel_msg32(a, r, s, m)`
@@ -8,9 +8,14 @@ with the prep moved onto the card as verify_kernel_msg32 does:
 
 1. `prep` (kernel `ed25519_prep`): k, the canonical bytes of -A, and the
    strict flags;
-2. `ladder.ladder` (kernel `ed25519_ladder`): canonical affine
-   [S]B + [k](-A);
-3. `finish` (plain torch on the card): encode and compare with R.
+2. `ladder.ladder_verdict` (kernel `ed25519_ladder`): [S]B + [k](-A),
+   its encoding compared with R and ANDed with prep's flags in the
+   kernel's epilogue, one verdict byte per signature. It reads -A in
+   place from prep's (n,64) output.
+
+No other operation runs on the card between the copy of the rows in and
+the copy of the verdicts out. `finish` and `encodes_r` (ops/ladder.py)
+are the epilogue's plain versions: they run only on CPU tensors.
 
 `ed25519_prep` replaces the jnp code of the JAX main path before the
 scalar multiplication: sha512.sha512_96 / mod_l / k_mod_l_96, and
@@ -40,8 +45,9 @@ is full (PERF.md §6). It moves 225 bytes per signature, as 16-byte loads of
 ops/sha512.py); it is what the wrappers use for CPU tensors.
 
 `verify_kernel` is the v1 entry: k and -A
-prepared on the host (verifier.host_prepare), then the ladder and the
-compare with R; the strict flags stay with the caller.
+prepared on the host (verifier.host_prepare), then the ladder with the
+compare with R in its epilogue and no flags (a null ok); the strict
+flags stay with the caller.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import torch
 from . import _build
 from . import field as F
 from . import sha512 as _sha
-from .ladder import _check, ladder
+from .ladder import _check, ladder_verdict
 from ..crypto import ed25519_ref as _ref
 
 MODE_MSG32 = 0     # k = SHA512(R‖A‖M) mod L, M is 32 bytes
@@ -204,23 +210,9 @@ prep.launches = 0
 prep.mode_launches = [0, 0]
 
 
-def encodes_r(x, y, r):
-    """Encode y with sign(x) in bit 255 and compare with R: (n,) bool."""
-    enc = y.clone()
-    enc[:, 31] |= (x[:, 0] & 1) << 7
-    return (enc == r).all(1)
-
-
-def finish(x, y, r, ok):
-    """encodes_r AND the strict flags: (n,) bool verdicts."""
-    return encodes_r(x, y, r) & ok.to(torch.bool)
-
-
 def _verify(a, r, s, mk, mode):
     k, neg_a, ok = prep(a, r, s, mk, mode)
-    x, y = ladder(s, k, neg_a[:, :32].contiguous(),
-                  neg_a[:, 32:].contiguous())
-    return finish(x, y, r, ok)
+    return ladder_verdict(s, k, neg_a, r, ok)
 
 
 def verify_kernel_full(a, r, s, k):
@@ -238,8 +230,7 @@ def verify_kernel(s, k, neg_ax, neg_ay, r):
     """The v1 entry (ed25519_kernel.verify_kernel and
     ed25519_pallas.verify_kernel_pallas of the JAX package), with the
     port's (n,32) uint8 layout: host-prepped k and -A
-    (verifier.host_prepare) -> ladder -> encode and compare with R.
-    Returns the (n,) bool equation match; the caller ANDs the host's
-    strict flags, as the reference's callers do."""
-    x, y = ladder(s, k, neg_ax, neg_ay)
-    return encodes_r(x, y, r)
+    (verifier.host_prepare) -> the ladder, encoding and comparing with R
+    in its epilogue. Returns the (n,) bool equation match; the caller
+    ANDs the host's strict flags, as the reference's callers do."""
+    return ladder_verdict(s, k, (neg_ax, neg_ay), r)

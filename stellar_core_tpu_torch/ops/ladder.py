@@ -1,9 +1,13 @@
 """[S]B + [k](-A): the `ed25519_ladder` kernel wrapper and its plain version.
 
 Replaces stellar_core_tpu/ops/ed25519_pallas.py::ladder (the Pallas body
-`_ladder_kernel`, a 1-bit ladder over all 256 bits), and with
-`ed25519_kernel.finish` the XLA `double_scalarmult_w2` + `compress` of the
-JAX main path.
+`_ladder_kernel`, a 1-bit ladder over all 256 bits), and the XLA
+`double_scalarmult_w2` and the tail of `_verify_full` (`compress`,
+`fe8.eq_canonical` with R, the AND with the strict flags) of the JAX main
+path: `ladder_verdict`, the main path's form, returns the verdicts, so a
+dispatch runs prep and this kernel and no other operation on the card.
+`ladder` returns the canonical affine (x, y) instead, for the tests and
+tools.
 
 Kernel (csrc/ed25519.cu::ed25519_ladder_kernel):
 - Schedule: interleaved (Straus) signed radix 16 over both scalars. S and
@@ -14,10 +18,15 @@ Kernel (csrc/ed25519.cu::ed25519_ladder_kernel):
   in niels form, and a cached addition of |f|(-A) from a per-lane table
   of 1..8 times -A. A negative digit swaps y+x / y-x and negates the
   2d term; digit 0 selects the identity, so no lane branches on data.
-  Then the epilogue: Z^-1 and canonical affine bytes (`affine`; the
-  WINDOWS_ONLY variant, `ladder_windows`, stops before it and returns
-  X, Y, Z, so that scripts/kernel_profile.py can time the epilogue as
-  the difference). LADDER_PRODUCTS counts the field
+  Then the epilogue: Z^-1 and canonical affine bytes (`affine`), y with
+  x's parity in bit 255 compared with R's row and ANDed with prep's ok
+  byte (`finish`, or `encodes_r` without flags), one verdict byte out;
+  x and y are stored only where the caller asks. The WINDOWS_ONLY
+  variant, `ladder_windows`, stops before the epilogue and returns X, Y,
+  Z, so that scripts/kernel_profile.py can time the epilogue as the
+  difference. -A is read in place from prep's (n,64) rows (a row stride
+  of 64 bytes) or from two (n,32) tensors. LADDER_PRODUCTS counts the
+  field
   products per signature (a multiply is 100 32x32->64 products, a
   squaring 55): 252,290, against 437,400 for a 1-bit ladder over
   256 bits that squares with the multiply.
@@ -31,11 +40,12 @@ Kernel (csrc/ed25519.cu::ed25519_ladder_kernel):
   thread per signature after the block regroups the points through
   shared memory, so one warp per block does it with all lanes busy.
 - What bounds it on the H100: integer multiplies (IMAD.WIDE); memory
-  traffic is 192 bytes per signature.
+  traffic is 162 bytes per signature in the verdict form (S, k, -A, R
+  and ok in, one byte out; 192 with x and y out instead).
 
-The plain version (`ladder_plain`) runs the same digits, formulas, table
-and field code (ops/field.py) on int64 tensors; the thread layout does
-not change what any product computes.
+The plain versions (`ladder_plain`, `ladder_verdict_plain`) run the same
+digits, formulas, table and field code (ops/field.py) on int64 tensors;
+the thread layout does not change what any product computes.
 """
 
 from __future__ import annotations
@@ -205,6 +215,25 @@ def ladder_plain(s, k, neg_ax, neg_ay):
     return affine(*ladder_windows_plain(s, k, neg_ax, neg_ay))
 
 
+def encodes_r(x, y, r):
+    """Encode y with sign(x) in bit 255 and compare with R: (n,) bool."""
+    enc = y.clone()
+    enc[:, 31] |= (x[:, 0] & 1) << 7
+    return (enc == r).all(1)
+
+
+def finish(x, y, r, ok):
+    """encodes_r AND the strict flags: (n,) bool verdicts."""
+    return encodes_r(x, y, r) & ok.to(torch.bool)
+
+
+def ladder_verdict_plain(s, k, neg_ax, neg_ay, r, ok=None):
+    """Plain version of the verdict form: ladder_plain, then finish (or
+    encodes_r where ok is None): (n,) bool, and the (x, y) it compared."""
+    x, y = ladder_plain(s, k, neg_ax, neg_ay)
+    return (encodes_r(x, y, r) if ok is None else finish(x, y, r, ok)), x, y
+
+
 def _check(name, *ts):
     dev = ts[0].device
     for t in ts:
@@ -214,51 +243,123 @@ def _check(name, *ts):
                 or t.shape[0] != ts[0].shape[0]:
             raise ValueError(f"{name}: expected (n,32) uint8, got "
                              f"{tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if dev.type == "cuda" and t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+        _check_layout(name, t)
     return dev
+
+
+def _check_layout(name, t):
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def _verdict_inputs(name, dev, n, neg_a, ok):
+    """Check -A and ok against the other inputs (on `dev`, n rows) ->
+    -A's x and y halves: of prep's (n,64) rows (x, then y) or of a pair
+    of (n,32) tensors. ok is None or (n,) uint8."""
+    if isinstance(neg_a, torch.Tensor):
+        if neg_a.dtype != torch.uint8 or tuple(neg_a.shape) != (n, 64):
+            raise ValueError(f"{name}: expected -A as (n,64) uint8, got "
+                             f"{tuple(neg_a.shape)} {neg_a.dtype}")
+        if neg_a.device != dev:
+            raise ValueError(f"{name}: inputs on different devices")
+        _check_layout(name, neg_a)
+        halves = neg_a[:, :32], neg_a[:, 32:]
+    else:
+        halves = tuple(neg_a)
+        if _check(name, *halves) != dev or halves[0].shape[0] != n:
+            raise ValueError(f"{name}: -A does not match the other inputs")
+    if ok is not None and (ok.dtype != torch.uint8 or tuple(ok.shape) != (n,)
+                           or ok.device != dev or not ok.is_contiguous()):
+        raise ValueError(f"{name}: expected ok as (n,) uint8 on {dev}, got "
+                         f"{tuple(ok.shape)} {ok.dtype} on {ok.device}")
+    return halves
 
 
 def ladder(s, k, neg_ax, neg_ay):
     """[S]B + [k](-A) -> canonical affine (x, y), each (n,32) uint8.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (`ed25519_ladder` with its x and y stores and no verdict)."""
     dev = _check("ed25519_ladder", s, k, neg_ax, neg_ay)
     if dev.type == "cpu":
         return ladder_plain(s, k, neg_ax, neg_ay)
     if dev.type != "cuda":
         raise ValueError(f"ed25519_ladder: unsupported device {dev}")
-    out = launch_ladder(_build.lib(), s, k, neg_ax, neg_ay)
+    _, x, y = launch_ladder(_build.lib(), s, k, (neg_ax, neg_ay), xy=True)
     if s.shape[0]:
         ladder.launches += 1
-    return out
+    return x, y
 
 
+# launches of `ed25519_ladder`, through `ladder` and `ladder_verdict`
 ladder.launches = 0
 
 
-def launch_ladder(lib, s, k, neg_ax, neg_ay, windows_only=False):
+def ladder_verdict(s, k, neg_a, r, ok=None, xy=False):
+    """The main path's ladder: [S]B + [k](-A) encoded and compared with R,
+    ANDed with prep's flags `ok` ((n,) uint8; None: the v1 form, the
+    equation alone) -> (n,) bool verdicts. -A is prep's (n,64) output or
+    a pair of (n,32) tensors. With xy, returns (verdicts, x, y), the
+    canonical affine bytes it compared. CPU tensors take the plain
+    version; CUDA tensors launch `ed25519_ladder`, whose epilogue writes
+    one byte per signature (returned viewed as bool, no copy)."""
+    dev = _check("ed25519_ladder", s, k, r)
+    nax, nay = _verdict_inputs("ed25519_ladder", dev, s.shape[0], neg_a, ok)
+    if dev.type == "cpu":
+        out = ladder_verdict_plain(s, k, nax, nay, r, ok)
+        return out if xy else out[0]
+    if dev.type != "cuda":
+        raise ValueError(f"ed25519_ladder: unsupported device {dev}")
+    out = launch_ladder(_build.lib(), s, k, neg_a, r, ok, xy=xy)
+    if s.shape[0]:
+        ladder.launches += 1
+    return out if xy else out[0]
+
+
+def launch_ladder(lib, s, k, neg_a, r=None, ok=None, xy=False,
+                  windows_only=False):
     """Launch `ed25519_ladder` of the loaded library `lib` (the default
-    one for `ladder`; a variant for scripts/kernel_sweep.py), or with
-    windows_only its `ed25519_ladder_windows`, on CUDA tensors the
-    wrapper checked, on the current stream: returns (x, y), or
-    (X, Y, Z)."""
+    one for the wrappers; a variant for scripts/kernel_sweep.py) on CUDA
+    tensors the wrapper checked, on the current stream. -A as
+    `ladder_verdict` takes it. Returns (verdicts, x, y): the verdicts
+    ((n,) bool) where r is given, x and y where xy is set, else None.
+    With windows_only, launches the variant's `ed25519_ladder_windows`
+    instead and returns (X, Y, Z)."""
     dev, n = s.device, s.shape[0]
-    out = [torch.empty((n, 32), dtype=torch.uint8, device=dev)
-           for _ in range(3 if windows_only else 2)]
+
+    def u8(*width):
+        return torch.empty((n, *width), dtype=torch.uint8, device=dev)
+    if windows_only:
+        out = (u8(32), u8(32), u8(32))
+    else:
+        out = (None if r is None else u8(),
+               *((u8(32), u8(32)) if xy else (None, None)))
     if n:
-        fn = (lib.ed25519_ladder_windows_launch if windows_only
-              else lib.ed25519_ladder_launch)
-        name = "ed25519_ladder_windows" if windows_only else "ed25519_ladder"
+        if isinstance(neg_a, torch.Tensor):
+            ax, ay, stride = neg_a.data_ptr(), neg_a.data_ptr() + 32, 64
+        else:
+            ax, ay, stride = neg_a[0].data_ptr(), neg_a[1].data_ptr(), 32
+        ptrs = [None if t is None else t.data_ptr() for t in out]
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = fn(s.data_ptr(), k.data_ptr(), neg_ax.data_ptr(),
-                     neg_ay.data_ptr(), *(t.data_ptr() for t in out), n,
-                     torch.cuda.current_stream(dev).cuda_stream)
+            if windows_only:
+                name = "ed25519_ladder_windows"
+                err = lib.ed25519_ladder_windows_launch(
+                    s.data_ptr(), k.data_ptr(), ax, ay, stride, *ptrs, n,
+                    stream)
+            else:
+                name = "ed25519_ladder"
+                err = lib.ed25519_ladder_launch(
+                    s.data_ptr(), k.data_ptr(), ax, ay, stride,
+                    None if r is None else r.data_ptr(),
+                    None if ok is None else ok.data_ptr(), *ptrs, n, stream)
         if err:
             raise RuntimeError(f"{name} launch failed: "
                                f"{_build.error_string(err)}")
-    return tuple(out)
+    if not windows_only and out[0] is not None:
+        out = (out[0].view(torch.bool), *out[1:])
+    return out
 
 
 def ladder_windows(s, k, neg_ax, neg_ay):
@@ -272,8 +373,8 @@ def ladder_windows(s, k, neg_ax, neg_ay):
         return ladder_windows_plain(s, k, neg_ax, neg_ay)
     if dev.type != "cuda":
         raise ValueError(f"ed25519_ladder_windows: unsupported device {dev}")
-    out = launch_ladder(_build.lib((_build.WINDOWS_ONLY,)), s, k, neg_ax,
-                        neg_ay, windows_only=True)
+    out = launch_ladder(_build.lib((_build.WINDOWS_ONLY,)), s, k,
+                        (neg_ax, neg_ay), windows_only=True)
     if s.shape[0]:
         ladder_windows.launches += 1
     return out

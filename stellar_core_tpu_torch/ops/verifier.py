@@ -15,10 +15,13 @@ crypto/ed25519_ref.verify.
 
 Per batch: when device SHA is on and every message is 32 bytes, the card
 computes k (prep in msg32 mode); otherwise the host computes
-k = SHA512(R‖A‖M) mod L with hashlib and prep runs in k mode. A, R, S and
-M-or-k travel as one pinned (4,n,32) uint8 copy; prep -> ladder -> finish
-run on the current stream, and the (n,) verdicts come back through a
-pinned buffer and an event, so dispatch does not wait for the card.
+k = SHA512(R‖A‖M) mod L (`host_k`: the native library's batch_prepare,
+or the oracle where it does not load) and prep runs in k mode. A, R, S
+and M-or-k travel as one pinned (4,n,32) uint8 copy; the two kernels,
+prep -> ladder (whose epilogue compares with R and ANDs prep's flags),
+run on the current stream and nothing else does, and the (n,) verdicts
+come back through a pinned buffer and an event, so dispatch does not
+wait for the card.
 Lanes launch exactly n wide: CUDA needs no power-of-two shapes, so the
 padding metric records 0.
 
@@ -57,7 +60,6 @@ flags on the host, for ed25519_kernel.verify_kernel).
 
 from __future__ import annotations
 
-import hashlib
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -159,13 +161,25 @@ def resolve_devices(devices=None) -> List[torch.device]:
     return devices
 
 
+def _offsets(msgs: Sequence[bytes]) -> np.ndarray:
+    """Message i's bytes are b"".join(msgs)[offsets[i]:offsets[i + 1]]."""
+    offsets = np.zeros(len(msgs) + 1, dtype=np.uint64)
+    np.cumsum([len(m) for m in msgs], out=offsets[1:])
+    return offsets
+
+
 def host_k(pubs: np.ndarray, sigs: np.ndarray,
            msgs: Sequence[bytes]) -> np.ndarray:
-    """k = SHA512(R‖A‖M) mod L on the host, (n,32) uint8."""
+    """k = SHA512(R‖A‖M) mod L on the host, (n,32) uint8, for every row
+    (S is not looked at): the native library's batch_prepare when it
+    loads, else the oracle, as the reference's host_k."""
+    lib = _native_verify()
+    if lib is not None:
+        k, _ = lib.batch_prepare(pubs, sigs, b"".join(msgs), _offsets(msgs))
+        return k
     k = np.empty((len(msgs), 32), dtype=np.uint8)
     for i, m in enumerate(msgs):
-        h = hashlib.sha512(sigs[i, :32].tobytes() + pubs[i].tobytes() + m)
-        kv = int.from_bytes(h.digest(), "little") % _ref.L
+        kv = _ref.compute_k(bytes(sigs[i, :32]), bytes(pubs[i]), m)
         k[i] = np.frombuffer(kv.to_bytes(32, "little"), dtype=np.uint8)
     return k
 
@@ -207,9 +221,7 @@ def host_prepare(pubs: np.ndarray, sigs: np.ndarray, msgs: Sequence[bytes]):
     lib = _native_verify()
     if lib is None:
         return _prep_python(pubs, sigs, msgs)
-    offsets = np.zeros(len(msgs) + 1, dtype=np.uint64)
-    np.cumsum([len(m) for m in msgs], out=offsets[1:])
-    k, s_ok = lib.batch_prepare(pubs, sigs, b"".join(msgs), offsets)
+    k, s_ok = lib.batch_prepare(pubs, sigs, b"".join(msgs), _offsets(msgs))
     neg_a, pt_ok = lib.batch_host_precheck(pubs, sigs)
     return k, neg_a, s_ok & pt_ok
 
@@ -220,7 +232,7 @@ def _launch_shards(pubs, sigs, msgs: Sequence[bytes], device_sha: bool,
     from row 0; a shard whose device is None is skipped (another process
     verifies it) and its rows stay False. Msg32 mode is decided once for
     the batch. Each shard's rows go in one pinned host block to its
-    device, run prep -> ladder -> finish there, and come back into their
+    device, run prep -> ladder there, and come back into their
     slice of one pinned (n,) result buffer behind an event recorded on
     that device's current stream. Returns (results, events). PyTorch's
     pinned allocator holds the host block until the copies that read it

@@ -11,10 +11,11 @@ launch, the rows they time on, and the static SASS counts of a kernel.
 - `rows`: n rows holding the differential corpus's tuples and random
   bytes, in a seeded order;
 - `sass_counts`: cuobjdump's static instruction counts of one kernel;
-- `ladder_products`, `imad_per_s`, `card_line`, `device_ms_by_name`:
-  the bound of a ladder run on its scalars, the card's integer-multiply
-  rate, its name and power limit, and a profiler run's device time by
-  kernel.
+- `ladder_products`, `imad_per_s`, `card_line`, `device_ms_by_name`,
+  `other_kernels`: the bound of a ladder run on its scalars, the card's
+  integer-multiply rate, its name and power limit, a profiler run's
+  device time by kernel, and the events in it that are neither verify
+  kernel nor a copy.
 
 Each timing calls `fn` a fixed number of times (`MEDIAN_CALLS`,
 `LOOP_CALLS`), so a script can predict its launches.
@@ -22,6 +23,7 @@ Each timing calls `fn` a fixed number of times (`MEDIAN_CALLS`,
 
 import collections
 import functools
+import hashlib
 import os
 import re
 import statistics
@@ -99,8 +101,11 @@ def sass_counts(lib_path, nvcc, kernel="prep"):
     """Static SASS counts of the kernels whose name holds `kernel` (a
     kernel's listing holds the functions it calls): total, IMAD.WIDE and
     SHFL, and the same for its longest loop, the longest body a backward
-    branch closes (prep: one field squaring per pass), with its selects.
-    None where cuobjdump is not beside nvcc."""
+    branch closes (prep: one field squaring per pass; the ladder: its
+    windows), with its selects and a digest of the loop's instructions
+    and operands, addresses left out, so that two builds' loops compare
+    equal where they hold the same code. None where cuobjdump is not
+    beside nvcc."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
         return None
@@ -132,7 +137,12 @@ def sass_counts(lib_path, nvcc, kernel="prep"):
             loops.append(ins[at[int(m[1], 16)]:i + 1])
     counts = mix(op for _, op, _ in ins)
     if loops:
-        counts["loop"] = mix(op for _, op, _ in max(loops, key=len))
+        loop = max(loops, key=len)
+        counts["loop"] = mix(op for _, op, _ in loop)
+        text = "\n".join(op + re.sub(r"0x[0-9a-f]+", "0x", rest)
+                         for _, op, rest in loop)
+        counts["loop"]["digest"] = hashlib.sha256(
+            text.encode()).hexdigest()[:16]
     return counts
 
 
@@ -225,3 +235,13 @@ def device_ms_by_name(prof):
         if us:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
     return by_name
+
+
+def other_kernels(by_name) -> list:
+    """Names in device_ms_by_name's result that are neither of the two
+    verify kernels nor a copy: a plain-torch operation that ran on the
+    card during a dispatch lands here."""
+    return sorted(name for name in by_name
+                  if "ed25519_prep_kernel" not in name
+                  and "ed25519_ladder_kernel" not in name
+                  and "memcpy" not in name.lower())

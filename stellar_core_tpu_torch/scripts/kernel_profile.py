@@ -9,26 +9,33 @@ port's kernels. At `batch` signatures it builds the reference's rows (16
 keys from sha256(b"kp-%d"), messages sha256(b"profile-%d"), all valid)
 and first holds every stage's output on the card against its plain
 version, byte for byte: prep in msg32 and k mode against prep_plain, the
-ladder against ladder_plain, and the ladder's windows alone (the
-WINDOWS_ONLY variant library, built here) against ladder_windows_plain;
-the verdicts of finish, verify_kernel_msg32, verify_kernel_full and
+ladder in the main path's verdict form (-A read in place from prep's
+(n,64) output, R and prep's flags compared in its epilogue; with its x
+and y stores on, for the check) against ladder_verdict_plain's verdicts,
+x and y, and the ladder's windows alone (the WINDOWS_ONLY variant
+library, built here, on -A's two halves) against ladder_windows_plain;
+the verdicts of the ladder, verify_kernel_msg32, verify_kernel_full and
 CudaBatchVerifier.verify_batch against the oracle (every 64th row) and
 the native batch_verify (every row). At each n of --n the ladder and its
-windows are held against the plain versions' first n rows.
+windows are held against the plain versions' first n rows, and
+verify_kernel_msg32's verdicts against the native ones.
 
 Then it times each stage by device time per launch (`loop_ms`) and by
 the median of single calls through the wrapper (`median_ms`): prep in
-both modes, the ladder, its windows, finish, both verify_kernel entries,
-and verify_batch from bytes to verdicts (host clock); the host's prep
-(host_k, and the native host_prepare), best of 3. From these: each
+both modes, the ladder (verdict form), its windows, both verify_kernel
+entries, and verify_batch from bytes to verdicts (host clock); the
+host's prep (host_k, and the native host_prepare), best of 3. At each n
+the ladder, its windows and verify_kernel_msg32. From these: each
 stage's share of a dispatch, and the epilogue's share of the ladder,
-(ladder - windows) / ladder, at `batch` and at each n. In place of XLA's
+(ladder - windows) / ladder, at `batch` and at each n: Z^-1, the
+encoding and the compare with R. In place of XLA's
 cost analysis, for each kernel: products per signature (the bound's
 count), bytes moved, the integer-multiply bound at this card's SMs x 64
 x max SM clock, kernel_info and static SASS counts. In place of
 jax.profiler, one torch.profiler trace of a verify_batch call (after a
 warm-up call under the profiler), written to a temporary directory whose
-path it prints, with device time by kernel and the idle share.
+path it prints, with device time by kernel, the idle share and any
+device event other than the two kernels and the copies.
 
 Prints one JSON object, then the card's name and power limit as the
 last line. Exits non-zero without a card or on any byte or verdict off.
@@ -53,14 +60,16 @@ ORACLE_STRIDE = 64            # rows held against the oracle: every 64th
 HOST_REPS = 3
 TRACE_CALLS = 2               # a warm-up call under the profiler, then the trace
 # each input read once, each output written once
-BYTES_PER_SIG = {"prep": 128 + 32 + 64 + 1, "ladder": 4 * 32 + 2 * 32,
+# (the ladder's verdict form: S, k, -A, R and ok in, the verdict out)
+BYTES_PER_SIG = {"prep": 128 + 32 + 64 + 1, "ladder": 4 * 32 + 32 + 1 + 1,
                  "windows": 4 * 32 + 3 * 32}
 # launches per call of each timed stage: prep msg32, prep k, ladder,
 # ladder windows
 STAGES = {"prep_msg32": (1, 0, 0, 0), "prep_k": (0, 1, 0, 0),
           "ladder": (0, 0, 1, 0), "windows": (0, 0, 0, 1),
-          "finish": (0, 0, 0, 0), "verify_kernel_msg32": (1, 0, 1, 0),
+          "verify_kernel_msg32": (1, 0, 1, 0),
           "verify_kernel_full": (0, 1, 1, 0), "verify_batch": (1, 0, 1, 0)}
+BY_N = ("ladder", "windows", "verify_kernel_msg32")   # stages timed at each n
 KERNEL_COUNTS = ("prep_msg32", "prep_k", "ladder", "ladder_windows")
 
 
@@ -69,10 +78,10 @@ def expected_launches(ns=NODE_NS) -> dict:
     MEDIAN_CALLS + LOOP_CALLS timed calls of each stage but verify_batch
     (MEDIAN_CALLS on the host clock, then TRACE_CALLS under the
     profiler); at each n
-    one check and the timed calls of the ladder and its windows."""
+    one check and the timed calls of each stage of BY_N."""
     calls = {st: 1 + KT.MEDIAN_CALLS + KT.LOOP_CALLS for st in STAGES}
     calls["verify_batch"] = 1 + KT.MEDIAN_CALLS + TRACE_CALLS
-    for st in ("ladder", "windows"):
+    for st in BY_N:
         calls[st] += len(ns) * (1 + KT.MEDIAN_CALLS + KT.LOOP_CALLS)
     return {name: sum(calls[st] * STAGES[st][i] for st in STAGES)
             for i, name in enumerate(KERNEL_COUNTS)}
@@ -195,23 +204,26 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
         if tag == "prep_msg32":
             k_dev, neg_a, ok = got
             errors["device_k_is_host_k"] = _max_err((k_dev,), (k,))
+    # the windows-only variant takes -A as two (n,32) tensors
     nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
     # ladder_plain is ladder_windows_plain then affine: one run of the
     # windows serves both
     win_want = plain("windows",
                      lambda: LD.ladder_windows_plain(s, k, nax, nay))
-    lad_want = plain("affine", lambda: LD.affine(*win_want))
+    xy_want = plain("affine", lambda: LD.affine(*win_want))
+    lad_want = (LD.finish(*xy_want, r, ok), *xy_want)
     plain_ms["ladder"] = plain_ms["windows"] + plain_ms.pop("affine")
-    x, y = LD.ladder(s, k, nax, nay)
-    errors["ladder"] = _max_err((x, y), lad_want)
+    verdict = LD.ladder_verdict(s, k, neg_a, r, ok, xy=True)
+    errors["ladder"] = _max_err(verdict, lad_want)
     errors["windows"] = _max_err(LD.ladder_windows(s, k, nax, nay),
                                  win_want)
     for n in ns:
-        sub = [t[:n].contiguous() for t in (s, k, nax, nay)]
-        errors[f"ladder@{n}"] = _max_err(LD.ladder(*sub),
-                                         [t[:n] for t in lad_want])
-        errors[f"windows@{n}"] = _max_err(LD.ladder_windows(*sub),
-                                          [t[:n] for t in win_want])
+        errors[f"ladder@{n}"] = _max_err(
+            LD.ladder_verdict(s[:n], k[:n], neg_a[:n], r[:n], ok[:n],
+                              xy=True), [t[:n] for t in lad_want])
+        errors[f"windows@{n}"] = _max_err(
+            LD.ladder_windows(s[:n], k[:n], nax[:n], nay[:n]),
+            [t[:n] for t in win_want])
     checks = {tag: err == 0 for tag, err in errors.items()}
     sample = list(range(0, batch, ORACLE_STRIDE))
     oracle = np.array(oracle_results([(pubs[i].tobytes(), sigs[i].tobytes(),
@@ -220,7 +232,7 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
     native = get_lib().batch_verify(pubs, sigs, b"".join(msgs), offsets)
     verifier = CudaBatchVerifier(device=dev)
     verdicts = {
-        "finish": EK.finish(x, y, r, ok).cpu().numpy(),
+        "ladder_verdicts": verdict[0].cpu().numpy(),
         "verify_kernel_msg32": EK.verify_kernel_msg32(a, r, s, m)
         .cpu().numpy(),
         "verify_kernel_full": EK.verify_kernel_full(a, r, s, k)
@@ -229,6 +241,9 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
     for tag, v in verdicts.items():
         checks[tag] = bool((v == native).all()
                            and (v[sample] == oracle).all())
+    for n in ns:
+        v = EK.verify_kernel_msg32(a[:n], r[:n], s[:n], m[:n]).cpu().numpy()
+        checks[f"verify_kernel_msg32@{n}"] = bool((v == native[:n]).all())
     torch.cuda.synchronize()
     bad = sorted(t for t, good in checks.items() if not good)
     if bad:
@@ -236,34 +251,35 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
                          f"oracle: {bad}")
 
     # --- device time per stage ---------------------------------------------
+    def stage_fns(n):
+        """The stages of BY_N on the first n rows (views: each row block
+        starts 16-byte aligned)."""
+        return {"ladder": lambda: LD.ladder_verdict(s[:n], k[:n], neg_a[:n],
+                                                    r[:n], ok[:n]),
+                "windows": lambda: LD.ladder_windows(s[:n], k[:n], nax[:n],
+                                                     nay[:n]),
+                "verify_kernel_msg32": lambda: EK.verify_kernel_msg32(
+                    a[:n], r[:n], s[:n], m[:n])}
     fns = {"prep_msg32": lambda: EK.prep(a, r, s, m, EK.MODE_MSG32),
            "prep_k": lambda: EK.prep(a, r, s, k, EK.MODE_K),
-           "ladder": lambda: LD.ladder(s, k, nax, nay),
-           "windows": lambda: LD.ladder_windows(s, k, nax, nay),
-           "finish": lambda: EK.finish(x, y, r, ok),
-           "verify_kernel_msg32": lambda: EK.verify_kernel_msg32(a, r, s, m),
+           **stage_fns(batch),
            "verify_kernel_full": lambda: EK.verify_kernel_full(a, r, s, k)}
     stages = {tag: {"loop_ms": KT.loop_ms(fn), "median_ms": KT.median_ms(fn)}
               for tag, fn in fns.items()}
     stages["verify_batch"] = {"wall_ms": _wall_ms(
         lambda: verifier.verify_batch(pubs, sigs, msgs))}
-    by_n = {}
-    for n in ns:
-        sub = [t[:n].contiguous() for t in (s, k, nax, nay)]
-        by_n[n] = {tag: {"loop_ms": KT.loop_ms(lambda: fn(*sub)),
-                         "median_ms": KT.median_ms(lambda: fn(*sub))}
-                   for tag, fn in (("ladder", LD.ladder),
-                                   ("windows", LD.ladder_windows))}
-    by_n[batch] = {tag: stages[tag] for tag in ("ladder", "windows")}
+    by_n = {n: {tag: {"loop_ms": KT.loop_ms(fn), "median_ms": KT.median_ms(fn)}
+                for tag, fn in stage_fns(n).items()} for n in ns}
+    by_n[batch] = {tag: stages[tag] for tag in BY_N}
 
     def share(part, whole, key="loop_ms"):
         return part[key] / whole[key]
     full32, fullk = stages["verify_kernel_msg32"], stages["verify_kernel_full"]
     shares = {
         "of_msg32_dispatch": {t: share(stages[t], full32) for t in
-                              ("prep_msg32", "ladder", "windows", "finish")},
+                              ("prep_msg32", "ladder", "windows")},
         "of_k_dispatch": {t: share(stages[t], fullk) for t in
-                          ("prep_k", "ladder", "finish")},
+                          ("prep_k", "ladder")},
         "host_k_of_verify_batch": host["host_k_s"] * 1e3
         / stages["verify_batch"]["wall_ms"]}
     epilogue = {n: {key: {"ladder": v["ladder"][key],
@@ -271,6 +287,7 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
                           "share": 1 - v["windows"][key] / v["ladder"][key]}
                     for key in ("loop_ms", "median_ms")}
                 for n, v in sorted(by_n.items())}
+    dispatch = {n: v["verify_kernel_msg32"] for n, v in sorted(by_n.items())}
 
     # --- bounds and resources, in place of XLA's cost analysis -------------
     s_np, k_np = s.cpu().numpy(), k.cpu().numpy()
@@ -320,6 +337,7 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
     busy_ms = sum(by_name.values())
     trace = {"path": trace_path, "wall_ms": wall_ms,
              "device_busy_ms": busy_ms,
+             "other_kernels": KT.other_kernels(by_name),
              "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
              "device_ms_by_kernel": dict(sorted(
                  by_name.items(), key=lambda kv: -kv[1])[:8])}
@@ -334,6 +352,7 @@ def run(batch: int = BATCH, ns=NODE_NS, trace_dir=None) -> dict:
             "imad_per_s": rate, "host": host, "checks": checks,
             "max_abs_err": errors, "plain_ms": plain_ms,
             "stages": stages, "shares": shares, "epilogue": epilogue,
+            "dispatch_msg32": dispatch,
             "kernels": kernels, "trace": trace, "launches": counted}
 
 

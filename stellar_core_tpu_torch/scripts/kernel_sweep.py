@@ -19,8 +19,10 @@ limit.)
 
 For each set it reports nvcc's seconds, ptxas's register and spill
 lines and kernel_info; for each (batch, set) the byte check of prep
-(msg32 mode) and the ladder against prep_plain and ladder_plain on rows
-that hold the differential corpus and random bytes, and each kernel's
+(msg32 mode) and of the ladder in the main path's verdict form (with its
+x and y stores on for the check) against prep_plain and
+ladder_verdict_plain on rows that hold the differential corpus and
+random bytes, and each kernel's
 `loop_ms` and `median_ms` (scripts/_kernel_timing.py), taken in turns:
 round r visits the sets in order, round r + 1 in reverse. A set that
 fails to build is listed under `not_built` with the compiler's error.
@@ -91,12 +93,13 @@ def run(batches=BATCHES, sets=DEFAULT_SETS, rounds: int = 2) -> dict:
         a, r, s, m = (on(pubs), on(sigs[:, :32]), on(sigs[:, 32:]),
                       on(m32))
         want_prep = EK.prep_plain(a, r, s, m, EK.MODE_MSG32)
-        k, neg_a, _ = want_prep
-        nax, nay = neg_a[:, :32].contiguous(), neg_a[:, 32:].contiguous()
-        want_ladder = LD.ladder_plain(s, k, nax, nay)
+        k, neg_a, ok = want_prep
+        want_ladder = LD.ladder_verdict_plain(s, k, neg_a[:, :32],
+                                              neg_a[:, 32:], r, ok)
         for v in built:
             got_prep = EK.launch_prep(v["lib"], a, r, s, m, EK.MODE_MSG32)
-            got_ladder = LD.launch_ladder(v["lib"], s, k, nax, nay)
+            got_ladder = LD.launch_ladder(v["lib"], s, k, neg_a, r, ok,
+                                          xy=True)
             torch.cuda.synchronize()
             v["checks"][n] = {
                 "prep": all(torch.equal(g, w)
@@ -111,8 +114,8 @@ def run(batches=BATCHES, sets=DEFAULT_SETS, rounds: int = 2) -> dict:
                 for kern, fn in (
                         ("prep", lambda: EK.launch_prep(lib, a, r, s, m,
                                                         EK.MODE_MSG32)),
-                        ("ladder", lambda: LD.launch_ladder(lib, s, k, nax,
-                                                            nay))):
+                        ("ladder", lambda: LD.launch_ladder(lib, s, k, neg_a,
+                                                            r, ok))):
                     v["times"][n][kern]["loop_ms"].append(KT.loop_ms(fn))
                     v["times"][n][kern]["median_ms"].append(
                         KT.median_ms(fn))

@@ -3,7 +3,9 @@
 blocks and partial four-lane groups), and CudaBatchVerifier and the live
 stack (VerifyService -> BackendSupervisor -> card), the sharded verifier
 on a stand-in mesh of four positions, the v1 entry against the oracle, and
-the txset validation path (chip_smoke.py phase 9 at 64 transactions),
+the ladder's verdict epilogue with and without prep's flags at n = 1 to
+16,384 and its registers and spills, the txset validation path
+(chip_smoke.py phase 9 at 64 transactions),
 the classic operation families on it (phase 10 at 64 transactions), the
 contract auth-entry batches of phase 11 at 200 transactions, the wasm
 contracts of phase 12 at 200 transactions, phases 13-17 (the close,
@@ -151,6 +153,92 @@ def test_prep_geometry_and_resources(card):
     assert m, report
     assert (int(m[2]), int(m[3])) == (0, 0)
     assert info["local_bytes"] == int(m[1])
+
+
+def test_ladder_geometry_and_resources(card):
+    """The ladder runs four lanes per signature in blocks of 128, at the
+    128 registers its bounds allow, and ptxas spilled nothing in it (its
+    local bytes are the epilogue's stack frame)."""
+    import re
+    from stellar_core_tpu_torch.ops import _build
+    info = _build.kernel_info("ed25519_ladder")
+    assert (info["block"], info["threads_per_sig"], info["regs"]) == \
+        (128, 4, 128)
+    report = _build.info["ptxas"]
+    m = re.search(r"Function properties for \S*ed25519_ladder_kernel\S*\s*\n"
+                  r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", report)
+    assert m, report
+    assert (int(m[2]), int(m[3])) == (0, 0)
+    assert info["local_bytes"] == int(m[1])
+
+
+@pytest.fixture(scope="module")
+def verdict_rows(card):
+    """16,384 msg32 rows on the card, every 4th one that the strict
+    checks reject (alternately random bytes with S >= L, and a valid
+    signature with S + L in place of S, whose equation still holds), the
+    rest valid signatures under 64 keys: (a, r, s, m, and prep's k, -A,
+    ok)."""
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    rng = np.random.default_rng(18)
+    valid = []
+    for i in range(64):
+        sk = SecretKey.pseudo_random_for_testing(18000 + i)
+        msg = rng.integers(0, 256, 32).astype(np.uint8).tobytes()
+        valid.append((sk.public_key().raw, sk.sign(msg), msg))
+    bad = []
+    for j in range(64):
+        if j % 2:
+            junk = rng.integers(0, 256, 128).astype(np.uint8).tobytes()
+            bad.append((junk[:32], junk[32:95] + b"\xff", junk[96:]))
+        else:
+            p, sig, msg = valid[j]
+            s_l = int.from_bytes(sig[32:], "little") + ref.L
+            bad.append((p, sig[:32] + s_l.to_bytes(32, "little"), msg))
+    rows = [bad[(i // 4) % 64] if i % 4 == 3 else valid[i % 64]
+            for i in range(16384)]
+    a, r, s, m = (_on(card, np.frombuffer(b"".join(t[0] for t in rows),
+                                          np.uint8).reshape(-1, 32)),
+                  _on(card, np.frombuffer(b"".join(t[1][:32] for t in rows),
+                                          np.uint8).reshape(-1, 32)),
+                  _on(card, np.frombuffer(b"".join(t[1][32:] for t in rows),
+                                          np.uint8).reshape(-1, 32)),
+                  _on(card, np.frombuffer(b"".join(t[2] for t in rows),
+                                          np.uint8).reshape(-1, 32)))
+    k, neg_a, ok = EK.prep(a, r, s, m, EK.MODE_MSG32)
+    return a, r, s, m, k, neg_a, ok
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 200, 1831, 16384])
+def test_ladder_verdict_matches_plain(card, verdict_rows, n):
+    """The ladder's verdict epilogue (Z^-1, the encoding, the compare with
+    R, the AND with prep's flags; -A read in place from prep's (n,64)
+    output) equals its plain version byte for byte, with prep's flags and
+    without them (the v1 form), and its optional x and y stores equal
+    ladder_plain's, on rows of which a quarter the strict checks reject
+    (some of them with the equation holding). The dispatch entries give
+    the same verdicts: verify_kernel_msg32, and verify_kernel on -A's two
+    halves (a row stride of 32)."""
+    a, r, s, m, k, neg_a, ok = (t[:n] for t in verdict_rows)
+    assert int((ok == 0).sum()) == n // 4
+    want, x, y = LD.ladder_verdict_plain(s, k, neg_a[:, :32],
+                                         neg_a[:, 32:], r, ok)
+    for flags, want_v in ((ok, want), (None, LD.encodes_r(x, y, r))):
+        before = LD.ladder.launches
+        got = LD.ladder_verdict(s, k, neg_a, r, flags, xy=True)
+        alone = LD.ladder_verdict(s, k, neg_a, r, flags)
+        torch.cuda.synchronize()
+        assert LD.ladder.launches == before + 2
+        assert got[0].dtype == alone.dtype == torch.bool
+        assert torch.equal(got[0], want_v) and torch.equal(alone, want_v)
+        assert torch.equal(got[1], x) and torch.equal(got[2], y)
+    assert bool(LD.encodes_r(x, y, r)[3::4].any()) == (n >= 4)
+    assert torch.equal(EK.verify_kernel_msg32(a, r, s, m), want)
+    assert torch.equal(
+        EK.verify_kernel(s, k, neg_a[:, :32].contiguous(),
+                         neg_a[:, 32:].contiguous(), r),
+        LD.encodes_r(x, y, r))
 
 
 def test_verifier_matches_oracle_on_card(card):

@@ -308,6 +308,46 @@ def test_host_prepare_bytes_equal_reference(corpus):
     assert not any(w and not o for w, o in zip(want, ok))
 
 
+@pytest.mark.parametrize("native", [True, False])
+def test_host_k_equals_reference(corpus, monkeypatch, native):
+    """host_k on the corpus (the seven message lengths, the empty one,
+    rows with S >= L, non-canonical A and R): byte for byte the JAX
+    package's host_k, which takes the native library's batch_prepare.
+    native: the port's takes it too whenever the library loads (a
+    recording stand-in sees the one call); else (_native_verify giving
+    None) the oracle's compute_k gives the same bytes."""
+    from stellar_core_tpu.ops import verifier as jver
+    items, _ = corpus
+    pubs = np.frombuffer(b"".join(p for p, _, _ in items),
+                         np.uint8).reshape(-1, 32)
+    sigs = np.frombuffer(b"".join(s for _, s, _ in items),
+                         np.uint8).reshape(-1, 64)
+    msgs = [m for _, _, m in items]
+    assert {len(m) for m in msgs} == {0, 1, 31, 32, 33, 64, 100}
+    assert any(int.from_bytes(s[32:], "little") >= tref.L
+               for _, s, _ in items)
+    assert any(tref.pt_decompress(p, strict=True) is None
+               and tref.pt_decompress(p, strict=False) is not None
+               for p, _, _ in items)
+    assert any(tref.pt_decompress(s[:32], strict=True) is None
+               and tref.pt_decompress(s[:32], strict=False) is not None
+               for _, s, _ in items)
+    calls = []
+    lib = V._native_verify()
+    assert lib is not None
+
+    class Recording:
+        def batch_prepare(self, *args):
+            calls.append(len(args[2]))
+            return lib.batch_prepare(*args)
+    monkeypatch.setattr(V, "_native_verify",
+                        (lambda: Recording()) if native else (lambda: None))
+    got = V.host_k(pubs, sigs, msgs)
+    assert got.dtype == np.uint8 and got.shape == (len(items), 32)
+    assert np.array_equal(got, jver.host_k(pubs, sigs, msgs))
+    assert calls == ([sum(map(len, msgs))] if native else [])
+
+
 def test_v1_entry_matches_oracle():
     """verify_kernel (the Pallas ladder's v1 entry) on the 8 tuples of
     tests/test_tpu_verifier.py::test_pallas_ladder_interpret_matches_oracle
